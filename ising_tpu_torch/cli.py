@@ -1,0 +1,163 @@
+"""Command-line interface of the port: the JAX package's flags, plus
+--device. Runs on the card unless --device cpu is given:
+
+    python -m ising_tpu_torch --backend bit1 -y 2048 -x 2048 -n 128 -a 0.66 -p 16
+
+Flags of features the port does not run yet exit 1 with the ROADMAP.md
+queue-1 item that ports them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .config import SimConfig
+from .constants import ALPHA_DEF, SEED_DEF, TCRIT
+from .rng import RNG_MODES
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ising-tpu-torch",
+        description="2D Ising Monte Carlo (checkerboard Metropolis) in "
+                    "PyTorch with hand-written CUDA kernels")
+    p.add_argument("-x", "--cols", type=int, default=2048,
+                   help="lattice columns (X)")
+    p.add_argument("-y", "--rows", type=int, default=2048,
+                   help="lattice rows (Y)")
+    p.add_argument("-n", "--nit", type=int, default=128,
+                   help="number of trial iterations")
+    p.add_argument("-w", "--nwarmup", type=int, default=0,
+                   help="number of warmup iterations")
+    p.add_argument("-s", "--seed", type=int, default=SEED_DEF,
+                   help="random seed")
+    p.add_argument("-a", "--alpha", type=float, default=None,
+                   help=f"temperature = alpha * T_crit ({TCRIT:.6f}); "
+                        f"default alpha {ALPHA_DEF}")
+    p.add_argument("-t", "--temp", type=float, default=None,
+                   help="absolute temperature (overrides --alpha)")
+    p.add_argument("-p", "--print", dest="print_freq", type=int, default=0,
+                   help="print magnetization every PRINT steps")
+    p.add_argument("-e", "--exppr", action="store_true",
+                   help="print on the exponential 2^(j/4) schedule")
+    p.add_argument("-E", "--exppr-ref", action="store_true",
+                   help="like -e but with >=2x thinning from step 152")
+    p.add_argument("-m", "--magn", dest="tgt_magn", type=float, default=None,
+                   help="stop when |magnetization - MAGN| < 1e-3")
+    p.add_argument("-u", "--update", metavar="STEP,FREQ", default=None,
+                   help="temperature ramp: add STEP every FREQ steps")
+    p.add_argument("-J", "--j-prob", type=float, default=None,
+                   help="probability of antiferromagnetic links "
+                        "(not yet ported)")
+    p.add_argument("--j-seed", type=int, default=None,
+                   help="seed for the disorder realization")
+    p.add_argument("--field", type=float, default=0.0,
+                   help="uniform external field h (not yet ported)")
+    p.add_argument("--xsl", type=int, default=None,
+                   help="X size of sub-lattice replicas (not yet ported)")
+    p.add_argument("--ysl", type=int, default=None,
+                   help="Y size of sub-lattice replicas (not yet ported)")
+    p.add_argument("-d", "--devs", type=int, default=1,
+                   help="number of devices (the port runs one)")
+    p.add_argument("--halo-overlap", action="store_true",
+                   help="overlap the halo exchange (no effect on one device)")
+    p.add_argument("-o", "--out", action="store_true",
+                   help="dump the lattice (not yet ported)")
+    p.add_argument("-c", "--corr", action="store_true",
+                   help="correlation output (not yet ported)")
+    p.add_argument("--backend", default="xla",
+                   choices=("xla", "dense", "packed", "bit1", "mxu"),
+                   help="update kernel backend (the port runs bit1)")
+    p.add_argument("--rng", default="threefry13",
+                   choices=tuple(sorted(RNG_MODES)),
+                   help="counter rng mode (the port runs philox, philox7, "
+                        "threefry and threefry13)")
+    p.add_argument("--algo", default="metropolis",
+                   choices=("metropolis", "sw"),
+                   help="update algorithm (sw is not yet ported)")
+    p.add_argument("--pt", default=None, metavar="T1,T2,...",
+                   help="parallel tempering (not yet ported)")
+    p.add_argument("--sweeps-per-swap", type=int, default=8,
+                   help="Metropolis sweeps between swap phases (--pt)")
+    p.add_argument("--use-common-seed", action="store_true",
+                   help="accepted for CLI parity; a no-op")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="profiler trace (not yet ported)")
+    p.add_argument("--checkpoint", default=None, metavar="PATH",
+                   help="write a checkpoint (not yet ported)")
+    p.add_argument("--resume", default=None, metavar="PATH",
+                   help="resume from a checkpoint (not yet ported)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    return p
+
+
+def unported_flag(args):
+    """(flag, ROADMAP item) of the first flag the port does not run yet."""
+    checks = (
+        ("-J/--j-prob", args.j_prob is not None, 4),
+        ("--field", args.field != 0.0, 5),
+        ("--xsl/--ysl", args.xsl is not None or args.ysl is not None, 4),
+        ("--devs > 1", args.devs != 1, 7),
+        ("-o/--out", args.out, 6),
+        ("-c/--corr", args.corr, 6),
+        ("--resume", args.resume is not None, 6),
+        ("--checkpoint", args.checkpoint is not None, 6),
+        ("--algo sw", args.algo == "sw", 10),
+        ("--pt", args.pt is not None, 11),
+        ("--profile", args.profile is not None, 12),
+    )
+    for flag, used, item in checks:
+        if used:
+            return flag, item
+    return None
+
+
+def config_from_args(args) -> SimConfig:
+    temp_step, temp_freq = 0.0, 0
+    if args.update:
+        parts = args.update.split(",")
+        if len(parts) != 2:
+            raise SystemExit("-u expects STEP,FREQ (e.g. -u 0.01,100)")
+        temp_step, temp_freq = float(parts[0]), int(parts[1])
+    return SimConfig(
+        nrows=args.rows, ncols=args.cols, temp=args.temp, alpha=args.alpha,
+        seed=args.seed, backend=args.backend, rng=args.rng,
+        nwarmup=args.nwarmup, niters=args.nit,
+        print_freq=args.print_freq,
+        print_exp=args.exppr or args.exppr_ref, exp_thinned=args.exppr_ref,
+        tgt_magn=args.tgt_magn, temp_step=temp_step, temp_freq=temp_freq,
+        halo_overlap=args.halo_overlap, device=args.device)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    unported = unported_flag(args)
+    if unported is not None:
+        flag, item = unported
+        print(f"ERROR: {flag} is not yet ported (ROADMAP item {item})",
+              file=sys.stderr)
+        return 1
+    from .driver import Simulation
+    try:
+        cfg = config_from_args(args)
+        sim = Simulation(cfg)
+    except (ValueError, NotImplementedError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+
+    print("ising-tpu-torch run:")
+    print(f"\tlattice: {cfg.nrows} x {cfg.ncols} "
+          f"({cfg.nspins / 1e6:.1f} M spins)")
+    print(f"\ttemperature: {sim.temp:f} ({sim.temp / TCRIT:f} * T_crit)")
+    print(f"\tseed: {cfg.seed}")
+    print(f"\tbackend: {cfg.backend} (rng: {cfg.rng})")
+    print(f"\tdevice: {sim.device}")
+    print(f"\titerations: {cfg.niters} (+{cfg.nwarmup} warmup)")
+    result = sim.run()
+    return 0 if result["steps"] else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,160 @@
+"""Where the main path's time goes on the card, from a torch.profiler trace.
+
+    python3 -m ising_tpu_torch.device_trace [--size 16384] [--rng threefry13]
+
+Runs the run loop the CLI runs (bit1, T = 1.5, -w 8 -n 64 -p 16 by
+default) with the profiler recording CPU and CUDA activity, and prints,
+for the span of the run loop that its flips/ns times (after the warm-up
+and the first measurement, which `driver.run_loop` marks as
+TIMED_WINDOW):
+
+- the span's wall time and the device's busy time inside it (the union
+  of kernel, copy and set intervals), hence the device's idle share;
+- device time by kernel name;
+- the gaps between one bit1_sweep kernel and the next kernel: a gap near
+  zero means the host enqueues launches faster than the card runs them.
+
+The last line is one JSON object with those numbers. With --device cpu it
+records CPU activity only, and the device numbers are zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from .config import SimConfig
+from .driver import TIMED_WINDOW as WINDOW
+from .driver import Simulation
+
+KERNEL = "bit1_sweep_kernel"
+
+
+def union_length(intervals) -> float:
+    """Total length covered by (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def summarize(events):
+    """Busy time, idle share, time by name and launch gaps (microseconds)
+    of the device work in the WINDOW range of profiler `events`.
+
+    The wall time is the host's range. The device work is picked by the
+    range's mirror on the device timeline, a user annotation from the
+    first to the last device activity launched inside the range, so that
+    an offset between the host and device clocks cannot move kernels in or
+    out of it. Without a mirror (no device activity), the host's range is
+    used."""
+    host = [e.time_range for e in events
+            if e.name == WINDOW and e.device_type == DeviceType.CPU]
+    if not host:
+        raise RuntimeError(f"no {WINDOW} range in the trace")
+    mirror = [e.time_range for e in events
+              if e.name == WINDOW and e.device_type == DeviceType.CUDA]
+    w0, w1 = host[0].start, host[0].end
+    d0, d1 = (mirror[0].start, mirror[0].end) if mirror else (w0, w1)
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in events if e.device_type == DeviceType.CUDA
+                 and e.name != WINDOW
+                 and e.time_range.start >= d0 and e.time_range.end <= d1)
+    busy = union_length((s, e) for s, e, _ in dev)
+    by_name = {}
+    for s, e, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    gaps = [dev[i + 1][0] - dev[i][1] for i in range(len(dev) - 1)
+            if KERNEL in dev[i][2]]
+    gaps.sort()
+    wall = w1 - w0
+    return {
+        "wall_us": wall, "device_busy_us": busy,
+        "idle_share": 1.0 - busy / wall if wall > 0 else None,
+        "device_us_by_name": dict(sorted(by_name.items(),
+                                         key=lambda kv: -kv[1])),
+        "kernel_launches": sum(KERNEL in n for _, _, n in dev),
+        "gap_after_kernel_us": {
+            "n": len(gaps),
+            "median": gaps[len(gaps) // 2] if gaps else None,
+            "p90": gaps[math.ceil(0.9 * len(gaps)) - 1] if gaps else None,
+            "max": gaps[-1] if gaps else None},
+    }
+
+
+def trace(cfg: SimConfig):
+    """Run cfg's run loop without, then under the profiler; the first
+    run's flips/ns is what the profiler's own cost is measured against."""
+    untraced = Simulation(cfg).run(log=lambda line: None)
+    sim = Simulation(cfg)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if sim.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    lines = []
+    with torch.profiler.profile(activities=acts) as prof:
+        result = sim.run(log=lines.append)
+    out = summarize(prof.events())
+    out["flips_ns"] = result["flips_ns"]
+    out["flips_ns_untraced"] = untraced["flips_ns"]
+    return out, lines
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--size", type=int, default=16384)
+    p.add_argument("--rng", action="append", default=None,
+                   help="rng mode; repeat for several (default threefry13 "
+                        "and philox)")
+    p.add_argument("-w", "--nwarmup", type=int, default=8)
+    p.add_argument("-n", "--nit", type=int, default=64)
+    p.add_argument("-p", "--print", dest="print_freq", type=int, default=16)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    results = {}
+    for mode in args.rng or ["threefry13", "philox"]:
+        cfg = SimConfig(nrows=args.size, ncols=args.size, temp=1.5,
+                        backend="bit1", rng=mode, nwarmup=args.nwarmup,
+                        niters=args.nit, print_freq=args.print_freq,
+                        device=args.device)
+        t0 = time.perf_counter()
+        out, lines = trace(cfg)
+        for line in lines:
+            print(line)
+        gaps = out["gap_after_kernel_us"]
+        print(f"[trace] {args.size}^2 {mode}: timed span {out['wall_us']:.1f} "
+              f"us, device busy {out['device_busy_us']:.1f} us, idle share "
+              f"{out['idle_share']:.4f}; {out['kernel_launches']} kernel "
+              f"launches (of {2 * cfg.niters}), gap after each: median "
+              f"{gaps['median']} us, p90 "
+              f"{gaps['p90']} us, max {gaps['max']} us "
+              f"; {out['flips_ns']:.2f} flips/ns traced, "
+              f"{out['flips_ns_untraced']:.2f} untraced "
+              f"({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        for name, us in list(out["device_us_by_name"].items())[:8]:
+            print(f"[trace]   {us:12.1f} us  {name[:100]}")
+        results[mode] = out
+    if args.device != "cpu":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip())
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

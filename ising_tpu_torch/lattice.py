@@ -1,0 +1,71 @@
+"""Checkerboard lattice state: compact black/white bit planes (torch).
+
+The port of ``ising_tpu/lattice.py``. The full (Y, X) periodic lattice is
+split by color c = (x + y) mod 2 into two compact (Y, X/2) planes:
+
+  even row y:  black[y, j] = s[y, 2j]      white[y, j] = s[y, 2j + 1]
+  odd  row y:  black[y, j] = s[y, 2j + 1]  white[y, j] = s[y, 2j]
+
+Spins are bits {0, 1} in uint8 (physical spin 2b - 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .constants import BLACK, WHITE
+from .rng import TAG_INIT, color_draws
+
+
+def init_bits(seed: int, nrows: int, ncols: int, *, row0: int = 0,
+              local_rows: int | None = None, device="cuda"):
+    """Random 50/50 initial spins: the top bit of each compact site's
+    Philox-10 draw on the INIT stream (row0/local_rows carve out rows)."""
+    ch = ncols // 2
+    rows = local_rows if local_rows is not None else nrows
+    planes = []
+    for color in (BLACK, WHITE):
+        d = color_draws(seed, rows, ch, step=0, tag=TAG_INIT | color,
+                        row0=row0, row_stride=ch, device=device)
+        planes.append((d >> 31).to(torch.uint8))
+    return planes[0], planes[1]
+
+
+def init_store(seed: int, nrows: int, ncols: int, encode,
+               chunk_rows: int = 8192, device="cuda"):
+    """Random initial state straight in backend storage, in row chunks:
+    the init stream is row-indexed and encode is row-local, so this equals
+    the one-shot path with transients bounded by O(chunk_rows * ncols)."""
+    if nrows <= chunk_rows:
+        return encode(*init_bits(seed, nrows, ncols, device=device))
+    if nrows % chunk_rows:
+        start = chunk_rows - (chunk_rows % 2)
+        chunk_rows = next(c for c in range(start, 1, -2) if nrows % c == 0)
+    chunks = [encode(*init_bits(seed, nrows, ncols, row0=r,
+                                local_rows=chunk_rows, device=device))
+              for r in range(0, nrows, chunk_rows)]
+    return (torch.cat([c[0] for c in chunks]),
+            torch.cat([c[1] for c in chunks]))
+
+
+def _row_odd(nrows: int, device):
+    return (torch.arange(nrows, device=device) % 2 == 1)[:, None]
+
+
+def compact_to_full(black, white):
+    """Merge compact planes into the full (Y, X) lattice of {0,1} bits."""
+    nrows, ch = black.shape
+    odd = _row_odd(nrows, black.device)
+    full = torch.empty((nrows, 2 * ch), dtype=black.dtype,
+                       device=black.device)
+    full[:, 0::2] = torch.where(odd, white, black)
+    full[:, 1::2] = torch.where(odd, black, white)
+    return full
+
+
+def full_to_compact(full):
+    """Split a full (Y, X) bit lattice into compact (black, white) planes."""
+    odd = _row_odd(full.shape[0], full.device)
+    even_cols, odd_cols = full[:, 0::2], full[:, 1::2]
+    return (torch.where(odd, odd_cols, even_cols),
+            torch.where(odd, even_cols, odd_cols))

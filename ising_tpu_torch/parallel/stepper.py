@@ -1,0 +1,33 @@
+"""The single-device step loop of the port.
+
+The ndev == 1 branch of ``ising_tpu/parallel/sharded.py`` without fusion or
+collectives: each step updates black against white, then white against
+black, with the periodic wrap rows taken from the other plane. The loop
+runs on the host; each color phase is one bit1 kernel launch.
+"""
+
+from __future__ import annotations
+
+from ..config import not_ported
+from ..constants import BLACK, WHITE
+from ..rng import MASK
+
+
+def make_stepper(cfg, backend):
+    """step_n(black, white, thr10, step0, n) -> (black, white) after n
+    steps; the planes are updated in place."""
+    if cfg.ndev != 1:
+        raise not_ported("more than one device", 7)
+
+    def step_n(b, w, thr10, step0, n):
+        for i in range(n):
+            step = (int(step0) + i) & MASK
+            b = backend.update_color(b, w, color=BLACK, thr10=thr10,
+                                     step=step, row0=0, src_up=w[-1:],
+                                     src_dn=w[:1])
+            w = backend.update_color(w, b, color=WHITE, thr10=thr10,
+                                     step=step, row0=0, src_up=b[-1:],
+                                     src_dn=b[:1])
+        return b, w
+
+    return step_n

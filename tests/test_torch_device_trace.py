@@ -1,0 +1,59 @@
+"""The device-trace summary: interval union, window, idle share, gaps."""
+
+from types import SimpleNamespace
+
+import pytest
+from torch.autograd import DeviceType
+
+from ising_tpu_torch import device_trace
+
+
+@pytest.mark.parametrize("intervals, want", [
+    ([], 0.0),
+    ([(0, 2)], 2.0),
+    ([(0, 2), (1, 3)], 3.0),
+    ([(4, 5), (0, 2), (1, 1.5)], 3.0),
+    ([(0, 1), (1, 2), (5, 9)], 6.0),
+])
+def test_union_length(intervals, want):
+    assert device_trace.union_length(intervals) == want
+
+
+def _ev(name, start, end, dev):
+    return SimpleNamespace(name=name, device_type=dev,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+def test_summarize_counts_only_the_window():
+    k = "void (anonymous namespace)::bit1_sweep_kernel<1, 13, false>()"
+    events = [
+        _ev(device_trace.WINDOW, 100.0, 200.0, DeviceType.CPU),
+        _ev(k, 90.0, 99.0, DeviceType.CUDA),        # before the window
+        _ev(k, 110.0, 130.0, DeviceType.CUDA),
+        _ev(k, 131.0, 151.0, DeviceType.CUDA),
+        _ev("popcount", 160.0, 170.0, DeviceType.CUDA),
+        _ev("popcount", 165.0, 175.0, DeviceType.CUDA),
+    ]
+    want = {"wall_us": 100.0, "device_busy_us": 55.0, "kernel_launches": 2,
+            "device_us_by_name": {k: 40.0, "popcount": 20.0},
+            "gap_after_kernel_us": {"n": 2, "median": 9.0, "p90": 9.0,
+                                    "max": 9.0}}
+    out = device_trace.summarize(events)
+    assert {key: out[key] for key in want} == want
+    assert out["idle_share"] == pytest.approx(0.45)
+    # The device clock runs 50 us behind the host's: the window's mirror
+    # on the device timeline still selects the same device work.
+    shifted = [_ev(e.name, e.time_range.start - 50, e.time_range.end - 50,
+                   e.device_type) if e.device_type == DeviceType.CUDA else e
+               for e in events]
+    shifted.append(_ev(device_trace.WINDOW, 60.0, 125.0, DeviceType.CUDA))
+    out = device_trace.summarize(shifted)
+    assert {key: out[key] for key in want} == want
+
+
+def test_trace_runs_on_cpu(capsys):
+    assert device_trace.main(["--size", "64", "-w", "2", "-n", "4", "-p",
+                              "2", "--rng", "philox", "--device",
+                              "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Final   magnetization" in out and "[trace] 64^2 philox" in out

@@ -1,0 +1,178 @@
+"""The port's Simulation, run loop and CLI against the JAX package's
+(bit1 backend, Pallas in interpret mode on the CPU). Log lines and
+integer observables must be identical, apart from the timing line."""
+
+import numpy as np
+import pytest
+import torch
+
+from ising_tpu import SimConfig as JaxConfig
+from ising_tpu import cli as jcli
+from ising_tpu import observables as jobs
+from ising_tpu.driver import Simulation as JaxSimulation
+from ising_tpu_torch import SimConfig, cli, interop
+from ising_tpu_torch import config as tconfig
+from ising_tpu_torch.driver import Simulation, exponential_print_steps, \
+    reference_exp_times
+from ising_tpu_torch.ops import get_backend
+from ising_tpu_torch.ops.bit1 import Bit1Backend
+
+
+def _logs(sim):
+    lines = []
+    sim.run(log=lines.append)
+    return lines
+
+
+def _same_logs(a, b):
+    """Equal line for line, except the final timing line."""
+    assert len(a) == len(b)
+    assert a[-1].startswith("Kernel execution time") and \
+        b[-1].startswith("Kernel execution time")
+    assert a[:-1] == b[:-1]
+
+
+RUNS = [
+    dict(nrows=16, ncols=128, temp=1.8, seed=11, rng="threefry13",
+         niters=6, print_freq=2),
+    dict(nrows=8, ncols=64, temp=0.0, seed=12, rng="philox", niters=5,
+         nwarmup=2, print_freq=1),
+    dict(nrows=16, ncols=64, temp=2.5, seed=13, rng="philox7", niters=9,
+         print_exp=True, temp_step=-1.5, temp_freq=4),
+    dict(nrows=8, ncols=128, temp=1.2, seed=14, rng="threefry", niters=8,
+         print_freq=2, tgt_magn=0.0),
+]
+
+
+@pytest.mark.parametrize("kw", RUNS)
+def test_run_loop_lines_match_jax(kw):
+    jsim = JaxSimulation(JaxConfig(backend="bit1", **kw))
+    tsim = Simulation(SimConfig(backend="bit1", device="cpu", **kw))
+    _same_logs(_logs(jsim), _logs(tsim))
+    assert tsim.measure() == {k: v for k, v in jsim.measure().items()}
+    jb, jw = (np.asarray(x) for x in (jsim.black, jsim.white))
+    tb, tw = interop.to_numpy_words(tsim.black, tsim.white)
+    np.testing.assert_array_equal(tb, jb)
+    np.testing.assert_array_equal(tw, jw)
+
+
+def test_energy_rows_match_jax():
+    gen = np.random.default_rng(5)
+    for Y, W1 in ((4, 1), (6, 3), (10, 8)):
+        b = gen.integers(0, 1 << 32, (Y, W1), dtype=np.uint64).astype(np.uint32)
+        w = gen.integers(0, 1 << 32, (Y, W1), dtype=np.uint64).astype(np.uint32)
+        tb, tw = interop.from_numpy_words(b, w, device="cpu")
+        be = Bit1Backend(SimConfig(backend="bit1", device="cpu"))
+        np.testing.assert_array_equal(
+            be.energy_rows(tb, tw).numpy(),
+            np.asarray(jobs.bit1_energy_row_sums(b, w)))
+        np.testing.assert_array_equal(
+            be.row_up_counts(tb, tw).numpy(),
+            np.asarray(jobs.word_row_up_counts(b, w)))
+
+
+def test_measure_and_energy_match_jax():
+    kw = dict(nrows=16, ncols=128, temp=1.5, seed=21, niters=1)
+    jsim = JaxSimulation(JaxConfig(backend="bit1", **kw))
+    tsim = Simulation(SimConfig(backend="bit1", device="cpu", **kw))
+    for _ in range(2):
+        assert tsim.measure() == jsim.measure()
+        assert tsim.energy_total() == jsim.energy_total()
+        assert tsim.energy() == jsim.energy()
+        jsim.advance(3)
+        tsim.advance(3)
+
+
+def test_set_temperature_switches_greedy():
+    kw = dict(nrows=8, ncols=64, temp=1.5, seed=22, niters=1)
+    jsim = JaxSimulation(JaxConfig(backend="bit1", **kw))
+    tsim = Simulation(SimConfig(backend="bit1", device="cpu", **kw))
+    assert tsim.backend.greedy is False
+    for temp in (0.0, 2.0, -1.0):
+        jsim.set_temperature(temp)
+        tsim.set_temperature(temp)
+        assert tsim.backend.greedy == (temp <= 0)
+        jsim.advance(2)
+        tsim.advance(2)
+        jb, _ = (np.asarray(x) for x in (jsim.black, jsim.white))
+        np.testing.assert_array_equal(
+            interop.to_numpy_words(tsim.black, tsim.white)[0], jb)
+
+
+def test_schedules_match_jax():
+    from ising_tpu import driver as jdriver
+    for n in (1, 16, 500, 5000):
+        assert exponential_print_steps(n) == jdriver.exponential_print_steps(n)
+        assert reference_exp_times(n) == jdriver.reference_exp_times(n)
+
+
+def _mag_lines(text):
+    return [ln for ln in text.splitlines() if "magnetization" in ln]
+
+
+@pytest.mark.parametrize("rng", ["threefry13", "philox"])
+def test_cli_prints_jax_magnetization_lines(rng, capsys):
+    argv = ["--backend", "bit1", "-x", "128", "-y", "16", "-n", "6", "-p",
+            "2", "-t", "1.7", "-s", "77", "--rng", rng]
+    assert jcli.main(argv) == 0
+    want = _mag_lines(capsys.readouterr().out)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = _mag_lines(capsys.readouterr().out)
+    assert len(want) == 5 and got == want
+
+
+@pytest.mark.parametrize("extra", [
+    ["-J", "0.1"], ["--field", "0.2"], ["--xsl", "32", "--ysl", "8"],
+    ["--devs", "2"], ["-o"], ["-c"], ["--resume", "x.ck"],
+    ["--checkpoint", "x.ck"], ["--algo", "sw"], ["--pt", "1.0,2.0"],
+    ["--profile", "tracedir"], ["--rng", "chacha8"], ["--rng", "hw"],
+    ["--backend", "packed"],
+])
+def test_cli_unported_flags_exit_1(extra, capsys):
+    argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
+            "--device", "cpu"]
+    assert cli.main(argv + extra) == 1
+    assert "not yet ported (ROADMAP item" in capsys.readouterr().err
+
+
+def test_cli_default_backend_is_not_ported(capsys):
+    assert cli.main(["-x", "64", "-y", "8", "--device", "cpu"]) == 1
+    assert "'xla' backend is not yet ported (ROADMAP item 1)" in \
+        capsys.readouterr().err
+
+
+def test_registry_and_config_fences():
+    with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
+        get_backend(SimConfig(device="cpu"))
+    assert isinstance(get_backend(SimConfig(backend="bit1", ncols=64)),
+                      Bit1Backend)
+    for kw, item in ((dict(j_prob=0.1), 4), (dict(xsl=32, ysl=8), 4),
+                     (dict(ndev=2), 7), (dict(dump_lattice=True), 6),
+                     (dict(rng="chacha6b"), 2)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            SimConfig(backend="bit1", nrows=16, ncols=64, **kw)
+    with pytest.raises(ValueError):
+        SimConfig(backend="bit1", ncols=96)
+
+
+def test_cuda_requested_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulation(SimConfig(backend="bit1", nrows=8, ncols=64))
+    with pytest.raises(RuntimeError):
+        tconfig.resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        interop.from_numpy_words(np.zeros((1, 1), np.uint32),
+                                 np.zeros((1, 1), np.uint32))
+
+
+def test_module_entry_point_runs_on_cpu():
+    import subprocess
+    import sys
+    proc = subprocess.run(
+        [sys.executable, "-m", "ising_tpu_torch", "--backend", "bit1", "-x",
+         "64", "-y", "8", "-n", "2", "-p", "1", "-t", "1.5", "--device",
+         "cpu"], capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "Final   magnetization" in proc.stdout
+    assert "flips/ns" in proc.stdout

@@ -1,0 +1,253 @@
+"""Guards of the port: no JAX in it, no quiet CPU path on the card, and a
+chip_smoke.py that fails where there is no card."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ising_tpu_torch.models import ising
+from ising_tpu_torch.ops import bit1, kernel_lib
+
+ROOT = Path(__file__).resolve().parent.parent
+
+BLOCK_JAX = textwrap.dedent("""
+    import importlib.abc, pkgutil, sys
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "ising_tpu"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import ising_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(
+        ising_tpu_torch.__path__, "ising_tpu_torch.")
+        if not m.name.endswith("__main__")]
+    for name in names:
+        __import__(name)
+    import chip_smoke
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "ising_tpu")]
+    assert not bad, bad
+    print("imported", len(names), "modules")
+""")
+
+
+def _run(args, cwd, **kw):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH="")
+    env.pop("JAX_PLATFORMS", None)
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=240, **kw)
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    proc = _run([sys.executable, "-c", BLOCK_JAX], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split()[1])
+    assert n >= 15
+
+
+def test_block_hook_refuses_jax():
+    """The hook above really blocks: importing ising_tpu fails under it."""
+    code = BLOCK_JAX.split("import ising_tpu_torch")[0] + "import ising_tpu\n"
+    proc = _run([sys.executable, "-c", code], ROOT)
+    assert proc.returncode != 0 and "blocked import" in proc.stderr
+
+
+def _last_line(text):
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    return lines[-1] if lines else ""
+
+
+def test_chip_smoke_fails_without_card():
+    proc = _run([sys.executable, "chip_smoke.py"], ROOT)
+    assert proc.returncode != 0
+    assert '"ok": true' not in _last_line(proc.stdout)
+    assert "FAILED" in proc.stdout
+
+
+def test_chip_smoke_fails_outside_repository(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    proc = _run([sys.executable, "chip_smoke.py"], tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+class FakeCudaWords:
+    """Stands in for a CUDA int32 tensor: what the wrapper checks."""
+
+    def __init__(self, shape, ptr):
+        self.shape, self.ptr = shape, ptr
+        self.device = torch.device("cuda", 0)
+        self.dtype = torch.int32
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self.ptr
+
+    def numel(self):
+        return self.shape[0] * self.shape[1]
+
+
+class FakeLib:
+    def __init__(self, code=0):
+        self.code, self.calls = code, []
+
+    def bit1_sweep_launch(self, *args):
+        self.calls.append(args)
+        return self.code
+
+    def ising_cuda_error_string(self, code):
+        return b"fake error"
+
+
+def _fake_args():
+    H, W1 = 8, 4
+    dst = FakeCudaWords((H, W1), 1 << 20)
+    src = FakeCudaWords((H, W1), 2 << 20)
+    up = FakeCudaWords((1, W1), (2 << 20) + 4 * W1 * (H - 1))
+    dn = FakeCudaWords((1, W1), 2 << 20)
+    return dst, src, up, dn
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    def plain_is_not_for_cuda(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(bit1, "bit1_sweep_reference", plain_is_not_for_cuda)
+    monkeypatch.setattr(bit1, "_cuda_stream", lambda device: 1234)
+    lib = FakeLib()
+    monkeypatch.setattr(kernel_lib, "load", lambda: (lib, None))
+    return lib
+
+
+@pytest.mark.parametrize("mode,family,rounds", [
+    ("philox", 0, 10), ("philox7", 0, 7), ("threefry", 1, 20),
+    ("threefry13", 1, 13)])
+def test_wrapper_launches_kernel_on_cuda_tensor(fake_card, mode, family,
+                                                rounds):
+    dst, src, up, dn = _fake_args()
+    thr = ising.threshold_table(0.0)
+    before = bit1.bit1_sweep.launches
+    out = bit1.bit1_sweep(dst, src, up, dn, thr, 6, 9, color=1, seed=5,
+                          rng_mode=mode, greedy=True)
+    assert out is dst
+    assert bit1.bit1_sweep.launches == before + 1
+    (args,) = fake_card.calls
+    assert args[:4] == (dst.ptr, src.ptr, up.ptr, dn.ptr)
+    assert args[4:10] == (8, 4, 6, 9, 1, 1)
+    assert args[10:13] == tuple(int(t) for t in thr[7:10])
+    assert args[15:] == (family, rounds, 1, 1234)
+
+
+def test_wrapper_raises_on_failed_launch(fake_card):
+    fake_card.code = 700
+    dst, src, up, dn = _fake_args()
+    before = bit1.bit1_sweep.launches
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        bit1.bit1_sweep(dst, src, up, dn, ising.threshold_table(1.0), 0, 0,
+                        color=0, seed=1, rng_mode="philox", greedy=False)
+    assert bit1.bit1_sweep.launches == before
+
+
+def test_wrapper_raises_when_kernel_cannot_build(monkeypatch):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(bit1, "bit1_sweep_reference",
+                        lambda *a, **k: pytest.fail("fell back to plain"))
+    monkeypatch.setattr(bit1, "_cuda_stream", lambda device: 0)
+    monkeypatch.setattr(kernel_lib, "load", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bit1.bit1_sweep(*_fake_args(), ising.threshold_table(1.0), 0, 0,
+                        color=0, seed=1, rng_mode="threefry13", greedy=False)
+
+
+def test_wrapper_refuses_in_place_aliasing(fake_card):
+    dst, src, up, dn = _fake_args()
+    with pytest.raises(ValueError, match="overlap"):
+        bit1.bit1_sweep(dst, dst, up, dn, ising.threshold_table(1.0), 0, 0,
+                        color=0, seed=1, rng_mode="philox", greedy=False)
+    assert fake_card.calls == []
+
+
+def test_kernel_sources_have_no_torch_headers():
+    for src in (ROOT / "ising_tpu_torch" / "csrc").glob("*.cu*"):
+        text = src.read_text()
+        includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
+        assert includes and not any("torch" in ln or "ATen" in ln or "c10" in ln
+                                    for ln in includes)
+        assert 'extern "C"' in text
+    assert "-gencode" in kernel_lib.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in kernel_lib.NVCC_FLAGS
+
+
+def test_gitignore_lists_build_and_dump_outputs():
+    text = (ROOT / ".gitignore").read_text().split()
+    for entry in ("ising_tpu_torch/_build/", "final_*.txt"):
+        assert entry in text
+
+
+def test_pack_reference_dtypes_roundtrip():
+    words = np.array([[0, 1, 0x80000000, 0xFFFFFFFF]], np.uint32)
+    t = torch.from_numpy(words.view(np.int32).copy())
+    assert bit1.pack_bits1(bit1.unpack_bits1(t)).numpy().view(np.uint32) \
+        .tolist() == words.tolist()
+
+
+FAKE_NVCC = """#!/bin/sh
+# Stands in for nvcc: writes the file named after -o, reports ptxas lines.
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; shift; fi
+  case "$1" in *broken*) echo "error: broken source"; exit 2;; esac
+  shift
+done
+echo "ptxas info    : Used 40 registers" >&2
+echo "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" >&2
+echo built > "$out"
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    (csrc / "b.cu").write_text("// b\n")
+    monkeypatch.setattr(kernel_lib, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernel_lib, "CSRC_DIR", csrc)
+    monkeypatch.setattr(kernel_lib, "BUILD_DIR", tmp_path / "_build")
+    return csrc
+
+
+def test_build_compiles_each_source_and_reuses_by_hash(fake_nvcc):
+    info = kernel_lib.build()
+    assert not info.cached and info.seconds > 0
+    assert Path(info.path).read_text() == "built\n"
+    assert len([ln for ln in info.ptxas if "registers" in ln]) == 2
+    assert sorted(p.name for p in Path(info.path).parent.iterdir()) == [
+        "libising_kernels.so", "libising_kernels.so.sha256", "ptxas.txt"]
+    again = kernel_lib.build()
+    assert again.cached and again.ptxas == info.ptxas
+    (fake_nvcc / "a.cu").write_text("// a, changed\n")
+    assert not kernel_lib.build().cached
+
+
+def test_build_failure_raises(fake_nvcc):
+    (fake_nvcc / "broken.cu").write_text("// broken\n")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernel_lib.build()

@@ -1,0 +1,145 @@
+"""The CUDA source of the bit1 sweep, compiled for the CPU and run through
+the real wrapper.
+
+There is no nvcc here, so csrc/bit1_sweep.cu is compiled with the host C++
+compiler over a small header that stands in for the CUDA runtime: one
+thread at a time runs the kernel body, in grid order. That checks the
+kernel's arithmetic (draw layout, counters with carry, neighbours,
+accept) against its plain torch version before any card sees it. The
+card itself checks the compiled kernel in chip_smoke.py.
+"""
+
+import ctypes
+import itertools
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from ising_tpu_torch.models import ising
+from ising_tpu_torch.ops import bit1, kernel_lib
+from ising_tpu_torch.rng import PORTED_MODES
+
+import torch
+
+CUDA_SHIM = r"""
+#pragma once
+#include <cstdint>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+struct uint4 { uint32_t x, y, z, w; };
+struct uint2 { uint32_t x, y; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
+  s &= 31; uint64_t v = ((uint64_t)hi << 32) | lo; return (uint32_t)((v << s) >> 32); }
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+static dim3 blockIdx, threadIdx, blockDim;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+template <class F, class... A>
+void emulate_launch(dim3 grid, unsigned block, F f, A... a) {
+  blockDim = dim3(block);
+  for (unsigned b = 0; b < grid.x; ++b) {
+    blockIdx = dim3(b);
+    for (unsigned t = 0; t < block; ++t) { threadIdx = dim3(t); f(a...); }
+  }
+}
+"""
+
+# kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
+LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
+
+
+@pytest.fixture(scope="module")
+def emulated_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++) to emulate the kernel")
+    d = tmp_path_factory.mktemp("emu")
+    (d / "cuda_runtime.h").write_text(CUDA_SHIM)
+    src = (kernel_lib.CSRC_DIR / "bit1_sweep.cu").read_text()
+    src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ", src)
+    assert n == 2  # the greedy and the plain instantiation
+    (d / "bit1_sweep.cpp").write_text(src)
+    out = d / "libemu.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{d}",
+                    "-o", str(out), str(d / "bit1_sweep.cpp")], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(out))
+    for name, (argtypes, restype) in kernel_lib.SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = restype
+    return lib
+
+
+class HostWords:
+    """A numpy word plane that the wrapper takes for a CUDA tensor."""
+
+    def __init__(self, a):
+        self.a = np.ascontiguousarray(a, np.uint32)
+        self.shape = self.a.shape
+        self.device = torch.device("cuda", 0)
+        self.dtype = torch.int32
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self.a.ctypes.data
+
+    def numel(self):
+        return self.a.size
+
+
+def _torch(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32).copy())
+
+
+CASES = list(itertools.product(
+    [(2, 1), (6, 3), (16, 2), (8, 256)], PORTED_MODES, (1.5, 0.0),
+    (0, 1), (0, (1 << 29) - 4, (1 << 32) - 2)))
+
+
+@pytest.mark.parametrize("shape", sorted({c[0] for c in CASES}))
+def test_kernel_source_matches_plain_version(shape, emulated_lib, monkeypatch):
+    monkeypatch.setattr(kernel_lib, "load", lambda: (emulated_lib, None))
+    monkeypatch.setattr(bit1, "_cuda_stream", lambda device: None)
+    gen = np.random.default_rng(shape[0] * 1000 + shape[1])
+    H, W1 = shape
+    for _, mode, temp, color, row0 in (c for c in CASES if c[0] == shape):
+        dst, src = (gen.integers(0, 1 << 32, (H, W1), dtype=np.uint64)
+                    .astype(np.uint32) for _ in range(2))
+        up, dn = (gen.integers(0, 1 << 32, (1, W1), dtype=np.uint64)
+                  .astype(np.uint32) for _ in range(2))
+        thr = ising.threshold_table(temp)
+        kw = dict(color=color, seed=int(gen.integers(0, 1 << 63)),
+                  rng_mode=mode, greedy=temp <= 0)
+        step = int(gen.integers(0, 1 << 32))
+        want = bit1.bit1_sweep_reference(_torch(dst), _torch(src), _torch(up),
+                                         _torch(dn), thr, row0, step, **kw)
+        d = HostWords(dst)
+        bit1.bit1_sweep(d, HostWords(src), HostWords(up), HostWords(dn), thr,
+                        row0, step, **kw)
+        np.testing.assert_array_equal(
+            d.a, want.numpy().view(np.uint32),
+            err_msg=f"{shape} {mode} T={temp} color={color} row0={row0}")
+
+
+def test_launcher_refuses_unknown_rounds(emulated_lib):
+    buf = np.zeros((2, 1), np.uint32)
+    p = buf.ctypes.data
+    code = emulated_lib.bit1_sweep_launch(p, p, p, p, 2, 1, 0, 0, 0, 0, 0, 0,
+                                          0, 0, 0, 0, 9, 0, None)
+    assert code != 0
+    assert Path(kernel_lib.CSRC_DIR / "bit1_sweep.cu").is_file()
