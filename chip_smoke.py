@@ -8,17 +8,24 @@ Phases, each printed as it ends:
   1. device    the card's name, count, torch/CUDA versions, power limit;
   2. build     nvcc builds csrc/*.cu into one C library (seconds, ptxas);
   3. kernel    bit1_sweep against its plain torch version, bit for bit,
-               at the full 16384 width and a small shape, in every ported
-               rng mode, at T > 0 and T = 0, both colors, several steps;
+               at the full 16384 width and two small shapes (one whose
+               counters carry and whose rows wrap), in every rng mode, at
+               T > 0, at T = 0 and, in the bit-plane modes and hw, with an
+               external field; both colors, several steps;
   4. golden    the port's Simulation on the card reproduces the JAX
                package's trajectories recorded in ising_tpu_torch/golden.py;
-  5. main path the CLI's Simulation at 16384^2 (bench.py's shape), with the
-               launch count of bit1_sweep read just before and after, and
-               E/N checked;
-  6. timing    at 16384^2, the main path's shape: the kernel against its
-               plain version once more, bit for bit, for both colors; then
-               both timed per color phase (CUDA events), beside the least
-               time the card could take and the compiled code's pipe mix.
+  5. main path the CLI's Simulation at 16384^2 (bench.py's shape) in
+               threefry13, philox and chacha6b, three runs each, with the
+               launch count of bit1_sweep read just before and after each
+               run, and E/N checked; then
+               the CLI's default backend, xla (plain torch), at its default
+               2048^2, whose lattice must equal bit1's at the same flags;
+  6. timing    at 16384^2, the main path's shape, in every rng mode, and
+               with an external field in the bit-plane modes and hw: the
+               kernel against its plain version once more, bit for bit,
+               for both colors; then both timed per color phase (CUDA
+               events), beside the least time the card could take and the
+               compiled code's pipe mix.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -48,10 +55,20 @@ from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, kernel_lib
 from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode
 
-BUDGET_S = 300          # the whole script, build included
+BUDGET_S = 600          # the whole script, build included
 MAIN_SHAPE = 16384      # bench.py's flagship lattice, 16384^2
 MAIN_WARMUP, MAIN_ITERS = 8, 64
-COMPARE_SHAPES = ((512, 16384, 0), (64, 1024, (1 << 25) - 32))  # (Y, X, row0)
+MAIN_REPEATS = 3        # CLI runs per mode: median and range
+MAIN_MODES = ("threefry13", "philox", "chacha6b")
+XLA_SHAPE, XLA_ITERS = 2048, 8   # the CLI's default lattice
+XLA_MODES = ("threefry13", "chacha6b")
+# (Y, X, row0); the last wraps the global row mod 2^32 and carries every
+# family's 64-bit counter into its high word
+COMPARE_SHAPES = ((512, 16384, 0), (64, 1024, (1 << 25) - 32),
+                  (64, 1024, (1 << 32) - 32))
+# (temperature, field); a field only in the bit-plane modes and hw
+ACCEPTS = ((1.5, 0.0), (0.0, 0.0), (1.5, 0.3))
+TIMED_FIELD = 0.3
 COMPARE_STEPS = 3
 TIMED_LAUNCHES = 100
 TIMED_REPEATS = 5       # kernel timings per mode: median and spread
@@ -111,32 +128,78 @@ def phase_device():
             "clock_hz": mhz * 1e6}
 
 
-def ops_per_word(mode: str, greedy: bool) -> int:
+def or_ops(m: int) -> int:
+    """Three-input ORs (LOP3) that join m words into one."""
+    return m // 2
+
+
+def field_accept_ops(kbits: int, tvals10, always10: int) -> int:
+    """Operations of the 10-class external-field accept on this run's
+    table, under ops_per_word's rule: the n == v masks of the counts that
+    a flipping class uses, one mask per such class (own bit & n == v),
+    per plane the OR of the stochastic classes whose threshold has bit z
+    set (T_z) and one three-input logic op for the strict less-than chain
+    lt' = (T_z & ~u) | (~(T_z ^ u) & lt), then the OR of the always-classes
+    into the flip. Classes that never flip (t = 0) cost nothing."""
+    always = [c for c in range(10) if always10 >> c & 1]
+    stoch = [c for c in range(10) if not always10 >> c & 1 and tvals10[c]]
+    ops = len({c % 5 for c in always + stoch}) + len(always) + len(stoch)
+    for z in range(kbits):
+        ops += or_ops(sum(tvals10[c] >> z & 1 for c in stoch)) + 1
+    return ops + or_ops(len(always) + 1)
+
+
+def call_ops(family: str, rounds: int) -> tuple[int, int]:
+    """(draws, operations) of one generator call under ops_per_word's rule,
+    with the 64-bit counter's 2."""
+    if family == "philox":
+        # a round: two wide multiplies and two three-input xors; the first
+        # round's multiply of counter word 2 (the step) is per-launch
+        return 4, 4 * rounds - 1 + 2
+    if family == "threefry":
+        # a round: add, rotate, xor; every 4th round a key injection into
+        # x1 (the one into x0 folds into the next round's IADD3, except
+        # after the last round)
+        return 2, 3 * rounds + rounds // 4 + (rounds % 4 == 0) + 2
+    # a round: 4 quarter-rounds of 4 adds, 4 xors, 4 rotations; a block: 16
+    # feed-forward adds. Only state words 12 and 13 (the counter) vary by
+    # thread, so the first column round's quarter-rounds on columns 2 and 3
+    # (24), the first add of columns 0 and 1 (2) and the first diagonal
+    # round's first add on (x2, x7) (1) are per-launch: 27 per block
+    return 16, 48 * rounds + 16 - 27 + 2
+
+
+def ops_per_word(mode: str, greedy: bool, field_table=None) -> int:
     """32-bit integer operations that one word's update (32 spins) needs,
     counted from the algorithm, not from the compiled code, at the fewest
     instructions the card has for them: a three-input add (IADD3) or
     logic function (LOP3), a rotation (SHF), a 32x32 multiply giving both
     halves (IMAD.WIDE) and a compare each count one, and so does setting
     a compare's result as bit g. Per-launch scalars (keys, round
-    constants, thresholds) cost nothing. Loads, stores and control flow
-    are not counted."""
+    constants, step, tag, thresholds) and whatever is computed from them
+    alone cost nothing. Loads, stores and control flow are not counted.
+    field_table: (tvals10, always10) of the external-field accept."""
     family, rounds = parse_rng_mode(mode)
-    if family == "philox":
-        # a round: two wide multiplies and two three-input xors; a call:
-        # the 64-bit counter (2); 8 calls of 4 draws per word
-        calls, per_call = 8, 4 * rounds + 2
+    kbits = bit1.accept_bits(mode)
+    if family == "hw":   # salted Philox-10
+        family, rounds = "philox", 10
+    draws, per_call = call_ops(family, rounds)
+    if kbits:
+        # k planes per word; per plane one three-input logic op for each
+        # of the two thresholds (a' = t_z ? ~u | a : ~u & a)
+        calls, accept = kbits // draws, 2 * kbits
     else:
-        # a round: add, rotate, xor; every 4th round a key injection into
-        # x1 (the one into x0 folds into the next round's IADD3, except
-        # after the last round); a call: the 64-bit counter plus key (2);
-        # 16 calls of 2 draws per word
-        calls = 16
-        per_call = 3 * rounds + rounds // 4 + (rounds % 4 == 0) + 2
-    accept = 32 * (3 if greedy else 2) * 2   # compare + set bit, per threshold
+        # 32 draws per word; compare + set bit, per threshold
+        calls, accept = 32 // draws, 32 * (3 if greedy else 2) * 2
     # index and (y, j) 4; edge selects and rotations of the 4 neighbours
-    # and the off-column choice 12; adder and class masks 13; flip mask
-    # and the xor into dst 3; counter base 2
-    common = 34
+    # and the off-column choice 12; the bit-sliced adder 8; counter base 2;
+    # the xor into dst 1
+    common = 4 + 12 + 8 + 2 + 1
+    if field_table is not None:
+        accept = field_accept_ops(kbits, *field_table)
+    else:
+        # the class masks ge3, ge4, eq2 (5) and the flip mask (2)
+        accept += 5 + 2
     return calls * per_call + accept + common
 
 
@@ -161,11 +224,12 @@ def pipe_of(opcode: str) -> str:
 
 
 def sass_mix(lib_path: str):
-    """{(family, rounds, greedy): Counter(pipe -> SASS instructions)} of
-    each bit1 kernel instantiation, from cuobjdump. The kernel is fully
-    unrolled and branch-free apart from its edge selects, so this is close
-    to the instructions one thread (one word) issues. None without
-    cuobjdump."""
+    """{(kernel, template arguments): Counter(pipe -> SASS instructions)}
+    of each bit1 kernel instantiation, from cuobjdump: for bit1_sweep
+    (family, rounds, greedy), for bit1_planes (family, rounds, kbits,
+    accept). The kernels are fully unrolled and branch-free apart from
+    their edge selects, so this is close to the instructions one thread
+    (one word) issues. None without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(kernel_lib.find_nvcc()).parent / "cuobjdump")
     try:
@@ -174,9 +238,9 @@ def sass_mix(lib_path: str):
         return None
     mix, key = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*bit1_sweep_kernelILi(\d)ELi(\d+)ELb([01])E", line)
+        m = re.search(r"Function : \S*(bit1_\w+?)_kernelI((?:L[ib]\d+E)+)", line)
         if m:
-            key = (int(m[1]), int(m[2]), bool(int(m[3])))
+            key = (m[1], tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2])))
             mix[key] = collections.Counter()
         elif "Function :" in line:
             key = None
@@ -196,7 +260,7 @@ def phase_build():
         say(f"[build]   {line.strip()}")
     mix = sass_mix(info.path)
     for key, pipes in sorted((mix or {}).items()):
-        say(f"[build] SASS (family, rounds, greedy) = {key}: "
+        say(f"[build] SASS {key[0]}{list(key[1])}: "
             f"{sum(pipes.values())} instructions, {dict(pipes)}")
     return info, mix
 
@@ -213,15 +277,18 @@ def phase_compare(dev):
     for Y, X, row0 in COMPARE_SHAPES:
         H, W1 = Y, X // 64
         for mode in PORTED_MODES:
-            for temp in (1.5, 0.0):
-                thr = ising.threshold_table(temp)
+            for temp, field in ACCEPTS:
+                if field and not bit1.accept_bits(mode):
+                    continue
+                thr = ising.threshold_table(temp, field)
                 b = random_words(gen, (H, W1), dev)
                 w = random_words(gen, (H, W1), dev)
                 seed = int(gen.integers(0, 1 << 62))
                 for step in range(COMPARE_STEPS):
                     for color, (dst, src) in enumerate(((b, w), (w, b))):
                         kw = dict(color=color, seed=seed, rng_mode=mode,
-                                  greedy=temp <= 0)
+                                  greedy=temp <= 0,
+                                  **bit1.plane_accept_args(mode, temp, field))
                         up, dn = src[-1:], src[:1]
                         ref = bit1.bit1_sweep_reference(
                             dst, src, up, dn, thr, row0, step, **kw)
@@ -233,50 +300,93 @@ def phase_compare(dev):
                         cases += 1
                         require(torch.equal(dst, ref),
                                 f"kernel != plain: {Y}x{X} row0={row0} "
-                                f"{mode} T={temp} step={step} color={color}")
-        say(f"[kernel] {Y}x{X} row0={row0}: every mode, T in (1.5, 0), "
-            f"both colors, {COMPARE_STEPS} steps equal to the plain version")
+                                f"{mode} T={temp} h={field} step={step} "
+                                f"color={color}")
+        say(f"[kernel] {Y}x{X} row0={row0}: all {len(PORTED_MODES)} modes, "
+            "T in (1.5, 0) and h = 0.3 in the bit-plane modes and hw, both "
+            f"colors, {COMPARE_STEPS} steps equal to the plain version")
     return cases, max_err
 
 
 def phase_golden():
-    for (mode, temp), want in golden.GOLDEN.items():
-        got = golden.port_trajectory(mode, temp, device="cuda")
-        require(got == want, f"golden {mode} T={temp}: got {got}, want {want}")
-        say(f"[golden] {golden.NROWS}x{golden.NCOLS} {mode} T={temp}: "
-            f"up counts {got['up']} and crc32 {got['crc32']:08X} match the "
-            "JAX package")
+    for case, want in golden.GOLDEN.items():
+        got = golden.port_trajectory(*case, device="cuda")
+        require(got == want, f"golden {case}: got {got}, want {want}")
+        say(f"[golden] {golden.NROWS}x{golden.NCOLS} (mode, T[, h]) = "
+            f"{case}: up counts {got['up']} and crc32 {got['crc32']:08X} "
+            "match the JAX package")
+
+
+def cli_simulation(argv):
+    """A Simulation from CLI flags, built as cli.main builds it."""
+    args = cli.build_parser().parse_args(argv)
+    require(cli.unported_flag(args) is None, f"unported flag in {argv}")
+    return Simulation(cli.config_from_args(args))
 
 
 def phase_main_path(card):
     """The CLI's flags, parsed and turned into a Simulation as cli.main
-    does, then its run loop, which prints the CLI's lines."""
+    does, then its run loop, which prints the CLI's lines; MAIN_REPEATS
+    runs per mode, each from a new Simulation."""
     results = {}
-    for mode in ("threefry13", "philox"):
-        argv = ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y",
-                str(MAIN_SHAPE), "-w", str(MAIN_WARMUP), "-n",
-                str(MAIN_ITERS), "-p", "16", "-t", "1.5", "--rng", mode]
-        args = cli.build_parser().parse_args(argv)
-        require(cli.unported_flag(args) is None, f"unported flag in {argv}")
-        sim = Simulation(cli.config_from_args(args))
-        bit1.bit1_sweep.launches = 0
-        result = sim.run()
-        launches = bit1.bit1_sweep.launches
-        want = 2 * (MAIN_WARMUP + MAIN_ITERS)
-        require(result["steps"] == MAIN_ITERS,
-                f"ran {result['steps']} of {MAIN_ITERS} steps")
-        require(launches == want,
-                f"bit1_sweep launched {launches} times, expected {want}")
-        e_n = sim.energy()
-        require(e_n < -1.5, f"E/N = {e_n} after the run (expected < -1.5)")
+    for mode in MAIN_MODES:
+        launches, rates = 0, []
+        for _ in range(MAIN_REPEATS):
+            sim = cli_simulation(
+                ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y",
+                 str(MAIN_SHAPE), "-w", str(MAIN_WARMUP), "-n",
+                 str(MAIN_ITERS), "-p", "16", "-t", "1.5", "--rng", mode])
+            bit1.bit1_sweep.launches = 0
+            result = sim.run()
+            n = bit1.bit1_sweep.launches
+            want = 2 * (MAIN_WARMUP + MAIN_ITERS)
+            require(result["steps"] == MAIN_ITERS,
+                    f"ran {result['steps']} of {MAIN_ITERS} steps")
+            require(n == want,
+                    f"bit1_sweep launched {n} times, expected {want}")
+            e_n = sim.energy()
+            require(e_n < -1.5, f"E/N = {e_n} after the run (expected < -1.5)")
+            launches += n
+            rates.append(result["flips_ns"])
+            say(f"[main] {MAIN_SHAPE}^2 {mode}: bit1_sweep launches {n} "
+                f"(= 2 x {MAIN_WARMUP + MAIN_ITERS} steps), E/N {e_n:.6f}, "
+                f"{result['flips_ns']:.2f} flips/ns on {card['smi']}")
+            del sim
+            torch.cuda.empty_cache()
+        median = sorted(rates)[len(rates) // 2]
         results[mode] = {"launches": launches, "e_n": e_n,
-                         "flips_ns": result["flips_ns"]}
-        say(f"[main] {MAIN_SHAPE}^2 {mode}: bit1_sweep launches {launches} "
-            f"(= 2 x {MAIN_WARMUP + MAIN_ITERS} steps), E/N {e_n:.6f}, "
-            f"{result['flips_ns']:.2f} flips/ns on {card['smi']}")
-        del sim
-        torch.cuda.empty_cache()
+                         "flips_ns": median, "flips_ns_runs": rates}
+        say(f"[main] {MAIN_SHAPE}^2 {mode}: {median:.2f} flips/ns median of "
+            f"{MAIN_REPEATS} runs (range {min(rates):.2f}-{max(rates):.2f})")
     return results
+
+
+def phase_xla_path(card):
+    """The CLI's default backend, xla (plain torch, no kernel), at the
+    CLI's default 2048^2 and default rng mode, and in chacha6b: its
+    lattice must equal bit1's after the same flags, bit for bit."""
+    for mode in XLA_MODES:
+        flags = ["-x", str(XLA_SHAPE), "-y", str(XLA_SHAPE), "-n",
+                 str(XLA_ITERS), "-p", "4", "-t", "1.5"]
+        if mode != cli.build_parser().get_default("rng"):
+            flags += ["--rng", mode]
+        xla = cli_simulation(flags)
+        require(xla.cfg.backend == "xla", "the CLI default is not xla")
+        bit1.bit1_sweep.launches = 0
+        result = xla.run()
+        require(bit1.bit1_sweep.launches == 0, "xla launched a bit1 kernel")
+        ref = cli_simulation(flags + ["--backend", "bit1"])
+        ref.run()
+        for a, b in zip(xla.bits(), ref.bits()):
+            require(torch.equal(a, b),
+                    f"xla != bit1 at {XLA_SHAPE}^2 {mode} after "
+                    f"{XLA_ITERS} steps")
+        e_n = xla.energy()
+        require(e_n == ref.energy() and e_n < -1.0,
+                f"xla E/N {e_n}, bit1 E/N {ref.energy()}")
+        say(f"[xla] {XLA_SHAPE}^2 {mode}: lattice after {XLA_ITERS} steps "
+            f"equal to bit1's, E/N {e_n:.6f}, {result['flips_ns']:.3f} "
+            f"flips/ns (plain torch) on {card['smi']}")
 
 
 def time_launches(fn, n: int) -> float:
@@ -290,22 +400,34 @@ def time_launches(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def timing_cases():
+    """(mode, field) pairs that phase 6 times: every mode without a field,
+    then every bit-plane mode and hw with TIMED_FIELD."""
+    return ([(mode, 0.0) for mode in PORTED_MODES]
+            + [(mode, TIMED_FIELD) for mode in PORTED_MODES
+               if bit1.accept_bits(mode)])
+
+
 def phase_timing(card, mix):
-    """Per color phase at 16384^2: kernel against plain (bit for bit),
-    then the kernel's and the plain version's times, and the bound.
-    Returns (timing per mode, compared cases, max abs err)."""
+    """Per color phase at 16384^2, at T = 1.5, in every rng mode and, in
+    the bit-plane modes and hw, with a field: kernel against plain (bit for
+    bit), then the kernel's and the plain version's times, and the bound.
+    Returns ({mode: timing}, {mode: timing with the field}, compared
+    cases, max abs err)."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(7)
     H, W1 = MAIN_SHAPE, MAIN_SHAPE // 64
     planes = [random_words(gen, (H, W1), dev) for _ in range(2)]
-    thr = ising.threshold_table(1.5)
     words = H * W1
     spins = words * 32
     rate = card["sms"] * INT_OPS_PER_SM_CLOCK * card["clock_hz"]
     pipe_rate = card["sms"] * PIPE_LANES_PER_SM * card["clock_hz"]
-    out, cases, max_err = {}, 0, 0
-    for mode in ("threefry13", "philox"):
-        kw = dict(seed=golden.SEED, rng_mode=mode, greedy=False)
+    out, out_field, cases, max_err = {}, {}, 0, 0
+    for mode, field in timing_cases():
+        thr = ising.threshold_table(1.5, field)
+        acc = bit1.plane_accept_args(mode, 1.5, field)
+        kw = dict(seed=golden.SEED, rng_mode=mode, greedy=False, **acc)
+        what = f"{mode}" + (f" h={field}" if field else "")
 
         def args(i):
             dst, src = planes[i % 2], planes[1 - i % 2]
@@ -329,8 +451,8 @@ def phase_timing(card, mix):
             max_err = max(max_err, err)
             cases += 1
             require(torch.equal(a[0], ref),
-                    f"kernel != plain at {H}x{MAIN_SHAPE} {mode} color={i}")
-        say(f"[timing] {MAIN_SHAPE}^2 {mode}: kernel equal to the plain "
+                    f"kernel != plain at {H}x{MAIN_SHAPE} {what} color={i}")
+        say(f"[timing] {MAIN_SHAPE}^2 {what}: kernel equal to the plain "
             "version for both colors")
 
         time_launches(kernel, 10)
@@ -341,21 +463,28 @@ def phase_timing(card, mix):
         plain_ms = time_launches(plain, PLAIN_LAUNCHES)
         nbytes = 3 * words * 4   # read dst and src, write dst
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops = ops_per_word(mode, greedy=False)
+        ops = ops_per_word(mode, greedy=False, field_table=(
+            (acc["tvals10"], acc["always10"]) if field else None))
         ops_ms = ops * words / rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "operations" if ops_ms > bytes_ms else "bytes"
         family, rounds = parse_rng_mode(mode)
+        kbits = bit1.accept_bits(mode)
+        if family == "hw":
+            family, rounds = "philox", 10
+        code = bit1._FAMILY_CODE[family]
+        accept = bit1.ACCEPT_FIELD if field else bit1.ACCEPT_METROPOLIS
         pipes = dict((mix or {}).get(
-            (0 if family == "philox" else 1, rounds, False), {}))
+            ("bit1_planes", (code, rounds, kbits, accept)) if kbits else
+            ("bit1_sweep", (code, rounds, 0)), {}))
         pipe_ms = {p: pipes[p] * words / pipe_rate * 1e3
                    for p in ("alu", "fma") if p in pipes}
-        out[mode] = {"ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes_ms": bytes_ms, "ops_per_word": ops,
-                     "ops_ms": ops_ms, "sass_per_word": pipes,
-                     "pipe_ms": pipe_ms}
-        say(f"[timing] {MAIN_SHAPE}^2 {mode}, one color phase: kernel "
+        (out_field if field else out)[mode] = {
+            "ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": bytes_ms,
+            "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_word": pipes,
+            "pipe_ms": pipe_ms}
+        say(f"[timing] {MAIN_SHAPE}^2 {what}, one color phase: kernel "
             f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
             f"launches (range {runs[0]:.4f}-{runs[-1]:.4f}; "
             f"{spins / ms / 1e6:.1f} flips/ns), plain {plain_ms:.2f} ms; "
@@ -365,7 +494,7 @@ def phase_timing(card, mix):
             f"{pipes}, at {PIPE_LANES_PER_SM} lanes/SM per pipe "
             + ", ".join(f"{p} {t:.4f} ms" for p, t in pipe_ms.items())
             + f", on {card['smi']}")
-    return out, cases, max_err
+    return out, out_field, cases, max_err
 
 
 def _on_alarm(signum, frame):
@@ -389,7 +518,9 @@ def main() -> int:
         say(f"[time] {elapsed():.1f} s")
         main_runs = phase_main_path(card)
         say(f"[time] {elapsed():.1f} s")
-        timing, full_cases, full_err = phase_timing(card, mix)
+        phase_xla_path(card)
+        say(f"[time] {elapsed():.1f} s")
+        timing, timing_field, full_cases, full_err = phase_timing(card, mix)
         cases, max_err = cases + full_cases, max(max_err, full_err)
         say(f"[kernel] {cases} kernel-vs-plain cases equal in all, max abs "
             f"err {max_err}  [time {elapsed():.1f} s]")
@@ -404,8 +535,11 @@ def main() -> int:
         "name": "bit1_sweep",
         "route": "cuda",
         "source": "ising_tpu_torch/csrc/bit1_sweep.cu",
+        "sources": [f"ising_tpu_torch/csrc/{p.name}" for p in
+                    sorted(kernel_lib.CSRC_DIR.glob("*.cu*"))],
         "replaces": "ising_tpu/ops/pallas_bit1.py:265",
-        "launches": main_runs["threefry13"]["launches"],
+        "launches": sum(r["launches"] for r in main_runs.values()),
+        "main_path": main_runs,
         "max_abs_err": max_err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -415,6 +549,7 @@ def main() -> int:
         "held_against_plain": True,
         "build_s": info.seconds,
         "per_mode": timing,
+        "per_mode_field": timing_field,
     }]}
     say(card["smi"])
     say(json.dumps(kernels))

@@ -3,6 +3,9 @@
 
     python -m ising_tpu_torch --backend bit1 -y 2048 -x 2048 -n 128 -a 0.66 -p 16
 
+Without --backend it runs the xla backend (plain torch), as the JAX
+package's CLI does.
+
 Flags of features the port does not run yet exit 1 with the ROADMAP.md
 queue-1 item that ports them.
 """
@@ -53,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--j-seed", type=int, default=None,
                    help="seed for the disorder realization")
     p.add_argument("--field", type=float, default=0.0,
-                   help="uniform external field h (not yet ported)")
+                   help="uniform external field h (bit1: bit-plane rng "
+                        "modes and hw; xla: any mode)")
     p.add_argument("--xsl", type=int, default=None,
                    help="X size of sub-lattice replicas (not yet ported)")
     p.add_argument("--ysl", type=int, default=None,
@@ -68,11 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="correlation output (not yet ported)")
     p.add_argument("--backend", default="xla",
                    choices=("xla", "dense", "packed", "bit1", "mxu"),
-                   help="update kernel backend (the port runs bit1)")
+                   help="update backend (the port runs xla and bit1)")
     p.add_argument("--rng", default="threefry13",
                    choices=tuple(sorted(RNG_MODES)),
-                   help="counter rng mode (the port runs philox, philox7, "
-                        "threefry and threefry13)")
+                   help="rng mode: counter modes (u32 or bit-plane ...b; "
+                        "chacha6b is the fast tier) or hw")
     p.add_argument("--algo", default="metropolis",
                    choices=("metropolis", "sw"),
                    help="update algorithm (sw is not yet ported)")
@@ -97,7 +101,6 @@ def unported_flag(args):
     """(flag, ROADMAP item) of the first flag the port does not run yet."""
     checks = (
         ("-J/--j-prob", args.j_prob is not None, 4),
-        ("--field", args.field != 0.0, 5),
         ("--xsl/--ysl", args.xsl is not None or args.ysl is not None, 4),
         ("--devs > 1", args.devs != 1, 7),
         ("-o/--out", args.out, 6),
@@ -128,7 +131,8 @@ def config_from_args(args) -> SimConfig:
         print_freq=args.print_freq,
         print_exp=args.exppr or args.exppr_ref, exp_thinned=args.exppr_ref,
         tgt_magn=args.tgt_magn, temp_step=temp_step, temp_freq=temp_freq,
-        halo_overlap=args.halo_overlap, device=args.device)
+        field=args.field, halo_overlap=args.halo_overlap,
+        device=args.device)
 
 
 def main(argv=None) -> int:
@@ -154,6 +158,8 @@ def main(argv=None) -> int:
     print(f"\tseed: {cfg.seed}")
     print(f"\tbackend: {cfg.backend} (rng: {cfg.rng})")
     print(f"\tdevice: {sim.device}")
+    if cfg.field:
+        print(f"\texternal field: h = {cfg.field}")
     print(f"\titerations: {cfg.niters} (+{cfg.nwarmup} warmup)")
     result = sim.run()
     return 0 if result["steps"] else 1

@@ -13,7 +13,7 @@ import json
 import torch
 
 from .constants import ALPHA_DEF, SEED_DEF, TCRIT
-from .rng import RNG_MODES, plane_bits, unported_mode_item
+from .rng import RNG_MODES, plane_bits
 
 SPINS_PER_WORD = 8  # the packed tier's 4-bit fields (its ncols fence)
 
@@ -47,10 +47,10 @@ class SimConfig:
 
     seed: int = SEED_DEF
 
-    # Update backend; the port runs "bit1" (ops/registry.py).
+    # Update backend; the port runs "xla" and "bit1" (ops/registry.py).
     backend: str = "xla"
 
-    # RNG mode; the port runs the u32 Philox/Threefry modes (rng.py).
+    # RNG mode, any of rng.RNG_MODES.
     rng: str = "threefry13"
 
     # Iterations (-w / -n).
@@ -73,7 +73,7 @@ class SimConfig:
     j_prob: float | None = None
     j_seed: int | None = None
 
-    # Uniform external field h (not yet ported).
+    # Uniform external field h.
     field: float = 0.0
 
     # Sub-lattice replicas (not yet ported).
@@ -106,6 +106,9 @@ class SimConfig:
             raise ValueError(f"unknown rng mode {self.rng!r}; "
                              f"one of {sorted(RNG_MODES)}")
         if self.rng.startswith("chacha") and (self.ncols // 2) % 16:
+            # One ChaCha block yields 16 u32 words; the compact half-row
+            # must consume whole blocks (plane modes additionally require
+            # the backend's own ncols % 64).
             raise ValueError("chacha rng modes need ncols multiple of 32 "
                              "(16-word ChaCha blocks per compact half-row)")
         if self.backend == "packed" and self.ncols % (2 * SPINS_PER_WORD):
@@ -136,25 +139,28 @@ class SimConfig:
             serial = self.rng == "hw" or plane_bits(self.rng) > 0
             if self.backend == "mxu":
                 raise ValueError(
-                    "external field is not supported on the mxu backend")
+                    "external field is not supported on the mxu backend "
+                    "(its 3-threshold accept assumes the h = 0 mirror "
+                    "symmetry); use bit1, xla, dense, or packed")
             if self.backend == "bit1" and not serial:
                 raise ValueError(
                     "external field on the bit1 backend uses the 10-class "
-                    "bit-serial accept: pick a bit-plane rng mode or hw")
+                    "bit-serial accept: pick a bit-plane rng mode "
+                    "(philox7b/threefry13b/chacha8b/...) or hw; u32 "
+                    "full-table field runs live on xla/dense/packed")
             if self.backend in ("dense", "packed") and serial:
                 raise ValueError(
                     "external field on the dense/packed backends needs a "
-                    "u32-contract rng mode")
+                    "u32-contract rng mode (their full-table accepts "
+                    "consume u32 draws); bit-plane/hw field runs live on "
+                    "bit1 and xla")
+            # xla supports every rng mode: u32 full-table compare, or the
+            # same 10-class bit-serial accept as bit1 for plane/hw modes.
         # What this port does not run yet (ROADMAP.md queue 1).
-        item = unported_mode_item(self.rng)
-        if item is not None:
-            raise not_ported(f"rng mode {self.rng!r}", item)
         if self.j_prob is not None:
             raise not_ported("quenched disorder (j_prob)", 4)
         if self.xsl is not None:
             raise not_ported("sub-lattice replicas (xsl/ysl)", 4)
-        if self.field != 0.0:
-            raise not_ported("the external field", 5)
         if self.dump_lattice or self.corr_out:
             raise not_ported("lattice dumps and correlation output", 6)
         if self.ndev != 1:

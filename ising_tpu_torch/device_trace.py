@@ -11,8 +11,9 @@ TIMED_WINDOW):
 - the span's wall time and the device's busy time inside it (the union
   of kernel, copy and set intervals), hence the device's idle share;
 - device time by kernel name;
-- the gaps between one bit1_sweep kernel and the next kernel: a gap near
-  zero means the host enqueues launches faster than the card runs them.
+- the gaps between one bit1 kernel (either of the two behind bit1_sweep)
+  and the next kernel: a gap near zero means the host enqueues launches
+  faster than the card runs them.
 
 The last line is one JSON object with those numbers. With --device cpu it
 records CPU activity only, and the device numbers are zero.
@@ -33,7 +34,11 @@ from .config import SimConfig
 from .driver import TIMED_WINDOW as WINDOW
 from .driver import Simulation
 
-KERNEL = "bit1_sweep_kernel"
+KERNELS = ("bit1_sweep_kernel", "bit1_planes_kernel")
+
+
+def is_kernel(name: str) -> bool:
+    return any(k in name for k in KERNELS)
 
 
 def union_length(intervals) -> float:
@@ -78,7 +83,7 @@ def summarize(events):
     for s, e, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     gaps = [dev[i + 1][0] - dev[i][1] for i in range(len(dev) - 1)
-            if KERNEL in dev[i][2]]
+            if is_kernel(dev[i][2])]
     gaps.sort()
     wall = w1 - w0
     return {
@@ -86,7 +91,7 @@ def summarize(events):
         "idle_share": 1.0 - busy / wall if wall > 0 else None,
         "device_us_by_name": dict(sorted(by_name.items(),
                                          key=lambda kv: -kv[1])),
-        "kernel_launches": sum(KERNEL in n for _, _, n in dev),
+        "kernel_launches": sum(is_kernel(n) for _, _, n in dev),
         "gap_after_kernel_us": {
             "n": len(gaps),
             "median": gaps[len(gaps) // 2] if gaps else None,

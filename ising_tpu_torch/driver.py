@@ -1,17 +1,20 @@
 """Simulation driver of the port: state, step loop and measurement loop.
 
-The port of ``ising_tpu/driver.py`` for the bit1 slice: the same print
-schedules, the same log lines and the same flips/ns and bandwidth formula.
-Steps run as host-issued kernel launches; the host synchronises only at
-measurement events.
+The port of ``ising_tpu/driver.py`` for one device without disorder or
+replicas: the same print schedules, the same log lines, the same flips/ns
+and bandwidth formula, the temperature ramp and the external field. Steps
+run as host-issued launches; the host synchronises only at measurement
+events.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
 
+from . import observables
 from .config import SimConfig, resolve_device
 from .constants import MIN_TEMP, TGT_MAGN_MAX_DIFF
 from .lattice import init_store
@@ -69,12 +72,23 @@ class Simulation:
         """Current (black, white) uint8 bit planes (decoded)."""
         return self.backend.decode(self.black, self.white)
 
+    def _up_rows(self):
+        """Per-row up counts: the backend's own reduction where it has one
+        (bit1's popcount on words), else on the decoded planes."""
+        if hasattr(self.backend, "row_up_counts"):
+            return self.backend.row_up_counts(self.black, self.white)
+        return observables.row_up_counts(*self.bits())
+
     def measure(self):
-        n_up = int(self.backend.row_up_counts(self.black, self.white).sum())
+        n_up = int(self._up_rows().sum())
         n_dn = self.cfg.nspins - n_up
         m = abs(n_up - n_dn) / (n_up + n_dn)
-        return {"step": self.step, "magnetization": m,
-                "up": n_up, "down": n_dn}
+        out = {"step": self.step, "magnetization": m,
+               "up": n_up, "down": n_dn}
+        if self.cfg.field:
+            # An external field breaks the +-m symmetry |m| relies on.
+            out["m_signed"] = (n_up - n_dn) / (n_up + n_dn)
+        return out
 
     def advance(self, nsteps: int):
         """Enqueue nsteps steps (returns before the card finishes)."""
@@ -89,18 +103,40 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     def set_temperature(self, temp: float):
-        """New thresholds; crossing T = 0 switches the greedy accept."""
+        """New thresholds: the u32 table, and the backend's accept (the
+        greedy quench when T crosses 0, the k-bit thresholds of the
+        bit-plane accepts)."""
         self.temp = float(temp)
         self._thr = ising.threshold_table(self.temp, self.cfg.field)
-        self.backend.greedy = self.temp <= 0
+        self.backend.retune(self.temp, self.cfg.field)
+
+    def set_field(self, field: float):
+        """Change the uniform external field mid-run. SimConfig's
+        validation fences the backend / rng pairs; the u32 table and the
+        backend's accept (the bit-plane accept's field, the xla backend's
+        full-table select) follow the new value."""
+        field = float(field)
+        if field == self.cfg.field:
+            return
+        self.cfg = dataclasses.replace(self.cfg, field=field)
+        self._thr = ising.threshold_table(self.temp, field)
+        self.backend.retune(self.temp, field)
 
     def energy_total(self) -> int:
         """Exact integer bond sum over the current state (H = -this)."""
-        return int(self.backend.energy_rows(self.black, self.white).sum())
+        if hasattr(self.backend, "energy_rows"):
+            rows = self.backend.energy_rows(self.black, self.white)
+        else:
+            rows = observables.energy_row_sums(*self.bits())
+        return int(rows.sum())
 
     def energy(self) -> float:
-        """Internal energy per spin."""
-        return -float(self.energy_total()) / self.cfg.nspins
+        """Internal energy per spin; a field adds its exact -h sum(s)."""
+        e = -float(self.energy_total())
+        h = self.cfg.field
+        if h:
+            e -= h * (2 * int(self._up_rows().sum()) - self.cfg.nspins)
+        return e / self.cfg.nspins
 
     def run(self, log=print):
         return run_loop(self, log=log)

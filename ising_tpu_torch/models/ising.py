@@ -8,6 +8,8 @@ same float64 arithmetic, line for line.
   * A flip changes the energy by dE = 2*(2b-1)*(2n-4), n = neighbor bit sum.
   * The flip is accepted when the raw uint32 draw r <= thr[b*5 + n],
     thr = rint(min(p, 1) * (2^32 - 1)).
+  * The bit-plane modes accept when a k-bit uniform v < t, t = rint(p * 2^k)
+    (bernoulli_kbit_thresholds, field_kbit_thresholds).
 """
 
 from __future__ import annotations
@@ -40,6 +42,67 @@ def threshold_table(temp: float, field: float = 0.0) -> np.ndarray:
     p = acceptance_probabilities(temp, field)
     thr = np.minimum(p, 1.0) * 4294967295.0
     return np.rint(thr).astype(np.uint64).astype(np.uint32).reshape(10)
+
+
+def bernoulli_kbit_thresholds(temp: float, kbits: int = 24) -> tuple[int, int]:
+    """K-bit integer thresholds (t4, t8) for the bit-serial accept path.
+
+    Used by the bit1 backend's hw mode: accept <=> v < t, where v is a
+    k-bit uniform assembled from k independent random bit-planes and the
+    comparison is evaluated bit-serially on whole planes. t = rint(p * 2^k)
+    (clipped to 2^k - 1), so the realized flip probability t/2^k deviates
+    from exp(-dE/T) by at most 2^-(k+1) — except when the clip engages
+    (p > 1 - 2^-(k+1), i.e. extremely high T), where the deviation is
+    bounded by 2^-k and exact always-accept is never reached for the
+    stochastic classes. At the default k = 24 this is the
+    same granularity as the reference's acceptance compare, whose
+    curand_uniform draws live on a 2^-24 grid (optimized/main.cu:652-656).
+
+    (t4, t8) are the thresholds of the two stochastic classes dE = 4 and
+    dE = 8; every dE <= 0 class always accepts, handled by the class masks.
+    """
+    p = acceptance_probabilities(temp)
+    cap = (1 << kbits) - 1
+    t4 = min(cap, int(np.rint(min(p[1, 3], 1.0) * (1 << kbits))))
+    t8 = min(cap, int(np.rint(min(p[1, 4], 1.0) * (1 << kbits))))
+    return t4, t8
+
+
+def field_kbit_thresholds(temp: float, field: float,
+                          kbits: int = 16) -> tuple[tuple, int]:
+    """Static k-bit acceptance for the 10-class bit-serial field accept.
+
+    Returns (tvals10, always10) consumed by the bit1 kernel's
+    _bitserial_field_flip and the xla backend's plane-mode field path:
+
+      * tvals10[b*5 + n] = rint(p * 2^k) clipped to 2^k - 1 for classes
+        with p < 1 — the flip fires iff the assembled k-bit uniform
+        v < t (STRICT compare, same convention as
+        bernoulli_kbit_thresholds' h = 0 chains);
+      * always10 bit (b*5 + n) set when p >= 1 (deterministic flip;
+        such classes consume no threshold);
+      * p rounding to 0 leaves t = 0: the class never flips.
+
+    h != 0 breaks the mirror symmetry behind the h = 0 two-threshold
+    accept, so all ten (own bit, neighbor count) classes carry their own
+    static threshold. The table also covers T <= 0 (greedy quench with
+    field: p in {0, 0.5, 1}), so the field path needs no greedy branch.
+    Reference analog: none — the reference has no field term; the h = 0
+    granularity discussion in bernoulli_kbit_thresholds applies per class.
+    """
+    p = acceptance_probabilities(temp, field)
+    cap = (1 << kbits) - 1
+    tvals = []
+    always = 0
+    for b in range(2):
+        for n in range(5):
+            pf = p[b, n]
+            if pf >= 1.0:
+                always |= 1 << (b * 5 + n)
+                tvals.append(0)
+            else:
+                tvals.append(min(cap, int(np.rint(pf * (1 << kbits)))))
+    return tuple(tvals), always
 
 
 def onsager_magnetization(temp: float) -> float:

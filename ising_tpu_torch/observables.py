@@ -1,9 +1,10 @@
-"""Exact integer observables on bit1 word storage (plain torch).
+"""Exact integer observables (plain torch).
 
-The port of the word-domain part of ``ising_tpu/observables.py``: per-row
-up-spin counts and bond sums straight on the (Y, W1) words, without a
-decode to byte planes. torch has no popcount, so words are counted with
-the SWAR bit-count on int64 copies; every sum is exact in int64.
+The port of ``ising_tpu/observables.py``: per-row up-spin counts and bond
+sums, on uint8 bit planes (the xla backend's storage) and straight on the
+bit1 backend's (Y, W1) words, without a decode to byte planes. torch has
+no popcount, so words are counted with the SWAR bit-count on int64
+copies; every sum is exact in int64.
 """
 
 from __future__ import annotations
@@ -11,6 +12,33 @@ from __future__ import annotations
 import torch
 
 from .rng import MASK
+
+
+def row_up_counts(black, white):
+    """Per-row up-spin counts (int64) of two (Y, C) uint8 bit planes."""
+    return (black.sum(dim=1, dtype=torch.int64)
+            + white.sum(dim=1, dtype=torch.int64))
+
+
+def energy_row_sums(black, white, row_chunk: int = 8192):
+    """Per-row exact bond sums sum_x (s s_right + s s_down), int64, of two
+    (Y, C) uint8 bit planes; the Hamiltonian is minus their total. Each
+    row has 2C horizontal and 2C vertical bonds, and the sum is the bond
+    count less twice the antialigned ones. Row-chunked, with one wrap row
+    appended per slab."""
+    Y = black.shape[0]
+    R = min(Y, row_chunk)
+    while Y % R:
+        R -= 2
+    parts = []
+    for r in range(0, Y, R):
+        e_ext, o_ext = _col_parity_planes(_rows_wrap(black, r, R + 1),
+                                          _rows_wrap(white, r, R + 1))
+        e0, o0 = e_ext[:R], o_ext[:R]
+        anti = ((e0 ^ o0) + (o0 ^ torch.roll(e0, -1, dims=1))
+                + (e0 ^ e_ext[1:]) + (o0 ^ o_ext[1:]))
+        parts.append(4 * e0.shape[1] - 2 * anti.sum(dim=1, dtype=torch.int64))
+    return torch.cat(parts)
 
 
 def popcount32(words):

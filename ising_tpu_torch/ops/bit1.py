@@ -1,32 +1,58 @@
 """1-bit tier (backend "bit1"): storage, plain sweep, CUDA sweep, backend.
 
-The port of ``ising_tpu/ops/pallas_bit1.py`` for the u32-draw path of its
-TPU kernel ``_bit1_kernel`` (Philox and Threefry counter modes, T > 0 and
-the greedy T <= 0 quench).
+The port of ``ising_tpu/ops/pallas_bit1.py`` and its TPU kernel
+``_bit1_kernel`` in every rng mode: the u32-draw path (Philox, Threefry
+and ChaCha counter modes), the bit-plane path (the "...b" modes and hw)
+with its bit-serial accept, the greedy T <= 0 quench, and the 10-class
+external-field accept. Disorder and replicas are not ported yet.
 
 Storage: a compact color plane (Y, C = X/2) is held as (Y, W1 = C/32)
 torch.int32 words carrying the same 32 bits as the JAX package's uint32
 words; bit g of word j is the spin at compact column g*W1 + j.
 
-``bit1_sweep`` launches the hand-written kernel ``csrc/bit1_sweep.cu`` on
-CUDA tensors and runs ``bit1_sweep_reference``, the same function in plain
+``bit1_sweep`` launches the hand-written kernels in ``csrc/`` on CUDA
+tensors and runs ``bit1_sweep_reference``, the same function in plain
 torch, on CPU tensors. The plain version works on int64 copies of the
 words (values in [0, 2^32)), because torch's int32 right shift is
 arithmetic and its uint32 lacks shifts and compares on the CPU.
+
+Bit-plane path: instead of one u32 draw per spin, a color phase draws k
+random bit-plane words per word (plane z holds random bit z of the 32
+spins) and accepts where the assembled k-bit uniform v < t, evaluated
+bit-serially over the planes with no per-spin compare. The "...b" modes
+take k = 16 planes of their counter generator; hw takes k = 24 planes of
+Philox-10 with counter word 3 salted by HW_SALT, which is the stream the
+JAX package's Pallas kernels substitute for the TPU's hardware generator
+when they run off the TPU (so the two agree bit for bit there; a real
+TPU's hw stream is a different one).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from ..config import not_ported
 from ..constants import BLACK, WHITE
-from ..rng import (MASK, PORTED_MODES, TAG_SWEEP, counter_color_draws,
-                   key_from_seed, parse_rng_mode, threefry_stream_key,
-                   unported_mode_item)
+from ..models import ising
+from ..rng import (MASK, PHILOX_ROUNDS, TAG_SWEEP, counter_color_draws,
+                   key_from_seed, parse_rng_mode, plane_bits,
+                   threefry_stream_key)
 from . import kernel_lib
 
 SPW = 32  # spins per word
+HW_KBITS = 24      # hw's accept granularity: the reference's 2^-24 uniforms
+HW_SALT = 0x8000   # hw's counter word 3 is the sweep tag | HW_SALT
+
+
+def accept_bits(rng_mode: str) -> int:
+    """k of the bit-serial accept: the mode's plane count, HW_KBITS for
+    hw, 0 for the u32-draw modes."""
+    if parse_rng_mode(rng_mode)[0] == "hw":
+        return HW_KBITS
+    return plane_bits(rng_mode)
 
 
 def _u(words):
@@ -95,6 +121,101 @@ def _accept_plane(draws, threshold: int):
     return (hit * _bit_weights(draws.device)).sum(dim=1)
 
 
+def plane_accept_args(rng_mode: str, temp: float, field: float = 0.0) -> dict:
+    """bit1_sweep's k-bit thresholds for a bit-plane mode at (temp,
+    field): t4k/t8k, or the 10-class tvals10/always10 when field != 0
+    (pallas_bit1.py:733-740). Empty for the u32 modes."""
+    k = accept_bits(rng_mode)
+    if not k:
+        return {}
+    if field:
+        tvals10, always10 = ising.field_kbit_thresholds(temp, field, k)
+        return dict(tvals10=tvals10, always10=always10)
+    t4k, t8k = ising.bernoulli_kbit_thresholds(temp, k)
+    return dict(t4k=t4k, t8k=t8k)
+
+
+@functools.lru_cache(maxsize=16)
+def accept_table(kbits: int, t4k: int, t8k: int, tvals10, always10: int):
+    """bit1_planes_launch's threshold table (AcceptTable in
+    csrc/bit1_planes.cu) as kernel_lib.TABLE_WORDS ctypes words: t4k, t8k;
+    with a field (tvals10 a tuple) the mask of the classes that flip on a
+    draw, then all-ones words where a class always flips and where bit z
+    of a drawing class's threshold is set. Built once per set of
+    thresholds, not on every launch."""
+    words = [t4k, t8k, 0] + [0] * (kernel_lib.TABLE_WORDS - 3)
+    if tvals10 is not None:
+        for c, t in enumerate(tvals10):
+            if (always10 >> c) & 1:
+                words[3 + c] = MASK
+            elif t:
+                words[2] |= 1 << c
+                for z in range(kbits):
+                    if (t >> z) & 1:
+                        words[13 + c * kernel_lib.TABLE_KBITS + z] = MASK
+    return (ctypes.c_uint32 * kernel_lib.TABLE_WORDS)(*words)
+
+
+def draw_planes(rng_mode: str, seed: int, H: int, W1: int, *, step,
+                tag: int, row0=0, device="cpu"):
+    """The k = accept_bits(rng_mode) random bit-plane words of one (H, W1)
+    color tile, as a list of (H, W1) int64 tensors. Plane z is lanes
+    [z*W1, (z+1)*W1) of the mode's (H, k*W1) draw block under the
+    ordinary counter layout (the port of pallas_packed._draw_plane_list;
+    hw: salted Philox-10, pallas_bit1.py's off-TPU hw stream)."""
+    k = accept_bits(rng_mode)
+    if parse_rng_mode(rng_mode)[0] == "hw":
+        rng_mode, tag = "philox", tag | HW_SALT
+    draws = counter_color_draws(rng_mode, seed, H, k * W1, step=step,
+                                tag=tag, row0=row0, row_stride=k * W1,
+                                device=device)
+    return [draws[:, z * W1:(z + 1) * W1] for z in range(k)]
+
+
+def bitserial_lt_planes(planes, t4k: int, t8k: int):
+    """(lt4, lt8, coin) words: bit set where the k-bit uniform assembled
+    LSB-first from `planes` is below t4k / t8k; coin is plane 0 (the greedy
+    e == 2 coin). The strict compare runs over the planes as
+    a' = t_z ? (~u | a) : (~u & a) from a = 0, which is what the JAX
+    helper's folded chains compute."""
+    a4 = a8 = torch.zeros_like(planes[0])
+    for z, u in enumerate(planes):
+        nu = u ^ MASK
+        a4 = (nu | a4) if (t4k >> z) & 1 else (nu & a4)
+        a8 = (nu | a8) if (t8k >> z) & 1 else (nu & a8)
+    return a4, a8, planes[0]
+
+
+def bitserial_field_flip(planes, me, n0, n1, n2, tvals10, always10: int):
+    """Flip words of the 10-class external-field accept
+    (ising.field_kbit_thresholds): classes in `always10` flip; class
+    b*5 + n flips where v < tvals10[b*5 + n]. One strict less-than chain
+    with a per-spin threshold: lt' = (T_z & ~u) | (~(T_z ^ u) & lt), T_z
+    the OR of the classes whose threshold has bit z set."""
+    notme = me ^ MASK
+    n_eq = ((n2 | n1 | n0) ^ MASK,        # n == 0
+            ((n2 | n1) ^ MASK) & n0,      # n == 1
+            ((n2 | n0) ^ MASK) & n1,      # n == 2
+            n1 & n0,                      # n == 3
+            n2)                           # n == 4
+    classes = [(me if c >= 5 else notme) & n_eq[c % 5] for c in range(10)]
+    always = torch.zeros_like(me)
+    stoch = []
+    for c, m in enumerate(classes):
+        if (always10 >> c) & 1:
+            always = always | m
+        elif tvals10[c]:
+            stoch.append((m, tvals10[c]))
+    lt = torch.zeros_like(me)
+    for z, u in enumerate(planes):
+        T = torch.zeros_like(me)
+        for m, t in stoch:
+            if (t >> z) & 1:
+                T = T | m
+        lt = (T & (u ^ MASK)) | ((T ^ u ^ MASK) & lt)
+    return always | lt
+
+
 def _off_column(src, color: int):
     """Word plane of each site's off-column in-row neighbor (left on even
     rows for black, right on odd rows; mirrored for white). At the row's
@@ -111,27 +232,41 @@ def _off_column(src, color: int):
 
 def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step, *,
                          color: int, seed: int, rng_mode: str,
-                         greedy: bool):
+                         greedy: bool, t4k: int = 0, t8k: int = 0,
+                         tvals10=None, always10: int = 0):
     """One color half-sweep in plain torch: the new (H, W1) int32 dst.
 
     dst/src are this color's and the other color's (H, W1) words; src_up /
     src_dn the (1, W1) rows above and below the slab; thr the (10,) uint32
-    threshold table (entries 7, 8, 9 are read); row0 the slab's global
-    first row. Inputs are not modified.
+    threshold table (the u32 modes read entries 7, 8, 9); row0 the slab's
+    global first row. The bit-plane modes (accept_bits(rng_mode) > 0) read
+    the k-bit thresholds (t4k, t8k) instead, or with an external field the
+    10-class table (tvals10, always10), which also covers T <= 0. Inputs
+    are not modified.
     """
     me, s = _u(dst), _u(src)
     up = torch.cat([_u(src_up), s[:-1]])
     dn = torch.cat([s[1:], _u(src_dn)])
-    ge3, ge4, eq2 = _neighbor_class_masks(me, up, dn, s,
-                                          _off_column(s, color))
+    off = _off_column(s, color)
     H, W1 = dst.shape
-    draws = counter_color_draws(rng_mode, seed, H, SPW * W1, step=step,
-                                tag=TAG_SWEEP | color, row0=row0,
-                                device=dst.device)
-    p4 = _accept_plane(draws, thr[8])
-    p8 = _accept_plane(draws, thr[9])
+    tag = TAG_SWEEP | color
+    if accept_bits(rng_mode):
+        planes = draw_planes(rng_mode, seed, H, W1, step=step, tag=tag,
+                             row0=row0, device=dst.device)
+        if tvals10 is not None:
+            flip = bitserial_field_flip(
+                planes, me, *_neighbor_adder(up, dn, s, off), tvals10,
+                always10)
+            return _s(me ^ flip)
+        p4, p8, p0 = bitserial_lt_planes(planes, t4k, t8k)
+    else:
+        draws = counter_color_draws(rng_mode, seed, H, SPW * W1, step=step,
+                                    tag=tag, row0=row0, device=dst.device)
+        p4 = _accept_plane(draws, thr[8])
+        p8 = _accept_plane(draws, thr[9])
+        p0 = _accept_plane(draws, thr[7]) if greedy else None
+    ge3, ge4, eq2 = _neighbor_class_masks(me, up, dn, s, off)
     if greedy:
-        p0 = _accept_plane(draws, thr[7])
         flip = ((~ge3 & ~eq2) | (eq2 & p0) | (ge3 & ~ge4 & p4)
                 | (ge4 & p8))
     else:
@@ -160,16 +295,20 @@ def _cuda_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-_FAMILY_CODE = {"philox": 0, "threefry": 1}
+_FAMILY_CODE = {"philox": 0, "threefry": 1, "chacha": 2}
+ACCEPT_METROPOLIS, ACCEPT_GREEDY, ACCEPT_FIELD = 0, 1, 2
 
 
 def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
-               seed: int, rng_mode: str, greedy: bool):
+               seed: int, rng_mode: str, greedy: bool, t4k: int = 0,
+               t8k: int = 0, tvals10=None, always10: int = 0):
     """One color half-sweep of dst, in place; returns dst.
 
-    On CUDA tensors this launches csrc/bit1_sweep.cu (one thread per word)
-    or raises; on CPU tensors it runs bit1_sweep_reference. Arguments as
-    for bit1_sweep_reference. Counts launches in bit1_sweep.launches.
+    On CUDA tensors this launches a kernel of csrc/ (one thread per word):
+    bit1_sweep.cu in the u32 modes, bit1_planes.cu in the bit-plane modes;
+    a launch that fails raises. On CPU tensors it runs
+    bit1_sweep_reference. Arguments as for bit1_sweep_reference. Counts
+    launches in bit1_sweep.launches.
     """
     H, W1 = tuple(dst.shape)
     device = dst.device
@@ -177,15 +316,17 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
     _check_words("src", src, (H, W1), device)
     _check_words("src_up", src_up, (1, W1), device)
     _check_words("src_dn", src_dn, (1, W1), device)
-    if rng_mode not in PORTED_MODES:
-        raise not_ported(f"rng mode {rng_mode!r} on bit1",
-                         unported_mode_item(rng_mode))
     if color not in (BLACK, WHITE):
         raise ValueError(f"bit1_sweep: color must be 0 or 1, got {color!r}")
+    kbits = accept_bits(rng_mode)
+    if tvals10 is not None and not kbits:
+        raise ValueError("bit1_sweep: the external-field accept needs a "
+                         f"bit-plane rng mode or hw, not {rng_mode!r}")
     if device.type == "cpu":
         dst.copy_(bit1_sweep_reference(
             dst, src, src_up, src_dn, thr, row0, step, color=color,
-            seed=seed, rng_mode=rng_mode, greedy=greedy))
+            seed=seed, rng_mode=rng_mode, greedy=greedy, t4k=t4k, t8k=t8k,
+            tvals10=tvals10, always10=always10))
         return dst
     if device.type != "cuda":
         raise ValueError(f"bit1_sweep runs on cuda or cpu, not {device}")
@@ -194,17 +335,32 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
                          "overlap src, src_up or src_dn")
     family, rounds = parse_rng_mode(rng_mode)
     tag = TAG_SWEEP | color
-    if family == "philox":
-        k0, k1 = key_from_seed(seed)
-    else:
+    if family == "hw":
+        family, rounds, tag = "philox", PHILOX_ROUNDS, tag | HW_SALT
+    if family == "threefry":
         k0, k1 = threefry_stream_key(seed, step, tag)
+    else:
+        k0, k1 = key_from_seed(seed)
+    ptrs = (dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
+            src_dn.data_ptr(), H, W1, int(row0) & MASK, int(step) & MASK,
+            tag, color)
     lib, _ = kernel_lib.load()
-    code = lib.bit1_sweep_launch(
-        dst.data_ptr(), src.data_ptr(), src_up.data_ptr(), src_dn.data_ptr(),
-        H, W1, int(row0) & MASK, int(step) & MASK, tag, color,
-        int(thr[7]), int(thr[8]), int(thr[9]), k0, k1,
-        _FAMILY_CODE[family], rounds, int(bool(greedy)), _cuda_stream(device))
-    kernel_lib.check(lib, code, "bit1_sweep launch")
+    if kbits:
+        if tvals10 is not None:
+            accept, tvals10 = ACCEPT_FIELD, tuple(tvals10)
+        else:
+            accept = ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS
+        code = lib.bit1_planes_launch(
+            *ptrs, k0, k1, _FAMILY_CODE[family], rounds, kbits, accept,
+            accept_table(kbits, t4k, t8k, tvals10, always10),
+            _cuda_stream(device))
+        kernel_lib.check(lib, code, "bit1_planes launch")
+    else:
+        code = lib.bit1_sweep_launch(
+            *ptrs, int(thr[7]), int(thr[8]), int(thr[9]), k0, k1,
+            _FAMILY_CODE[family], rounds, int(bool(greedy)),
+            _cuda_stream(device))
+        kernel_lib.check(lib, code, "bit1_sweep launch")
     bit1_sweep.launches += 1
     return dst
 
@@ -220,7 +376,23 @@ class Bit1Backend:
 
     def __init__(self, cfg):
         self.cfg = cfg
-        self.greedy = cfg.temperature <= 0
+        # The JAX backend's interface (pallas_bit1.py:608-625): the mode's
+        # plane count, the bit-serial accept's k (HW_KBITS unless a "...b"
+        # mode fixes it; unused in the u32 modes), and whether the accept
+        # takes k-bit thresholds of the temperature (hw, "...b").
+        self.kplanes = plane_bits(cfg.rng)
+        self.accept_bits = self.kplanes or HW_KBITS
+        self.temp_static = accept_bits(cfg.rng) > 0
+        self.retune(cfg.temperature, cfg.field)
+
+    def retune(self, temperature: float, field: float):
+        """Take a new temperature or field (Simulation.set_temperature /
+        set_field): the greedy quench at T <= 0 and, in the bit-plane
+        modes and hw, the k-bit thresholds, computed here once on the
+        host rather than on every launch (12-21 us each on the host)."""
+        self.temperature, self.field = temperature, field
+        self.greedy = temperature <= 0
+        self.accept = plane_accept_args(self.cfg.rng, temperature, field)
 
     def encode(self, black_bits, white_bits):
         return pack_bits1(black_bits), pack_bits1(white_bits)
@@ -244,4 +416,5 @@ class Bit1Backend:
             raise not_ported("quenched disorder on bit1", 4)
         return bit1_sweep(dst, src, src_up, src_dn, thr10, row0, step,
                           color=color, seed=self.cfg.seed,
-                          rng_mode=self.cfg.rng, greedy=self.greedy)
+                          rng_mode=self.cfg.rng, greedy=self.greedy,
+                          **self.accept)

@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 
 _c = ctypes
+# bit1_planes_launch's threshold table (AcceptTable in bit1_planes.cu):
+# t4k, t8k, the draw-class bits, 10 always-words, 10 x TABLE_KBITS bit-words
+TABLE_KBITS = 24
+TABLE_WORDS = 3 + 10 + 10 * TABLE_KBITS
 # Argument types of the C entry points (pointers and the stream as
 # c_void_p, so that ctypes does not cut them to 32 bits).
 SIGNATURES = {
@@ -38,6 +42,15 @@ SIGNATURES = {
          _c.c_uint32, _c.c_uint32, _c.c_uint32,               # thr7 thr8 thr9
          _c.c_uint32, _c.c_uint32,                            # k0 k1
          _c.c_int, _c.c_int, _c.c_int,                        # family rounds greedy
+         _c.c_void_p],                                        # stream
+        _c.c_int),
+    "bit1_planes_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # dst src up dn
+         _c.c_int, _c.c_int,                                  # H, W1
+         _c.c_uint32, _c.c_uint32, _c.c_uint32, _c.c_int,     # row0 step tag color
+         _c.c_uint32, _c.c_uint32,                            # k0 k1
+         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # family rounds kbits accept
+         _c.POINTER(_c.c_uint32),                             # table
          _c.c_void_p],                                        # stream
         _c.c_int),
     "ising_cuda_error_string": ([_c.c_int], _c.c_char_p),

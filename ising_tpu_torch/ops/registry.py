@@ -1,19 +1,22 @@
-"""Backend registry of the port. The bit1 backend runs here; the others
-raise NotImplementedError naming the ROADMAP.md queue-1 item that ports
-them (see ising_tpu/ops/registry.py for the interface)."""
+"""Backend registry of the port. The xla and bit1 backends run here; the
+others raise NotImplementedError naming the ROADMAP.md queue-1 item that
+ports them (see ising_tpu/ops/registry.py for the interface)."""
 
 from __future__ import annotations
 
 from ..config import not_ported
 
-_UNPORTED = {"xla": 1, "packed": 8, "dense": 9, "mxu": 9}
+_UNPORTED = {"packed": 8, "dense": 9, "mxu": 9}
 
 
 def available_backends():
-    return ("bit1",)
+    return ("xla", "bit1")
 
 
 def get_backend(cfg):
+    if cfg.backend == "xla":
+        from .xla_ref import XlaBackend
+        return XlaBackend(cfg)
     if cfg.backend == "bit1":
         from .bit1 import Bit1Backend
         return Bit1Backend(cfg)

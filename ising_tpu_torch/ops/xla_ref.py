@@ -1,0 +1,171 @@
+"""Reference checkerboard sweep in plain torch (backend "xla").
+
+The port of ``ising_tpu/ops/xla_ref.py``, the JAX package's semantic ground
+truth, which has no Pallas kernel: the 4-neighbour bit sum of the opposite
+color, a threshold per site, accept where the draw is at or below it, flip
+by XOR. It is plain torch on every device and is the CLI's default
+backend. Storage is the compact uint8 bit planes themselves (lattice.py).
+
+Draws: every counter mode gives the same per-site draws as the JAX
+package's xla backend, so trajectories match it bit for bit; the bit-plane
+modes ("...b") consume the same plane words and bit-serial compare as the
+bit1 kernel (ops/bit1.py). In hw mode the draws come from torch's own
+generator (rng.hw_draws), as the JAX package draws them from jax.random:
+no counter contract, so hw trajectories agree with the JAX package's only
+in distribution.
+
+Only the periodic wrap of one unsharded lattice is ported; the replica
+wrap maps and disorder wait for ROADMAP.md queue-1 item 4.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import not_ported
+from ..constants import BLACK
+from ..rng import MASK, TAG_SWEEP, counter_color_draws, plane_bits
+from .bit1 import (bitserial_lt_planes, draw_planes, plane_accept_args,
+                   unpack_bits1)
+
+
+def select_threshold(dst_bits, nsum, thr10):
+    """Per-site acceptance threshold (int64 holding uint32) through the
+    mirrored count e = b ? n : 4 - n: e < 2 always accepts, e = 2, 3, 4
+    take thr10[7], [8], [9]. Equals thr10[b*5 + n] because the h = 0
+    table is mirror-symmetric."""
+    e = torch.where(dst_bits == 1, nsum, 4 - nsum).to(torch.int64)
+    table = torch.tensor([MASK, MASK] + [int(t) for t in thr10[7:10]],
+                         dtype=torch.int64, device=nsum.device)
+    return table[e]
+
+
+def select_threshold_full(dst_bits, nsum, thr10):
+    """Per-site threshold from the full 2 x 5 table, thr10[b*5 + n]
+    (external-field runs, where the mirror symmetry does not hold)."""
+    table = torch.tensor([int(t) for t in thr10], dtype=torch.int64,
+                         device=nsum.device)
+    return table[dst_bits.to(torch.int64) * 5 + nsum.to(torch.int64)]
+
+
+def neighbor_bit_sum(src, *, color: int, H: int, src_up, src_dn):
+    """4-neighbour bit sum (0..4, uint8) of the opposite-color plane per
+    dst site, with src_up / src_dn the (1, C) rows above and below the slab
+    (src[-1:] and src[:1] for one periodic lattice). The off-column
+    neighbour: black looks left on even rows, right on odd rows; white the
+    mirror. Even slab heights keep local row parity global."""
+    up = torch.cat([src_up, src[:-1]])
+    dn = torch.cat([src[1:], src_dn])
+    left = torch.roll(src, 1, dims=1)
+    right = torch.roll(src, -1, dims=1)
+    row_odd = (torch.arange(H, device=src.device) % 2 == 1)[:, None]
+    if color == BLACK:
+        off = torch.where(row_odd, right, left)
+    else:
+        off = torch.where(row_odd, left, right)
+    return up + dn + src + off
+
+
+def sweep_color(dst, src, *, color: int, thr10, draws, src_up, src_dn,
+                full_table: bool = False):
+    """One Metropolis half-sweep of the (H, C) uint8 plane dst against
+    src: accept where the (H, C) draw (int64 holding uint32) is at or below
+    the site's threshold from the (10,) uint32 table thr10; full_table
+    selects from all ten entries (external field)."""
+    H = dst.shape[0]
+    nsum = neighbor_bit_sum(src, color=color, H=H, src_up=src_up,
+                            src_dn=src_dn)
+    pick = select_threshold_full if full_table else select_threshold
+    return dst ^ (draws <= pick(dst, nsum, thr10)).to(torch.uint8)
+
+
+def sweep_color_planes_field(dst, src, *, color: int, v, t10, src_up,
+                             src_dn):
+    """Half-sweep, bit-plane contract with external field: flip where the
+    assembled k-bit uniform v (int64) is below t10[b*5 + n]; always-flip
+    classes hold 2^k. Bit-identical to bit1.bitserial_field_flip."""
+    H = dst.shape[0]
+    nsum = neighbor_bit_sum(src, color=color, H=H, src_up=src_up,
+                            src_dn=src_dn)
+    return dst ^ (v < select_threshold_full(dst, nsum, t10)).to(torch.uint8)
+
+
+def sweep_color_planes(dst, src, *, color: int, lt4, lt8, coin,
+                       greedy: bool, src_up, src_dn):
+    """Half-sweep under the bit-plane contract ("...b" modes): lt4 / lt8 /
+    coin are (H, C) uint8 Bernoulli bits (v < t4k, v < t8k, plane 0) from
+    bit1.bitserial_lt_planes, consumed as the bit1 kernel consumes them."""
+    H = dst.shape[0]
+    nsum = neighbor_bit_sum(src, color=color, H=H, src_up=src_up,
+                            src_dn=src_dn)
+    e = torch.where(dst == 1, nsum, 4 - nsum)
+    if greedy:
+        flip = ((e < 2) | ((e == 2) & (coin == 1))
+                | ((e == 3) & (lt4 == 1)) | ((e == 4) & (lt8 == 1)))
+    else:
+        flip = (e < 3) | ((e == 3) & (lt4 == 1)) | ((e == 4) & (lt8 == 1))
+    return dst ^ flip.to(torch.uint8)
+
+
+class XlaBackend:
+    """Backend adapter: plain uint8 bit-plane storage, plain-torch sweep."""
+
+    name = "xla"
+    bytes_per_spin = 1.0  # uint8 bit planes
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.kplanes = plane_bits(cfg.rng)
+        if self.kplanes and (cfg.ncols // 2) % 32:
+            raise ValueError(
+                "bit-plane rng modes (...b) need ncols % 64 == 0 "
+                "(one random bit-plane word covers 32 compact columns)")
+        self.retune(cfg.temperature, cfg.field)
+
+    def retune(self, temperature: float, field: float):
+        """Take a new temperature or field (Simulation.set_temperature /
+        set_field). With a field the u32 modes select from the full 2 x 5
+        table; the plane modes take the k-bit thresholds of
+        bit1.plane_accept_args, computed here once."""
+        self.temperature, self.field = temperature, field
+        self.greedy = temperature <= 0
+        self.full_table = field != 0.0
+        self.accept = (plane_accept_args(self.cfg.rng, temperature, field)
+                       if self.kplanes else {})
+
+    def encode(self, black_bits, white_bits):
+        return black_bits, white_bits
+
+    def decode(self, black_store, white_store):
+        return black_store, white_store
+
+    def update_color(self, dst, src, *, color, thr10, step, row0=0,
+                     src_up=None, src_dn=None, jplanes=None):
+        if jplanes is not None:
+            raise not_ported("quenched disorder on xla", 4)
+        H, C = dst.shape
+        tag = TAG_SWEEP | color
+        if self.kplanes:
+            k, acc = self.kplanes, self.accept
+            planes = draw_planes(self.cfg.rng, self.cfg.seed, H, C // 32,
+                                 step=step, tag=tag, row0=row0,
+                                 device=dst.device)
+            if "tvals10" in acc:
+                t10 = [(1 << k) if (acc["always10"] >> c) & 1
+                       else acc["tvals10"][c] for c in range(10)]
+                v = sum(unpack_bits1(p).to(torch.int64) << z
+                        for z, p in enumerate(planes))
+                return sweep_color_planes_field(
+                    dst, src, color=color, v=v, t10=t10, src_up=src_up,
+                    src_dn=src_dn)
+            lt4, lt8, coin = (unpack_bits1(p) for p in bitserial_lt_planes(
+                planes, acc["t4k"], acc["t8k"]))
+            return sweep_color_planes(
+                dst, src, color=color, lt4=lt4, lt8=lt8, coin=coin,
+                greedy=self.greedy, src_up=src_up, src_dn=src_dn)
+        draws = counter_color_draws(self.cfg.rng, self.cfg.seed, H, C,
+                                    step=step, tag=tag, row0=row0,
+                                    row_stride=C, device=dst.device)
+        return sweep_color(dst, src, color=color, thr10=thr10, draws=draws,
+                           src_up=src_up, src_dn=src_dn,
+                           full_table=self.full_table)

@@ -1,8 +1,10 @@
-"""Counter-based Philox4x32 and Threefry2x32 streams in plain torch.
+"""Counter-based Philox4x32, Threefry2x32 and ChaCha streams in plain torch.
 
-The port of ``ising_tpu/rng.py`` for the u32-draw contract of the philox
-and threefry families. Every draw is a pure function of (seed, site, step,
-tag), so the port's trajectories are bit-identical to the JAX package's.
+The port of ``ising_tpu/rng.py``: every counter mode of its RNG_MODES
+table. Every draw is a pure function of (seed, site, step, tag), so the
+port's trajectories are bit-identical to the JAX package's. The one mode
+without that contract, ``hw``, draws from a torch.Generator here
+(``hw_draws``), as the JAX package draws it from ``jax.random``.
 
 torch has no usable uint32 arithmetic on the CPU (``+``, ``<<``, ``>>`` and
 ``<`` raise for torch.uint32), so the generators here work on int64
@@ -16,7 +18,9 @@ Counter layout (shared with the JAX package): for a compact color tile of
 quarter of the row, at the 64-bit quad counter q = row * (ncols/4) +
 (col mod ncols/4) and the stream words (step, tag); Threefry covers a pair
 (col, col + ncols/2) per call at q = row * (ncols/2) + (col mod ncols/2)
-under the per-(step, tag) stream key.
+under the per-(step, tag) stream key; ChaCha covers 16 sites per block,
+one in each sixteenth of the row, at q = row * (ncols/16) + (col mod
+ncols/16) with (step, tag) in the block's nonce words.
 """
 
 from __future__ import annotations
@@ -56,8 +60,16 @@ RNG_MODES = {
     "hw": ("hw", 0, 0),
 }
 
-# The modes this port runs: the u32 draw contract of Philox and Threefry.
-PORTED_MODES = ("philox", "philox7", "threefry", "threefry13")
+# ChaCha state constants ("expand 32-byte k") and the pi-digit pad words
+# filling the key lanes a 64-bit seed leaves free. State layout:
+#   [ C0 C1 C2 C3 | k0 k1 P0 P1 | P2 P3 P4 P5 | c0 c1 step tag ]
+CHACHA_C = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
+CHACHA_PAD = (0x243F6A88, 0x85A308D3, 0x13198A2E,
+              0x03707344, 0xA4093822, 0x299F31D0)
+CHACHA_ROUNDS = 8
+
+# The modes this port runs: all of them.
+PORTED_MODES = tuple(RNG_MODES)
 
 
 def parse_rng_mode(mode: str):
@@ -76,14 +88,6 @@ def plane_bits(mode: str) -> int:
     except KeyError:
         raise ValueError(f"unknown rng mode {mode!r}; "
                          f"one of {sorted(RNG_MODES)}") from None
-
-
-def unported_mode_item(mode: str):
-    """ROADMAP.md queue-1 item that ports `mode`, or None if it runs here."""
-    if mode in PORTED_MODES:
-        return None
-    family = parse_rng_mode(mode)[0]
-    return 3 if family == "chacha" and not plane_bits(mode) else 2
 
 
 def mulhilo32(a, b):
@@ -126,6 +130,39 @@ def threefry2x32(c0, c1, k0, k1, rounds: int = THREEFRY_ROUNDS):
             x0 = (x0 + ks[j % 3]) & MASK
             x1 = (x1 + ks[(j + 1) % 3] + j) & MASK
     return x0, x1
+
+
+def _chacha_qr(a, b, c, d):
+    """ChaCha quarter round (add-rotate-xor, rotations 16/12/8/7)."""
+    a = (a + b) & MASK
+    d = rotl32(d ^ a, 16)
+    c = (c + d) & MASK
+    b = rotl32(b ^ c, 12)
+    a = (a + b) & MASK
+    d = rotl32(d ^ a, 8)
+    c = (c + d) & MASK
+    b = rotl32(b ^ c, 7)
+    return a, b, c, d
+
+
+def chacha_block(c0, c1, step, tag, k0, k1, rounds: int = CHACHA_ROUNDS):
+    """ChaCha-R block: 16 outputs per counter. `rounds` counts single
+    rounds, applied as column/diagonal pairs, so it must be even; the
+    initial state is added back at the end."""
+    if rounds % 2:
+        raise ValueError(f"chacha rounds must be even, got {rounds}")
+    init = [*CHACHA_C, k0, k1, *CHACHA_PAD, c0, c1, step, tag]
+    x = list(init)
+    for _ in range(rounds // 2):
+        x[0], x[4], x[8], x[12] = _chacha_qr(x[0], x[4], x[8], x[12])
+        x[1], x[5], x[9], x[13] = _chacha_qr(x[1], x[5], x[9], x[13])
+        x[2], x[6], x[10], x[14] = _chacha_qr(x[2], x[6], x[10], x[14])
+        x[3], x[7], x[11], x[15] = _chacha_qr(x[3], x[7], x[11], x[15])
+        x[0], x[5], x[10], x[15] = _chacha_qr(x[0], x[5], x[10], x[15])
+        x[1], x[6], x[11], x[12] = _chacha_qr(x[1], x[6], x[11], x[12])
+        x[2], x[7], x[8], x[13] = _chacha_qr(x[2], x[7], x[8], x[13])
+        x[3], x[4], x[9], x[14] = _chacha_qr(x[3], x[4], x[9], x[14])
+    return [(a + b) & MASK for a, b in zip(x, init)]
 
 
 def key_from_seed(seed: int):
@@ -185,17 +222,50 @@ def threefry_color_draws(seed: int, nrows: int, ncols: int, *, step,
     return torch.cat([o0, o1], dim=1)
 
 
+def chacha_color_draws(seed: int, nrows: int, ncols: int, *, step,
+                       tag: int, row0=0, row_stride: int | None = None,
+                       rounds: int = CHACHA_ROUNDS, device="cpu"):
+    """(nrows, ncols) ChaCha draws: draw (y, col) is output word col // g of
+    the block at q = y * stride/16 + (col mod g), g = ncols/16."""
+    if ncols % 16 != 0:
+        raise ValueError("chacha draw width must be a multiple of 16")
+    if row_stride is not None and row_stride % 16 != 0:
+        raise ValueError("chacha row_stride must be a multiple of 16")
+    stride = (row_stride if row_stride is not None else ncols) // 16
+    c0, c1 = quad_counters(nrows, ncols // 16, row0=row0, row_stride=stride,
+                           device=device)
+    k0, k1 = key_from_seed(seed)
+    o = chacha_block(c0, c1, int(step) & MASK, int(tag) & MASK, k0, k1,
+                     rounds)
+    return torch.cat(o, dim=1)
+
+
+def hw_draws(seed: int, nrows: int, ncols: int, *, step, tag: int, row0=0,
+             device="cpu"):
+    """(nrows, ncols) draws of rng mode "hw" on the plain-torch backend:
+    torch's own generator on `device`, seeded from (seed, tag, step, row0).
+    Like the JAX package's jax.random path, it is reproducible on one
+    device type but carries no cross-backend contract."""
+    k0, k1 = threefry_stream_key(seed, step, tag)
+    lo, hi = threefry2x32(int(row0) & MASK, 0, k0, k1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed((hi << 32) | lo)
+    return torch.randint(0, 1 << 32, (nrows, ncols), generator=gen,
+                         dtype=torch.int64, device=device)
+
+
 def counter_color_draws(mode: str, seed: int, nrows: int, ncols: int, *,
                         step, tag: int, row0=0,
                         row_stride: int | None = None, device="cpu"):
-    """Mode-dispatched per-site draws (philox and threefry families)."""
+    """Mode-dispatched per-site draws (int64 holding uint32)."""
     family, rounds = parse_rng_mode(mode)
     kw = dict(step=step, tag=tag, row0=row0, row_stride=row_stride,
               rounds=rounds, device=device)
-    if mode in PORTED_MODES and family == "philox":
+    if family == "philox":
         return color_draws(seed, nrows, ncols, **kw)
-    if mode in PORTED_MODES and family == "threefry":
+    if family == "threefry":
         return threefry_color_draws(seed, nrows, ncols, **kw)
-    raise NotImplementedError(
-        f"rng mode {mode!r} is not yet ported "
-        f"(ROADMAP item {unported_mode_item(mode)})")
+    if family == "chacha":
+        return chacha_color_draws(seed, nrows, ncols, **kw)
+    return hw_draws(seed, nrows, ncols, step=step, tag=tag, row0=row0,
+                    device=device)

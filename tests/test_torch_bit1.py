@@ -1,10 +1,11 @@
 """The port's bit1 half-sweep against the JAX package's Pallas kernel.
 
-bit1_sweep_reference (the plain torch version of the CUDA kernel) is held
+bit1_sweep_reference (the plain torch version of the CUDA kernels) is held
 bit for bit against ising_tpu.ops.pallas_bit1.bit1_sweep run in interpret
-mode, with multi-block row tiling forced on the JAX side, in every ported
-rng mode, both colors, T > 0 and the greedy quench. Inputs come from numpy
-seeds; outputs are uint32 bit patterns, compared exactly.
+mode, with multi-block row tiling forced on the JAX side, in the u32
+Philox and Threefry modes, both colors, T > 0 and the greedy quench (the
+other modes: tests/test_torch_planes.py). Inputs come from numpy seeds;
+outputs are uint32 bit patterns, compared exactly.
 """
 
 import itertools
@@ -20,9 +21,20 @@ from ising_tpu.ops import pallas_bit1 as jbit1
 from ising_tpu_torch import interop
 from ising_tpu_torch.models import ising as tising
 from ising_tpu_torch.ops import bit1 as tbit1
-from ising_tpu_torch.rng import PORTED_MODES
+from ising_tpu_torch.rng import PORTED_MODES, RNG_MODES
 
-MODES = list(PORTED_MODES)
+MODES = ["philox", "philox7", "threefry", "threefry13"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's plain-torch sweeps run single-threaded here: the suite
+    runs several test processes at once, and torch's intra-op threads
+    on top of them slowed this file many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _words(gen, shape):
@@ -159,10 +171,12 @@ def test_wrapper_checks_inputs(bad, exc):
 
 
 def test_wrapper_refuses_unported_modes():
+    """Every mode of the table runs; a name outside it is refused."""
     d, s = _state()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
+    with pytest.raises(ValueError, match="unknown rng mode"):
         tbit1.bit1_sweep(d, s, s[-1:], s[:1], tising.threshold_table(1.0), 0,
-                         0, color=0, seed=1, rng_mode="chacha8", greedy=False)
+                         0, color=0, seed=1, rng_mode="chacha2", greedy=False)
+    assert set(PORTED_MODES) == set(RNG_MODES)
 
 
 @pytest.fixture
@@ -174,15 +188,18 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", PORTED_MODES)
 def test_kernel_matches_plain_on_card(mode, cuda_device):
     gen = np.random.default_rng(17)
-    for greedy in (False, True):
+    fields = (0.0, 0.3) if tbit1.accept_bits(mode) else (0.0,)
+    for greedy, field in ((g, h) for g in (False, True) for h in fields):
         d, s = interop.from_numpy_words(_words(gen, (64, 256)),
                                         _words(gen, (64, 256)), cuda_device)
-        thr = tising.threshold_table(0.0 if greedy else 1.5)
+        temp = 0.0 if greedy else 1.5
+        thr = tising.threshold_table(temp, field)
         for color in (0, 1):
-            kw = dict(color=color, seed=7, rng_mode=mode, greedy=greedy)
+            kw = dict(color=color, seed=7, rng_mode=mode, greedy=greedy,
+                      **tbit1.plane_accept_args(mode, temp, field))
             want = tbit1.bit1_sweep_reference(d, s, s[-1:], s[:1], thr, 2, 1,
                                               **kw)
             tbit1.bit1_sweep(d, s, s[-1:], s[:1], thr, 2, 1, **kw)

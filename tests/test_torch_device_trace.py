@@ -57,3 +57,20 @@ def test_trace_runs_on_cpu(capsys):
                               "cpu"]) == 0
     out = capsys.readouterr().out
     assert "Final   magnetization" in out and "[trace] 64^2 philox" in out
+
+
+def test_summarize_counts_both_bit1_kernels():
+    """bit1_sweep launches bit1_sweep_kernel in the u32 modes and
+    bit1_planes_kernel in the bit-plane modes: both count as launches."""
+    p = "void (anonymous namespace)::bit1_planes_kernel<2, 6, 16, 0>()"
+    events = [
+        _ev(device_trace.WINDOW, 0.0, 100.0, DeviceType.CPU),
+        _ev(p, 10.0, 20.0, DeviceType.CUDA),
+        _ev(p, 21.0, 31.0, DeviceType.CUDA),
+        _ev("popcount", 40.0, 45.0, DeviceType.CUDA),
+    ]
+    out = device_trace.summarize(events)
+    assert out["kernel_launches"] == 2
+    assert out["gap_after_kernel_us"] == {"n": 2, "median": 9.0, "p90": 9.0,
+                                          "max": 9.0}
+    assert not device_trace.is_kernel("popcount")

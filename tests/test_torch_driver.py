@@ -14,7 +14,7 @@ from ising_tpu_torch import SimConfig, cli, interop
 from ising_tpu_torch import config as tconfig
 from ising_tpu_torch.driver import Simulation, exponential_print_steps, \
     reference_exp_times
-from ising_tpu_torch.ops import get_backend
+from ising_tpu_torch.ops import available_backends, get_backend
 from ising_tpu_torch.ops.bit1 import Bit1Backend
 
 
@@ -122,10 +122,11 @@ def test_cli_prints_jax_magnetization_lines(rng, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-J", "0.1"], ["--field", "0.2"], ["--xsl", "32", "--ysl", "8"],
+    ["-J", "0.1"], ["--backend", "dense"], ["--xsl", "32", "--ysl", "8"],
     ["--devs", "2"], ["-o"], ["-c"], ["--resume", "x.ck"],
     ["--checkpoint", "x.ck"], ["--algo", "sw"], ["--pt", "1.0,2.0"],
-    ["--profile", "tracedir"], ["--rng", "chacha8"], ["--rng", "hw"],
+    ["--profile", "tracedir"], ["--backend", "mxu", "-x", "256"],
+    ["-J", "0.5", "--j-seed", "3", "--rng", "hw"],
     ["--backend", "packed"],
 ])
 def test_cli_unported_flags_exit_1(extra, capsys):
@@ -136,23 +137,43 @@ def test_cli_unported_flags_exit_1(extra, capsys):
 
 
 def test_cli_default_backend_is_not_ported(capsys):
-    assert cli.main(["-x", "64", "-y", "8", "--device", "cpu"]) == 1
-    assert "'xla' backend is not yet ported (ROADMAP item 1)" in \
+    """The CLI's default backend, xla, is ported now: no --backend runs it.
+    The backends still to port exit 1 with their ROADMAP item."""
+    assert cli.main(["-x", "64", "-y", "8", "-n", "2", "--device",
+                     "cpu"]) == 0
+    assert "backend: xla (rng: threefry13)" in capsys.readouterr().out
+    assert cli.main(["-x", "64", "-y", "8", "--device", "cpu", "--backend",
+                     "packed"]) == 1
+    assert "'packed' backend is not yet ported (ROADMAP item 8)" in \
         capsys.readouterr().err
 
 
 def test_registry_and_config_fences():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
-        get_backend(SimConfig(device="cpu"))
+    from ising_tpu_torch.ops.xla_ref import XlaBackend
+    assert isinstance(get_backend(SimConfig(device="cpu")), XlaBackend)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        get_backend(SimConfig(backend="packed", ncols=64))
     assert isinstance(get_backend(SimConfig(backend="bit1", ncols=64)),
                       Bit1Backend)
     for kw, item in ((dict(j_prob=0.1), 4), (dict(xsl=32, ysl=8), 4),
                      (dict(ndev=2), 7), (dict(dump_lattice=True), 6),
-                     (dict(rng="chacha6b"), 2)):
+                     (dict(corr_out=True, rng="chacha6b"), 6)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             SimConfig(backend="bit1", nrows=16, ncols=64, **kw)
     with pytest.raises(ValueError):
         SimConfig(backend="bit1", ncols=96)
+    # The JAX package's own validation of the field and ChaCha widths.
+    with pytest.raises(ValueError, match="10-class bit-serial accept"):
+        SimConfig(backend="bit1", ncols=64, rng="chacha8", field=0.1)
+    with pytest.raises(ValueError, match="u32-contract rng mode"):
+        SimConfig(backend="packed", ncols=64, rng="hw", field=0.1)
+    with pytest.raises(ValueError, match="not supported on the mxu"):
+        SimConfig(backend="mxu", ncols=256, field=0.1)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        SimConfig(ncols=48, rng="chacha6")
+    for rng in ("chacha6b", "hw", "chacha8", "philox"):
+        SimConfig(backend="xla", ncols=64, rng=rng, field=0.1)
+    assert available_backends() == ("xla", "bit1")
 
 
 def test_cuda_requested_without_card_raises(monkeypatch):

@@ -1,13 +1,34 @@
 """The reference trajectories in ising_tpu_torch/golden.py, derived again
-from the JAX package (xla backend), and reproduced by the port on the CPU.
-chip_smoke.py checks the same constants against the CUDA kernel."""
+from the JAX package, and reproduced by the port on the CPU with both of
+its backends. chip_smoke.py checks the same constants against the CUDA
+kernels.
+
+The JAX package's xla backend derives the u32 counter-mode cases. Its
+bit1 backend, with the Pallas kernel in interpret mode, derives hw (the
+off-TPU hw stream) and the bit-plane cases: its xla backend computes the
+same bit-plane trajectories (checked once below) but takes up to a
+minute to compile one of them on the CPU.
+"""
 
 import numpy as np
 import pytest
+import torch
 
 from ising_tpu import SimConfig as JaxConfig
 from ising_tpu.driver import Simulation as JaxSimulation
 from ising_tpu_torch import golden
+from ising_tpu_torch.rng import plane_bits
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's plain-torch sweeps run single-threaded here: the suite
+    runs several test processes at once, and torch's intra-op threads
+    on top of them slowed this file many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _words(bits):
@@ -19,19 +40,28 @@ def _words(bits):
     return (g * weights[None, :, None]).sum(axis=1).astype(np.uint32)
 
 
-@pytest.mark.parametrize("case", list(golden.GOLDEN))
-def test_golden_constants_come_from_jax(case):
-    rng, temp = case
+def _jax_trajectory(rng, temp, field=0.0, backend=None):
+    if backend is None:
+        backend = "bit1" if rng == "hw" or plane_bits(rng) else "xla"
     sim = JaxSimulation(JaxConfig(nrows=golden.NROWS, ncols=golden.NCOLS,
-                                  temp=temp, seed=golden.SEED,
-                                  backend="xla", rng=rng))
+                                  temp=temp, field=field, seed=golden.SEED,
+                                  backend=backend, rng=rng))
     ups = [sim.measure()["up"]]
     for _ in range(golden.NSTEPS):
         sim.advance(1)
         ups.append(sim.measure()["up"])
     b, w = (_words(np.asarray(x)) for x in sim.bits())
-    assert {"up": tuple(ups), "crc32": golden.words_crc32(b, w)} == \
-        golden.GOLDEN[case]
+    return {"up": tuple(ups), "crc32": golden.words_crc32(b, w)}
+
+
+@pytest.mark.parametrize("case", list(golden.GOLDEN))
+def test_golden_constants_come_from_jax(case):
+    assert _jax_trajectory(*case) == golden.GOLDEN[case]
+
+
+def test_plane_golden_is_jax_xla_trajectory():
+    assert _jax_trajectory("chacha4b", 1.5, backend="xla") == \
+        golden.GOLDEN[("chacha4b", 1.5)]
 
 
 @pytest.mark.parametrize("case", list(golden.GOLDEN))
@@ -39,7 +69,19 @@ def test_port_reproduces_golden_on_cpu(case):
     assert golden.port_trajectory(*case, device="cpu") == golden.GOLDEN[case]
 
 
+@pytest.mark.parametrize("case", [c for c in golden.GOLDEN if c[0] != "hw"])
+def test_port_xla_reproduces_golden_on_cpu(case):
+    assert golden.port_trajectory(*case, device="cpu", backend="xla") == \
+        golden.GOLDEN[case]
+
+
 def test_golden_cases_cover_both_families_and_accepts():
-    assert {r for r, _ in golden.GOLDEN} == {"threefry13", "philox"}
-    assert {t <= 0 for _, t in golden.GOLDEN} == {True, False}
+    modes = {c[0] for c in golden.GOLDEN}
+    assert {"threefry13", "philox", "chacha8", "chacha8b", "chacha6b",
+            "chacha4b", "philox7b", "threefry13b", "hw"} == modes
+    assert {c[1] <= 0 for c in golden.GOLDEN} == {True, False}
+    assert {c[1] <= 0 for c in golden.GOLDEN if plane_bits(c[0])} == \
+        {True, False}
+    assert [c for c in golden.GOLDEN if len(c) == 3] == [("chacha8b", 1.5,
+                                                          0.1)]
     assert golden.NCOLS == 16384  # the full bench width

@@ -108,6 +108,10 @@ class FakeLib:
         self.calls.append(args)
         return self.code
 
+    def bit1_planes_launch(self, *args):
+        self.calls.append(("planes",) + args)
+        return self.code
+
     def ising_cuda_error_string(self, code):
         return b"fake error"
 
@@ -132,9 +136,64 @@ def fake_card(monkeypatch):
     return lib
 
 
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _per_thread_ops(family, rounds):
+    """Operations of one generator call that take an input varying by
+    thread, found by running the round structure on 'varies' flags: only
+    the counter words vary; keys, step, tag and constants are per-launch."""
+    ops = 0
+
+    def op(*inputs):
+        nonlocal ops
+        v = any(inputs)
+        ops += v
+        return v
+
+    if family == "philox":   # (c0, c1, c2, c3) = (q lo, q hi, step, tag)
+        c = [True, True, False, False]
+        for _ in range(rounds):
+            m0, m1 = op(c[0]), op(c[2])        # two wide multiplies
+            c = [op(m1, c[1]), m1, op(m0, c[3]), m0]   # two 3-input xors
+        return ops
+    x = [False] * 16                           # ChaCha: counter in x12, x13
+    x[12] = x[13] = True
+
+    def qr(a, b, c, d):
+        for p, q, r in ((a, b, d), (c, d, b), (a, b, d), (c, d, b)):
+            x[p] = op(x[p], x[q])              # add
+            x[r] = op(x[r], x[p])              # xor
+            x[r] = op(x[r])                    # rotate
+    for _ in range(rounds // 2):
+        for cols in ((0, 4, 8, 12), (1, 5, 9, 13), (2, 6, 10, 14),
+                     (3, 7, 11, 15), (0, 5, 10, 15), (1, 6, 11, 12),
+                     (2, 7, 8, 13), (3, 4, 9, 14)):
+            qr(*cols)
+    return ops + sum(op(v) for v in x)         # feed-forward adds
+
+
+@pytest.mark.parametrize("family,rounds", [("chacha", 4), ("chacha", 6),
+                                           ("chacha", 8), ("philox", 7),
+                                           ("philox", 10)])
+def test_chip_smoke_bound_counts_only_per_thread_work(family, rounds):
+    """chip_smoke.py's operation bound counts a generator call's work that
+    varies by thread (plus the counter's 2), not its per-launch part."""
+    draws, ops = _chip_smoke().call_ops(family, rounds)
+    assert draws == {"chacha": 16, "philox": 4}[family]
+    assert ops == _per_thread_ops(family, rounds) + 2
+
+
 @pytest.mark.parametrize("mode,family,rounds", [
     ("philox", 0, 10), ("philox7", 0, 7), ("threefry", 1, 20),
-    ("threefry13", 1, 13)])
+    ("threefry13", 1, 13), ("chacha8", 2, 8), ("chacha6", 2, 6),
+    ("chacha4", 2, 4)])
 def test_wrapper_launches_kernel_on_cuda_tensor(fake_card, mode, family,
                                                 rounds):
     dst, src, up, dn = _fake_args()
@@ -149,6 +208,54 @@ def test_wrapper_launches_kernel_on_cuda_tensor(fake_card, mode, family,
     assert args[4:10] == (8, 4, 6, 9, 1, 1)
     assert args[10:13] == tuple(int(t) for t in thr[7:10])
     assert args[15:] == (family, rounds, 1, 1234)
+
+
+@pytest.mark.parametrize("mode,family,rounds,kbits,tag", [
+    ("philox7b", 0, 7, 16, 1), ("threefry13b", 1, 13, 16, 1),
+    ("chacha8b", 2, 8, 16, 1), ("chacha6b", 2, 6, 16, 1),
+    ("chacha4b", 2, 4, 16, 1), ("hw", 0, 10, 24, 0x8001)])
+@pytest.mark.parametrize("temp,field,accept", [(1.5, 0.0, 0), (0.0, 0.0, 1),
+                                               (1.5, 0.3, 2)])
+def test_wrapper_launches_planes_kernel(fake_card, mode, family, rounds,
+                                        kbits, tag, temp, field, accept):
+    dst, src, up, dn = _fake_args()
+    acc = bit1.plane_accept_args(mode, temp, field)
+    before = bit1.bit1_sweep.launches
+    bit1.bit1_sweep(dst, src, up, dn, ising.threshold_table(temp, field), 6,
+                    9, color=1, seed=5, rng_mode=mode, greedy=temp <= 0,
+                    **acc)
+    assert bit1.bit1_sweep.launches == before + 1
+    (args,) = fake_card.calls
+    assert args[0] == "planes"
+    assert args[1:5] == (dst.ptr, src.ptr, up.ptr, dn.ptr)
+    assert args[5:11] == (8, 4, 6, 9, tag, 1)
+    if family == 1:
+        from ising_tpu_torch.rng import threefry_stream_key
+        assert args[11:13] == threefry_stream_key(5, 9, tag)
+    else:
+        assert args[11:13] == (5, 0)
+    assert args[13:17] == (family, rounds, kbits, accept)
+    table = list(args[17])
+    assert len(table) == kernel_lib.TABLE_WORDS
+    if field:
+        # AcceptTable: t4k, t8k, draw-class bits, 10 always-words, then
+        # TABLE_KBITS bit-words per class
+        tvals10, always10 = acc["tvals10"], acc["always10"]
+        draws = [c for c in range(10)
+                 if not always10 >> c & 1 and tvals10[c]]
+        assert table[2] == sum(1 << c for c in draws)
+        assert table[3:13] == [0xFFFFFFFF * (always10 >> c & 1)
+                               for c in range(10)]
+        bits = table[13:]
+        for c in range(10):
+            row = bits[c * kernel_lib.TABLE_KBITS:
+                       (c + 1) * kernel_lib.TABLE_KBITS]
+            want = tvals10[c] if c in draws else 0
+            assert row == [0xFFFFFFFF * (want >> z & 1)
+                           for z in range(kernel_lib.TABLE_KBITS)]
+    else:
+        assert table[:2] == [acc["t4k"], acc["t8k"]]
+    assert args[18] == 1234
 
 
 def test_wrapper_raises_on_failed_launch(fake_card):
@@ -187,7 +294,8 @@ def test_kernel_sources_have_no_torch_headers():
         includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
         assert includes and not any("torch" in ln or "ATen" in ln or "c10" in ln
                                     for ln in includes)
-        assert 'extern "C"' in text
+        if src.suffix == ".cu":   # compiled sources; .cuh headers are shared
+            assert 'extern "C"' in text
     assert "-gencode" in kernel_lib.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernel_lib.NVCC_FLAGS
 

@@ -1,12 +1,13 @@
-"""The CUDA source of the bit1 sweep, compiled for the CPU and run through
+"""The CUDA sources of the bit1 sweep, compiled for the CPU and run through
 the real wrapper.
 
-There is no nvcc here, so csrc/bit1_sweep.cu is compiled with the host C++
+There is no nvcc here, so csrc/*.cu are compiled with the host C++
 compiler over a small header that stands in for the CUDA runtime: one
 thread at a time runs the kernel body, in grid order. That checks the
-kernel's arithmetic (draw layout, counters with carry, neighbours,
-accept) against its plain torch version before any card sees it. The
-card itself checks the compiled kernel in chip_smoke.py.
+kernels' arithmetic (draw layouts of every rng mode, counters with carry,
+neighbours, the u32, bit-serial and 10-class field accepts) against their
+plain torch version before any card sees it. The card itself checks the
+compiled kernels in chip_smoke.py.
 """
 
 import ctypes
@@ -21,7 +22,7 @@ import pytest
 
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, kernel_lib
-from ising_tpu_torch.rng import PORTED_MODES
+from ising_tpu_torch.rng import PORTED_MODES, plane_bits
 
 import torch
 
@@ -41,7 +42,7 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
   s &= 31; uint64_t v = ((uint64_t)hi << 32) | lo; return (uint32_t)((v << s) >> 32); }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-static dim3 blockIdx, threadIdx, blockDim;
+inline dim3 blockIdx, threadIdx, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
@@ -59,6 +60,7 @@ void emulate_launch(dim3 grid, unsigned block, F f, A... a) {
 
 # kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
+EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3}
 
 
 @pytest.fixture(scope="module")
@@ -68,14 +70,18 @@ def emulated_lib(tmp_path_factory):
         pytest.skip("needs a host C++ compiler (g++) to emulate the kernel")
     d = tmp_path_factory.mktemp("emu")
     (d / "cuda_runtime.h").write_text(CUDA_SHIM)
-    src = (kernel_lib.CSRC_DIR / "bit1_sweep.cu").read_text()
-    src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ", src)
-    assert n == 2  # the greedy and the plain instantiation
-    (d / "bit1_sweep.cpp").write_text(src)
+    sources = []
+    for cu in kernel_lib._sources():
+        src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ", cu.read_text())
+        # the greedy and the plain instantiation; the planes kernel's field
+        assert n == EMULATED_LAUNCH_SITES[cu.name]
+        sources.append(d / (cu.stem + ".cpp"))
+        sources[-1].write_text(src)
     out = d / "libemu.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{d}",
-                    "-o", str(out), str(d / "bit1_sweep.cpp")], check=True,
-                   capture_output=True, timeout=300)
+                    f"-I{kernel_lib.CSRC_DIR}", "-o", str(out),
+                    *map(str, sources)], check=True, capture_output=True,
+                   timeout=300)
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in kernel_lib.SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
@@ -106,9 +112,13 @@ def _torch(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32).copy())
 
 
-CASES = list(itertools.product(
-    [(2, 1), (6, 3), (16, 2), (8, 256)], PORTED_MODES, (1.5, 0.0),
-    (0, 1), (0, (1 << 29) - 4, (1 << 32) - 2)))
+# (temperature, field): T > 0, the greedy quench, and in the bit-plane
+# modes the 10-class field accept (which covers T <= 0 itself).
+ACCEPTS = ((1.5, 0.0), (0.0, 0.0), (1.5, 0.3), (0.0, -0.2))
+CASES = [c for c in itertools.product(
+    [(2, 1), (6, 3), (16, 2), (8, 256)], PORTED_MODES, ACCEPTS,
+    (0, 1), (0, (1 << 29) - 4, (1 << 32) - 2))
+    if not c[2][1] or bit1.accept_bits(c[1])]
 
 
 @pytest.mark.parametrize("shape", sorted({c[0] for c in CASES}))
@@ -117,14 +127,16 @@ def test_kernel_source_matches_plain_version(shape, emulated_lib, monkeypatch):
     monkeypatch.setattr(bit1, "_cuda_stream", lambda device: None)
     gen = np.random.default_rng(shape[0] * 1000 + shape[1])
     H, W1 = shape
-    for _, mode, temp, color, row0 in (c for c in CASES if c[0] == shape):
+    for _, mode, (temp, field), color, row0 in (c for c in CASES
+                                                if c[0] == shape):
         dst, src = (gen.integers(0, 1 << 32, (H, W1), dtype=np.uint64)
                     .astype(np.uint32) for _ in range(2))
         up, dn = (gen.integers(0, 1 << 32, (1, W1), dtype=np.uint64)
                   .astype(np.uint32) for _ in range(2))
-        thr = ising.threshold_table(temp)
+        thr = ising.threshold_table(temp, field)
         kw = dict(color=color, seed=int(gen.integers(0, 1 << 63)),
-                  rng_mode=mode, greedy=temp <= 0)
+                  rng_mode=mode, greedy=temp <= 0,
+                  **bit1.plane_accept_args(mode, temp, field))
         step = int(gen.integers(0, 1 << 32))
         want = bit1.bit1_sweep_reference(_torch(dst), _torch(src), _torch(up),
                                          _torch(dn), thr, row0, step, **kw)
@@ -133,7 +145,14 @@ def test_kernel_source_matches_plain_version(shape, emulated_lib, monkeypatch):
                         row0, step, **kw)
         np.testing.assert_array_equal(
             d.a, want.numpy().view(np.uint32),
-            err_msg=f"{shape} {mode} T={temp} color={color} row0={row0}")
+            err_msg=f"{shape} {mode} T={temp} h={field} color={color} "
+                    f"row0={row0}")
+
+
+def test_cases_cover_every_mode_and_accept():
+    assert {c[1] for c in CASES} == set(PORTED_MODES)
+    plane = {c[1] for c in CASES if c[2][1]}
+    assert plane == {m for m in PORTED_MODES if plane_bits(m) or m == "hw"}
 
 
 def test_launcher_refuses_unknown_rounds(emulated_lib):
@@ -143,3 +162,11 @@ def test_launcher_refuses_unknown_rounds(emulated_lib):
                                           0, 0, 0, 0, 9, 0, None)
     assert code != 0
     assert Path(kernel_lib.CSRC_DIR / "bit1_sweep.cu").is_file()
+    table = (ctypes.c_uint32 * kernel_lib.TABLE_WORDS)()
+    for family, rounds, kbits, accept in ((0, 10, 16, 0), (2, 8, 24, 0),
+                                          (1, 20, 16, 1), (2, 8, 16, 3)):
+        assert emulated_lib.bit1_planes_launch(
+            p, p, p, p, 2, 1, 0, 0, 0, 0, 0, 0, family, rounds, kbits,
+            accept, table, None) != 0
+    assert emulated_lib.bit1_planes_launch(
+        p, p, p, p, 2, 1, 0, 0, 0, 0, 0, 0, 2, 8, 16, 0, table, None) == 0

@@ -11,9 +11,13 @@ import torch
 
 from ising_tpu import rng as jrng
 from ising_tpu_torch import rng as trng
-from naive_reference import philox4x32_ref, site_draw, threefry2x32_ref
+from naive_reference import (chacha_ref, philox4x32_ref, site_draw,
+                             threefry2x32_ref)
 
 SEEDS = (0, 463463564571, (1 << 32) + 7, (1 << 63) + 12345)
+# Every mode with a counter contract (hw draws from jax.random in the JAX
+# package and from torch's generator here).
+COUNTER_MODES = [m for m in trng.PORTED_MODES if m != "hw"]
 
 
 def _u32(gen, shape):
@@ -81,7 +85,7 @@ def test_quad_counters_carry(row0):
         assert len(set(_np(got[1]).ravel().tolist())) > 1
 
 
-@pytest.mark.parametrize("mode", list(trng.PORTED_MODES))
+@pytest.mark.parametrize("mode", COUNTER_MODES)
 @pytest.mark.parametrize("seed", SEEDS[1:])
 def test_counter_color_draws_match_jax(mode, seed):
     for step, tag, row0 in ((0, 0, 0), (5, 1, 6), (0xFFFFFFFF, 0x101,
@@ -105,7 +109,8 @@ def test_color_draws_and_threefry_draws_match_jax():
                                       rounds=13)))
 
 
-@pytest.mark.parametrize("mode", list(trng.PORTED_MODES))
+@pytest.mark.parametrize("mode", ["philox", "philox7", "threefry",
+                                  "threefry13", "chacha8"])
 def test_draws_match_naive_reference(mode):
     """Known answers from the independent scalar reference."""
     seed, step, tag, ch = SEEDS[3], 9, 1, 32
@@ -120,12 +125,72 @@ def test_scalar_generators_match_naive_reference():
                                                                (5, 6))
     assert trng.threefry2x32(1, 2, 3, 4, 13) == threefry2x32_ref(1, 2, 3, 4,
                                                                   13)
+    assert trng.chacha_block(1, 2, 3, 4, 5, 6, 8) == chacha_ref(1, 2, 3, 4,
+                                                                5, 6, 8)
 
 
 @pytest.mark.parametrize("mode", ["chacha8", "philox7b", "hw"])
 def test_unported_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        trng.counter_color_draws(mode, 1, 2, 64, step=0, tag=0)
+    """Every mode of the table draws; only names outside it raise."""
+    assert trng.counter_color_draws(mode, 1, 2, 64, step=0, tag=0).shape \
+        == (2, 64)
+    with pytest.raises(ValueError, match="unknown rng mode"):
+        trng.counter_color_draws(mode[:-1] + "x", 1, 2, 64, step=0, tag=0)
+
+
+@pytest.mark.parametrize("rounds", [4, 6, 8])
+def test_chacha_block_matches_jax(rounds):
+    gen = np.random.default_rng(200 + rounds)
+    c0, c1 = _u32(gen, 512), _u32(gen, 512)
+    step, tag, k0, k1 = (int(x) for x in _u32(gen, 4))
+    want = jrng.chacha_block(jnp.asarray(c0), jnp.asarray(c1), step, tag,
+                             k0, k1, rounds)
+    got = trng.chacha_block(_t(c0), _t(c1), step, tag, k0, k1, rounds)
+    assert len(got) == 16
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), _np(g))
+
+
+def test_chacha_rounds_must_be_even():
+    with pytest.raises(ValueError, match="even"):
+        trng.chacha_block(0, 0, 0, 0, 0, 0, 7)
+
+
+@pytest.mark.parametrize("rounds", [4, 8])
+@pytest.mark.parametrize("row0,stride", [(0, None), (6, 128),
+                                         ((1 << 29) - 2, 64),
+                                         ((1 << 32) - 3, 32)])
+def test_chacha_color_draws_match_jax(rounds, row0, stride):
+    seed = SEEDS[3]
+    want = jrng.chacha_color_draws(seed, 6, 32, step=11, tag=0x101,
+                                   row0=row0, row_stride=stride,
+                                   rounds=rounds)
+    got = trng.chacha_color_draws(seed, 6, 32, step=11, tag=0x101,
+                                  row0=row0, row_stride=stride,
+                                  rounds=rounds)
+    np.testing.assert_array_equal(np.asarray(want), _np(got))
+    with pytest.raises(ValueError):
+        trng.chacha_color_draws(seed, 2, 24, step=0, tag=0)
+    with pytest.raises(ValueError):
+        trng.chacha_color_draws(seed, 2, 32, step=0, tag=0, row_stride=40)
+
+
+def test_hw_draws_are_seeded_streams():
+    """hw on the plain-torch backend: reproducible per (seed, tag, step,
+    row0), distinct across each, and uniform over 32 bits."""
+    def draw(seed=5, step=3, tag=1, row0=0, n=64):
+        return trng.hw_draws(seed, n, 256, step=step, tag=tag, row0=row0)
+
+    a = draw()
+    assert a.dtype == torch.int64 and a.shape == (64, 256)
+    assert torch.equal(a, draw())
+    for other in (draw(seed=6), draw(step=4), draw(tag=0), draw(row0=64)):
+        assert (other != a).float().mean() > 0.99
+    assert int(a.min()) >= 0 and int(a.max()) < (1 << 32)
+    mean = float(a.double().mean()) / (1 << 32)
+    assert abs(mean - 0.5) < 0.01   # 16384 uniforms: sigma 0.0023
+    assert torch.equal(trng.counter_color_draws("hw", 5, 64, 256, step=3,
+                                                tag=1), a)
 
 
 def test_mode_table_matches_jax():
