@@ -11,21 +11,30 @@ Phases, each printed as it ends:
                at the full 16384 width and two small shapes (one whose
                counters carry and whose rows wrap), in every rng mode, at
                T > 0, at T = 0 and, in the bit-plane modes and hw, with an
-               external field; both colors, several steps;
+               external field; both colors, several steps; then on the
+               disorder and replica paths (J planes, the split link store,
+               replicas with csl == 1, csl == W1, ysl == 8 and ysl == H,
+               replicas with J planes), in every mode and accept;
   4. golden    the port's Simulation on the card reproduces the JAX
-               package's trajectories recorded in ising_tpu_torch/golden.py;
+               package's trajectories recorded in ising_tpu_torch/golden.py,
+               the disordered ones with their energy;
   5. main path the CLI's Simulation at 16384^2 (bench.py's shape) in
-               threefry13, philox and chacha6b, three runs each, with the
-               launch count of bit1_sweep read just before and after each
-               run, and E/N checked; then
-               the CLI's default backend, xla (plain torch), at its default
-               2048^2, whose lattice must equal bit1's at the same flags;
+               threefry13, philox and chacha6b, three runs each; with -J 0.1
+               (the split link store) in threefry13 and chacha6b, three runs
+               each, timing its set-up and peak memory; with --xsl 128
+               --ysl 128 in chacha6b, three runs; with both in threefry13,
+               one run. Each run reads the launch count of bit1_sweep just
+               before and after and checks E/N. Then the CLI's default
+               backend, xla (plain torch), at its default 2048^2, also with
+               -J 0.1 --xsl 64 --ysl 64, whose lattice and energy must equal
+               bit1's at the same flags;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
-               with an external field in the bit-plane modes and hw: the
-               kernel against its plain version once more, bit for bit,
-               for both colors; then both timed per color phase (CUDA
-               events), beside the least time the card could take and the
-               compiled code's pipe mix.
+               with an external field in the bit-plane modes and hw, and on
+               the J-plane, split-link, replica and replica + J paths in
+               threefry13, philox and chacha6b: the kernel against its plain
+               version once more, bit for bit, for both colors; then both
+               timed per color phase (CUDA events), beside the least time
+               the card could take and the compiled code's pipe mix.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -38,6 +47,7 @@ from __future__ import annotations
 import collections
 import faulthandler
 import json
+import math
 import re
 import shutil
 import signal
@@ -49,7 +59,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ising_tpu_torch import cli, golden
+from ising_tpu_torch import cli, golden, observables
 from ising_tpu_torch.driver import Simulation
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, kernel_lib
@@ -60,8 +70,19 @@ MAIN_SHAPE = 16384      # bench.py's flagship lattice, 16384^2
 MAIN_WARMUP, MAIN_ITERS = 8, 64
 MAIN_REPEATS = 3        # CLI runs per mode: median and range
 MAIN_MODES = ("threefry13", "philox", "chacha6b")
+# Main-path runs of the disorder and replica paths: (path, flags, mode,
+# runs, E/N below). -J alone takes the split link store on one device.
+J_FLAGS = ["-J", "0.1"]
+REPLICA_FLAGS = ["--xsl", "128", "--ysl", "128"]   # 2048 replicas of 128^2
+MAIN_PATHS = (("split_links", J_FLAGS, "threefry13", 3, -1.2),
+              ("split_links", J_FLAGS, "chacha6b", 3, -1.2),
+              ("replicas", REPLICA_FLAGS, "chacha6b", 3, -1.5),
+              ("replicas+jplanes", REPLICA_FLAGS + J_FLAGS, "threefry13", 1,
+               -1.2))
 XLA_SHAPE, XLA_ITERS = 2048, 8   # the CLI's default lattice
 XLA_MODES = ("threefry13", "chacha6b")
+# xla against bit1 with disorder and replicas: csl = 32 = W1 at 2048^2
+XLA_GEOMETRY_FLAGS = ["-J", "0.1", "--xsl", "64", "--ysl", "64"]
 # (Y, X, row0); the last wraps the global row mod 2^32 and carries every
 # family's 64-bit counter into its high word
 COMPARE_SHAPES = ((512, 16384, 0), (64, 1024, (1 << 25) - 32),
@@ -69,6 +90,11 @@ COMPARE_SHAPES = ((512, 16384, 0), (64, 1024, (1 << 25) - 32),
 # (temperature, field); a field only in the bit-plane modes and hw
 ACCEPTS = ((1.5, 0.0), (0.0, 0.0), (1.5, 0.3))
 TIMED_FIELD = 0.3
+# Disorder and replica paths: (path, (csl, ysl) or None for the shape's own
+# edge geometries); phase 3 runs each in every mode and accept.
+GEOMETRY_PATHS = ("jplanes", "split_links", "replicas", "replicas+jplanes")
+TIMED_PATH_MODES = ("threefry13", "philox", "chacha6b")
+TIMED_CSL, TIMED_YSL = 64, 128    # --xsl 128 --ysl 128
 COMPARE_STEPS = 3
 TIMED_LAUNCHES = 100
 TIMED_REPEATS = 5       # kernel timings per mode: median and spread
@@ -169,7 +195,24 @@ def call_ops(family: str, rounds: int) -> tuple[int, int]:
     return 16, 48 * rounds + 16 - 27 + 2
 
 
-def ops_per_word(mode: str, greedy: bool, field_table=None) -> int:
+# What a disorder or replica path adds to a word's update, under
+# ops_per_word's rule, and the words of lattice traffic it moves per word.
+# J planes: 4 xors of the flags into the neighbours. Split links: the same
+# 4 xors, and the projection: the E/O plane choice, the row-0 wrap of the
+# up flag's row, and for j_off the rotation, the lane-0 select and the
+# odd-column select (5). Replicas: the two remainders y % ysl and j % csl
+# (a multiply-high and a multiply-add each by a per-launch reciprocal: 4),
+# whose edge selects replace the periodic ones, less the two rotations the
+# periodic wrap needs (-2). Traffic: read dst and src, write dst (3), and
+# the four link words where there are links (7).
+PATH_OPS = {None: 0, "jplanes": 4, "split_links": 9, "replicas": 2,
+            "replicas+jplanes": 6}
+PATH_WORDS = {None: 3, "jplanes": 7, "split_links": 7, "replicas": 3,
+              "replicas+jplanes": 7}
+
+
+def ops_per_word(mode: str, greedy: bool, field_table=None,
+                 path: str | None = None) -> int:
     """32-bit integer operations that one word's update (32 spins) needs,
     counted from the algorithm, not from the compiled code, at the fewest
     instructions the card has for them: a three-input add (IADD3) or
@@ -178,7 +221,8 @@ def ops_per_word(mode: str, greedy: bool, field_table=None) -> int:
     a compare's result as bit g. Per-launch scalars (keys, round
     constants, step, tag, thresholds) and whatever is computed from them
     alone cost nothing. Loads, stores and control flow are not counted.
-    field_table: (tvals10, always10) of the external-field accept."""
+    field_table: (tvals10, always10) of the external-field accept; path: a
+    disorder or replica path (PATH_OPS)."""
     family, rounds = parse_rng_mode(mode)
     kbits = bit1.accept_bits(mode)
     if family == "hw":   # salted Philox-10
@@ -200,7 +244,7 @@ def ops_per_word(mode: str, greedy: bool, field_table=None) -> int:
     else:
         # the class masks ge3, ge4, eq2 (5) and the flip mask (2)
         accept += 5 + 2
-    return calls * per_call + accept + common
+    return calls * per_call + accept + common + PATH_OPS[path]
 
 
 # SASS opcodes by the pipe that executes them (Volta to Hopper SMs).
@@ -308,6 +352,63 @@ def phase_compare(dev):
     return cases, max_err
 
 
+def geometry_cases(H: int, W1: int):
+    """(path, csl, ysl) of phase 3's disorder and replica cases at (H, W1):
+    the edge geometries csl == 1, csl == W1, ysl == 8 and ysl == H."""
+    return [("jplanes", None, None), ("split_links", None, None),
+            ("replicas", 1, 8), ("replicas", W1, H),
+            ("replicas", max(1, W1 // 4), max(8, H // 4)),
+            ("replicas+jplanes", W1, 8), ("replicas+jplanes", 1, H)]
+
+
+def geometry_kwargs(path, csl, ysl, links):
+    """bit1_sweep's jplanes and keywords for one path."""
+    jplanes = None if path == "replicas" else links
+    return jplanes, dict(split_links=path == "split_links", csl=csl, ysl=ysl)
+
+
+def phase_compare_geometry(dev):
+    """Kernel vs plain on the disorder and replica paths, every mode and
+    accept, both colors; returns (cases, max err)."""
+    gen = np.random.default_rng(2025)
+    cases, max_err = 0, 0
+    for Y, X, row0 in COMPARE_SHAPES[:2]:
+        H, W1 = Y, X // 64
+        for path, csl, ysl in geometry_cases(H, W1):
+            for mode in PORTED_MODES:
+                for temp, field in ACCEPTS:
+                    if field and not bit1.accept_bits(mode):
+                        continue
+                    thr = ising.threshold_table(temp, field)
+                    b, w = (random_words(gen, (H, W1), dev) for _ in range(2))
+                    links = [random_words(gen, (H, W1), dev) for _ in range(4)]
+                    jplanes, geo = geometry_kwargs(path, csl, ysl, links)
+                    seed = int(gen.integers(0, 1 << 62))
+                    for color, (dst, src) in enumerate(((b, w), (w, b))):
+                        kw = dict(color=color, seed=seed, rng_mode=mode,
+                                  greedy=temp <= 0, **geo,
+                                  **bit1.plane_accept_args(mode, temp, field))
+                        up, dn = src[-1:], src[:1]
+                        ref = bit1.bit1_sweep_reference(
+                            dst, src, up, dn, thr, row0, 5, jplanes, **kw)
+                        bit1.bit1_sweep(dst, src, up, dn, thr, row0, 5,
+                                        jplanes, **kw)
+                        torch.cuda.synchronize()
+                        err = int((dst.to(torch.int64) - ref.to(torch.int64))
+                                  .abs().max())
+                        max_err = max(max_err, err)
+                        cases += 1
+                        require(torch.equal(dst, ref),
+                                f"kernel != plain: {Y}x{X} {path} csl={csl} "
+                                f"ysl={ysl} {mode} T={temp} h={field} "
+                                f"color={color}")
+            say(f"[kernel] {Y}x{X} row0={row0} {path} csl={csl} ysl={ysl}: "
+                f"all {len(PORTED_MODES)} modes, T in (1.5, 0) and h = 0.3 "
+                "in the bit-plane modes and hw, both colors equal to the "
+                "plain version")
+    return cases, max_err
+
+
 def phase_golden():
     for case, want in golden.GOLDEN.items():
         got = golden.port_trajectory(*case, device="cuda")
@@ -324,41 +425,71 @@ def cli_simulation(argv):
     return Simulation(cli.config_from_args(args))
 
 
+def main_runs(card, mode, extra, runs, e_max, what):
+    """`runs` CLI runs at 16384^2 in `mode` with the flags `extra`, each
+    from a new Simulation whose set-up (disorder included) is timed and
+    whose peak device memory is read; the launch count is set to 0 just
+    before each run loop and read just after."""
+    launches, rates, setups, peaks = 0, [], [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sim = cli_simulation(
+            ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y",
+             str(MAIN_SHAPE), "-w", str(MAIN_WARMUP), "-n", str(MAIN_ITERS),
+             "-p", "16", "-t", "1.5", "--rng", mode] + extra)
+        torch.cuda.synchronize()
+        setups.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        bit1.bit1_sweep.launches = 0
+        result = sim.run()
+        n = bit1.bit1_sweep.launches
+        want = 2 * (MAIN_WARMUP + MAIN_ITERS)
+        require(result["steps"] == MAIN_ITERS,
+                f"ran {result['steps']} of {MAIN_ITERS} steps")
+        require(n == want, f"bit1_sweep launched {n} times, expected {want}")
+        e_n = sim.energy()
+        require(math.isfinite(e_n) and e_n < e_max,
+                f"E/N = {e_n} after the {what} run (expected < {e_max})")
+        if sim.cfg.xsl is not None:
+            m = observables.replica_magnetizations(
+                *sim.bits(), sim.cfg.xsl, sim.cfg.ysl)
+            count = (MAIN_SHAPE // sim.cfg.xsl) * (MAIN_SHAPE // sim.cfg.ysl)
+            require(m.shape == (count,) and np.all((m >= 0) & (m <= 1)),
+                    f"replica |m| of shape {m.shape}, range "
+                    f"{m.min()}-{m.max()}")
+            say(f"[main] {count} replica |m|: mean {m.mean():.6f}, "
+                f"range {m.min():.6f}-{m.max():.6f}")
+        launches += n
+        rates.append(result["flips_ns"])
+        say(f"[main] {MAIN_SHAPE}^2 {what} {mode}: bit1_sweep launches {n} "
+            f"(= 2 x {MAIN_WARMUP + MAIN_ITERS} steps), E/N {e_n:.6f}, "
+            f"{result['flips_ns']:.2f} flips/ns; set-up "
+            f"{setups[-1]:.3f} s, peak device memory "
+            f"{peaks[-1] / 2**30:.3f} GiB on {card['smi']}")
+        del sim
+        torch.cuda.empty_cache()
+    median = sorted(rates)[len(rates) // 2]
+    say(f"[main] {MAIN_SHAPE}^2 {what} {mode}: {median:.2f} flips/ns median "
+        f"of {runs} runs (range {min(rates):.2f}-{max(rates):.2f})")
+    return {"launches": launches, "e_n": e_n, "flips_ns": median,
+            "flips_ns_runs": rates, "setup_s": setups,
+            "peak_bytes": max(peaks)}
+
+
 def phase_main_path(card):
     """The CLI's flags, parsed and turned into a Simulation as cli.main
-    does, then its run loop, which prints the CLI's lines; MAIN_REPEATS
-    runs per mode, each from a new Simulation."""
-    results = {}
-    for mode in MAIN_MODES:
-        launches, rates = 0, []
-        for _ in range(MAIN_REPEATS):
-            sim = cli_simulation(
-                ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y",
-                 str(MAIN_SHAPE), "-w", str(MAIN_WARMUP), "-n",
-                 str(MAIN_ITERS), "-p", "16", "-t", "1.5", "--rng", mode])
-            bit1.bit1_sweep.launches = 0
-            result = sim.run()
-            n = bit1.bit1_sweep.launches
-            want = 2 * (MAIN_WARMUP + MAIN_ITERS)
-            require(result["steps"] == MAIN_ITERS,
-                    f"ran {result['steps']} of {MAIN_ITERS} steps")
-            require(n == want,
-                    f"bit1_sweep launched {n} times, expected {want}")
-            e_n = sim.energy()
-            require(e_n < -1.5, f"E/N = {e_n} after the run (expected < -1.5)")
-            launches += n
-            rates.append(result["flips_ns"])
-            say(f"[main] {MAIN_SHAPE}^2 {mode}: bit1_sweep launches {n} "
-                f"(= 2 x {MAIN_WARMUP + MAIN_ITERS} steps), E/N {e_n:.6f}, "
-                f"{result['flips_ns']:.2f} flips/ns on {card['smi']}")
-            del sim
-            torch.cuda.empty_cache()
-        median = sorted(rates)[len(rates) // 2]
-        results[mode] = {"launches": launches, "e_n": e_n,
-                         "flips_ns": median, "flips_ns_runs": rates}
-        say(f"[main] {MAIN_SHAPE}^2 {mode}: {median:.2f} flips/ns median of "
-            f"{MAIN_REPEATS} runs (range {min(rates):.2f}-{max(rates):.2f})")
-    return results
+    does, then its run loop, which prints the CLI's lines: MAIN_REPEATS
+    runs per mode, then the disorder and replica runs of MAIN_PATHS.
+    Returns ({mode: result}, {path: {mode: result}})."""
+    ordered = {mode: main_runs(card, mode, [], MAIN_REPEATS, -1.5, "ordered")
+               for mode in MAIN_MODES}
+    paths = collections.defaultdict(dict)
+    for path, extra, mode, runs, e_max in MAIN_PATHS:
+        paths[path][mode] = main_runs(card, mode, extra, runs, e_max,
+                                      f"{path} ({' '.join(extra)})")
+    return ordered, dict(paths)
 
 
 def phase_xla_path(card):
@@ -387,6 +518,25 @@ def phase_xla_path(card):
         say(f"[xla] {XLA_SHAPE}^2 {mode}: lattice after {XLA_ITERS} steps "
             f"equal to bit1's, E/N {e_n:.6f}, {result['flips_ns']:.3f} "
             f"flips/ns (plain torch) on {card['smi']}")
+    flags = ["-x", str(XLA_SHAPE), "-y", str(XLA_SHAPE), "-n", str(XLA_ITERS),
+             "-p", "4", "-t", "1.5"] + XLA_GEOMETRY_FLAGS
+    xla = cli_simulation(flags)
+    ref = cli_simulation(flags + ["--backend", "bit1"])
+    require(not ref.backend.split_links
+            and ref.backend.csl == ref.cfg.xsl // 2,
+            "bit1 with replicas should take J planes and csl = xsl/2")
+    bit1.bit1_sweep.launches = 0
+    result = xla.run()
+    require(bit1.bit1_sweep.launches == 0, "xla launched a bit1 kernel")
+    ref.run()
+    for a, b in zip(xla.bits(), ref.bits()):
+        require(torch.equal(a, b), f"xla != bit1 at {XLA_SHAPE}^2 with "
+                f"{' '.join(XLA_GEOMETRY_FLAGS)}")
+    e_x, e_b = xla.energy_total(), ref.energy_total()
+    require(e_x == e_b, f"xla energy_total {e_x}, bit1 {e_b}")
+    say(f"[xla] {XLA_SHAPE}^2 {' '.join(XLA_GEOMETRY_FLAGS)}: lattice and "
+        f"energy_total ({e_x}) after {XLA_ITERS} steps equal to bit1's, "
+        f"{result['flips_ns']:.3f} flips/ns (plain torch) on {card['smi']}")
 
 
 def time_launches(fn, n: int) -> float:
@@ -401,37 +551,45 @@ def time_launches(fn, n: int) -> float:
 
 
 def timing_cases():
-    """(mode, field) pairs that phase 6 times: every mode without a field,
-    then every bit-plane mode and hw with TIMED_FIELD."""
-    return ([(mode, 0.0) for mode in PORTED_MODES]
-            + [(mode, TIMED_FIELD) for mode in PORTED_MODES
-               if bit1.accept_bits(mode)])
+    """(mode, field, path) triples that phase 6 times: every mode without a
+    field, then every bit-plane mode and hw with TIMED_FIELD, then each
+    disorder and replica path in TIMED_PATH_MODES."""
+    return ([(mode, 0.0, None) for mode in PORTED_MODES]
+            + [(mode, TIMED_FIELD, None) for mode in PORTED_MODES
+               if bit1.accept_bits(mode)]
+            + [(mode, 0.0, path) for path in GEOMETRY_PATHS
+               for mode in TIMED_PATH_MODES])
 
 
 def phase_timing(card, mix):
-    """Per color phase at 16384^2, at T = 1.5, in every rng mode and, in
-    the bit-plane modes and hw, with a field: kernel against plain (bit for
+    """Per color phase at 16384^2, at T = 1.5, in every rng mode, in the
+    bit-plane modes and hw with a field, and on the disorder and replica
+    paths (replicas of --xsl 128 --ysl 128): kernel against plain (bit for
     bit), then the kernel's and the plain version's times, and the bound.
-    Returns ({mode: timing}, {mode: timing with the field}, compared
-    cases, max abs err)."""
+    Returns ({(mode, field, path): timing}, compared cases, max abs err)."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(7)
     H, W1 = MAIN_SHAPE, MAIN_SHAPE // 64
     planes = [random_words(gen, (H, W1), dev) for _ in range(2)]
+    links = [random_words(gen, (H, W1), dev) for _ in range(4)]
     words = H * W1
     spins = words * 32
     rate = card["sms"] * INT_OPS_PER_SM_CLOCK * card["clock_hz"]
     pipe_rate = card["sms"] * PIPE_LANES_PER_SM * card["clock_hz"]
-    out, out_field, cases, max_err = {}, {}, 0, 0
-    for mode, field in timing_cases():
+    out, cases, max_err = {}, 0, 0
+    for mode, field, path in timing_cases():
         thr = ising.threshold_table(1.5, field)
         acc = bit1.plane_accept_args(mode, 1.5, field)
-        kw = dict(seed=golden.SEED, rng_mode=mode, greedy=False, **acc)
-        what = f"{mode}" + (f" h={field}" if field else "")
+        jplanes, geo = (None, {}) if path is None else geometry_kwargs(
+            path, *((TIMED_CSL, TIMED_YSL) if "replicas" in path
+                    else (None, None)), links)
+        kw = dict(seed=golden.SEED, rng_mode=mode, greedy=False, **acc, **geo)
+        what = (f"{mode}" + (f" h={field}" if field else "")
+                + (f" {path}" if path else ""))
 
         def args(i):
             dst, src = planes[i % 2], planes[1 - i % 2]
-            return (dst, src, src[-1:], src[:1], thr, 0, i), dict(
+            return (dst, src, src[-1:], src[:1], thr, 0, i, jplanes), dict(
                 color=i % 2, **kw)
 
         def kernel(i):
@@ -461,10 +619,10 @@ def phase_timing(card, mix):
         ms = runs[len(runs) // 2]
         plain(0)
         plain_ms = time_launches(plain, PLAIN_LAUNCHES)
-        nbytes = 3 * words * 4   # read dst and src, write dst
+        nbytes = PATH_WORDS[path] * words * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops = ops_per_word(mode, greedy=False, field_table=(
-            (acc["tvals10"], acc["always10"]) if field else None))
+            (acc["tvals10"], acc["always10"]) if field else None), path=path)
         ops_ms = ops * words / rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "operations" if ops_ms > bytes_ms else "bytes"
@@ -479,7 +637,8 @@ def phase_timing(card, mix):
             ("bit1_sweep", (code, rounds, 0)), {}))
         pipe_ms = {p: pipes[p] * words / pipe_rate * 1e3
                    for p in ("alu", "fma") if p in pipes}
-        (out_field if field else out)[mode] = {
+        ordered = out.get((mode, 0.0, None), {}).get("ms")
+        out[(mode, field, path)] = {
             "ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": bytes_ms,
             "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_word": pipes,
@@ -487,14 +646,44 @@ def phase_timing(card, mix):
         say(f"[timing] {MAIN_SHAPE}^2 {what}, one color phase: kernel "
             f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
             f"launches (range {runs[0]:.4f}-{runs[-1]:.4f}; "
-            f"{spins / ms / 1e6:.1f} flips/ns), plain {plain_ms:.2f} ms; "
+            f"{spins / ms / 1e6:.1f} flips/ns"
+            + (f"; {ms / ordered:.3f}x the ordered {ordered:.4f} ms"
+               if path else "")
+            + f"), plain {plain_ms:.2f} ms; "
             f"bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f} "
             f"ms; {ops} integer ops/word -> {ops_ms:.4f} ms), "
             f"{bound_ms / ms:.1%} of bound; compiled code per word "
             f"{pipes}, at {PIPE_LANES_PER_SM} lanes/SM per pipe "
             + ", ".join(f"{p} {t:.4f} ms" for p, t in pipe_ms.items())
             + f", on {card['smi']}")
-    return out, out_field, cases, max_err
+    return out, cases, max_err
+
+
+def kernel_entry(name, path, timing, launches, main_path, max_err, info):
+    """One entry of the kernels line: the timing of `path` in the first
+    mode its main-path runs used (threefry13 where it has none)."""
+    t = timing[(next(iter(main_path), "threefry13"), 0.0, path)]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "ising_tpu_torch/csrc/bit1_sweep.cu",
+        "sources": [f"ising_tpu_torch/csrc/{p.name}" for p in
+                    sorted(kernel_lib.CSRC_DIR.glob("*.cu*"))],
+        "replaces": "ising_tpu/ops/pallas_bit1.py:265",
+        "path": path or "ordered",
+        "launches": launches,
+        "main_path": main_path,
+        "max_abs_err": max_err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "held_against_plain": True,
+        "build_s": info.seconds,
+        "per_mode": {f"{m}" + (f" h={f}" if f else ""): v
+                     for (m, f, p), v in timing.items() if p == path},
+    }
 
 
 def _on_alarm(signum, frame):
@@ -512,15 +701,17 @@ def main() -> int:
         info, mix = phase_build()
         say(f"[time] {elapsed():.1f} s")
         cases, max_err = phase_compare(dev)
+        geo_cases, geo_err = phase_compare_geometry(dev)
+        cases, max_err = cases + geo_cases, max(max_err, geo_err)
         say(f"[kernel] {cases} kernel-vs-plain cases equal, max abs err "
             f"{max_err}  [time {elapsed():.1f} s]")
         phase_golden()
         say(f"[time] {elapsed():.1f} s")
-        main_runs = phase_main_path(card)
+        ordered, paths = phase_main_path(card)
         say(f"[time] {elapsed():.1f} s")
         phase_xla_path(card)
         say(f"[time] {elapsed():.1f} s")
-        timing, timing_field, full_cases, full_err = phase_timing(card, mix)
+        timing, full_cases, full_err = phase_timing(card, mix)
         cases, max_err = cases + full_cases, max(max_err, full_err)
         say(f"[kernel] {cases} kernel-vs-plain cases equal in all, max abs "
             f"err {max_err}  [time {elapsed():.1f} s]")
@@ -530,27 +721,20 @@ def main() -> int:
     finally:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
-    t = timing["threefry13"]
-    kernels = {"kernels": [{
-        "name": "bit1_sweep",
-        "route": "cuda",
-        "source": "ising_tpu_torch/csrc/bit1_sweep.cu",
-        "sources": [f"ising_tpu_torch/csrc/{p.name}" for p in
-                    sorted(kernel_lib.CSRC_DIR.glob("*.cu*"))],
-        "replaces": "ising_tpu/ops/pallas_bit1.py:265",
-        "launches": sum(r["launches"] for r in main_runs.values()),
-        "main_path": main_runs,
-        "max_abs_err": max_err,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": None,
-        "held_against_plain": True,
-        "build_s": info.seconds,
-        "per_mode": timing,
-        "per_mode_field": timing_field,
-    }]}
+    # bit1_sweep and its disorder and replica paths: each entry's launches
+    # are those of its own main-path runs (the J-plane path without
+    # replicas is not a route of one device, where -J takes split links;
+    # it is compared and timed in phase 6 and listed in "J planes").
+    entries = [kernel_entry("bit1_sweep", None, timing,
+                            sum(r["launches"] for r in ordered.values()),
+                            ordered, max_err, info)]
+    for path, runs in paths.items():
+        entries.append(kernel_entry(
+            f"bit1_sweep[{path}]", path, timing,
+            sum(r["launches"] for r in runs.values()), runs, max_err, info))
+    entries[0]["J planes"] = kernel_entry(
+        "bit1_sweep[jplanes]", "jplanes", timing, 0, {}, max_err, info)
+    kernels = {"kernels": entries}
     say(card["smi"])
     say(json.dumps(kernels))
     say(json.dumps({"ok": True, "device": {

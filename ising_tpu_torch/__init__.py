@@ -1,11 +1,12 @@
 """ising-tpu-torch: the PyTorch / NVIDIA H100 port of ising_tpu.
 
 A package beside the JAX package ``ising_tpu``, which stays the reference.
-This slice runs the bit1 checkerboard-Metropolis path: counter-based
-Philox/Threefry draws (u32 contract), T > 0 and the greedy T <= 0 quench,
-on one device, with the half-sweep as a hand-written CUDA kernel
-(csrc/bit1_sweep.cu). It imports torch and never jax or ising_tpu.
-Entry points run on CUDA unless the caller passes device="cpu".
+It runs checkerboard Metropolis on one device with the bit1 backend (the
+half-sweep as hand-written CUDA kernels, csrc/) and the xla backend
+(plain torch), in every rng mode, at T > 0 and in the greedy quench, with
+the external field, quenched +-J disorder and sub-lattice replicas. It
+imports torch and never jax or ising_tpu. Entry points run on CUDA unless
+the caller passes device="cpu".
 """
 
 from .config import SimConfig  # noqa: F401

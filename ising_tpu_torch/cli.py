@@ -52,16 +52,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="temperature ramp: add STEP every FREQ steps")
     p.add_argument("-J", "--j-prob", type=float, default=None,
                    help="probability of antiferromagnetic links "
-                        "(not yet ported)")
+                        "(quenched +-J disorder)")
     p.add_argument("--j-seed", type=int, default=None,
                    help="seed for the disorder realization")
     p.add_argument("--field", type=float, default=0.0,
                    help="uniform external field h (bit1: bit-plane rng "
                         "modes and hw; xla: any mode)")
     p.add_argument("--xsl", type=int, default=None,
-                   help="X size of sub-lattice replicas (not yet ported)")
+                   help="X size of independent sub-lattice replicas")
     p.add_argument("--ysl", type=int, default=None,
-                   help="Y size of sub-lattice replicas (not yet ported)")
+                   help="Y size of independent sub-lattice replicas")
     p.add_argument("-d", "--devs", type=int, default=1,
                    help="number of devices (the port runs one)")
     p.add_argument("--halo-overlap", action="store_true",
@@ -100,8 +100,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flag(args):
     """(flag, ROADMAP item) of the first flag the port does not run yet."""
     checks = (
-        ("-J/--j-prob", args.j_prob is not None, 4),
-        ("--xsl/--ysl", args.xsl is not None or args.ysl is not None, 4),
         ("--devs > 1", args.devs != 1, 7),
         ("-o/--out", args.out, 6),
         ("-c/--corr", args.corr, 6),
@@ -131,8 +129,10 @@ def config_from_args(args) -> SimConfig:
         print_freq=args.print_freq,
         print_exp=args.exppr or args.exppr_ref, exp_thinned=args.exppr_ref,
         tgt_magn=args.tgt_magn, temp_step=temp_step, temp_freq=temp_freq,
-        field=args.field, halo_overlap=args.halo_overlap,
-        device=args.device)
+        j_prob=args.j_prob, j_seed=args.j_seed, field=args.field,
+        xsl=args.xsl, ysl=args.ysl, ndev=args.devs,
+        halo_overlap=args.halo_overlap,
+        dump_lattice=args.out, corr_out=args.corr, device=args.device)
 
 
 def main(argv=None) -> int:
@@ -158,6 +158,10 @@ def main(argv=None) -> int:
     print(f"\tseed: {cfg.seed}")
     print(f"\tbackend: {cfg.backend} (rng: {cfg.rng})")
     print(f"\tdevice: {sim.device}")
+    if cfg.xsl:
+        print(f"\tsub-lattices: {cfg.xsl} x {cfg.ysl}")
+    if cfg.j_prob is not None:
+        print(f"\tdisorder: P(antiferro link) = {cfg.j_prob}")
     if cfg.field:
         print(f"\texternal field: h = {cfg.field}")
     print(f"\titerations: {cfg.niters} (+{cfg.nwarmup} warmup)")

@@ -69,14 +69,15 @@ class SimConfig:
     temp_step: float = 0.0
     temp_freq: int = 0
 
-    # Quenched +-J disorder (not yet ported).
+    # Quenched +-J disorder: P(antiferro link), and the links' own seed
+    # (default: seed).
     j_prob: float | None = None
     j_seed: int | None = None
 
     # Uniform external field h.
     field: float = 0.0
 
-    # Sub-lattice replicas (not yet ported).
+    # Sub-lattice replicas: independent xsl x ysl tiles of the lattice.
     xsl: int | None = None
     ysl: int | None = None
 
@@ -154,13 +155,10 @@ class SimConfig:
                     "u32-contract rng mode (their full-table accepts "
                     "consume u32 draws); bit-plane/hw field runs live on "
                     "bit1 and xla")
-            # xla supports every rng mode: u32 full-table compare, or the
-            # same 10-class bit-serial accept as bit1 for plane/hw modes.
+            # xla supports every rng mode: the "...b" modes take the same
+            # 10-class bit-serial accept as bit1; the u32 modes and hw
+            # compare u32 draws against the full 2 x 5 table.
         # What this port does not run yet (ROADMAP.md queue 1).
-        if self.j_prob is not None:
-            raise not_ported("quenched disorder (j_prob)", 4)
-        if self.xsl is not None:
-            raise not_ported("sub-lattice replicas (xsl/ysl)", 4)
         if self.dump_lattice or self.corr_out:
             raise not_ported("lattice dumps and correlation output", 6)
         if self.ndev != 1:

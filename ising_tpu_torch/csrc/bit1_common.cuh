@@ -1,8 +1,9 @@
 // Device code shared by the bit1 sweep kernels (bit1_sweep.cu, bit1_planes.cu):
 // the counter generators of ising_tpu/rng.py and ising_tpu/ops/pallas_packed.py
 // (_draw_counters, _philox_draw_block, _threefry_draw_block,
-// _chacha_draw_block) and the neighbour words, bit-sliced adder and class
-// masks of ising_tpu/ops/pallas_bit1.py (_bit1_kernel :279-310,
+// _chacha_draw_block) and the neighbour words (with the replica wraps and the
+// quenched-disorder links), bit-sliced adder and class masks of
+// ising_tpu/ops/pallas_bit1.py (_bit1_kernel :279-363, :511-517,
 // _neighbor_adder, _neighbor_class_masks).
 
 #pragma once
@@ -107,11 +108,59 @@ __device__ __forceinline__ void chacha(uint32_t c0, uint32_t c1, uint32_t step,
   for (int i = 0; i < 16; ++i) out[i] = x[i] + init[i];
 }
 
+// Where a site's neighbours come from: the same for every thread of a launch,
+// so each branch on it is uniform. link_mode says how quenched +-J disorder
+// is given (pallas_bit1.py:_bit1_kernel :313-363):
+//   LINKS_NONE     ferromagnetic;
+//   LINKS_JPLANES  links = this color's flag words (j_up, j_dn, j_same, j_off);
+//   LINKS_SPLIT    links = the parity-split link store (vE, vO, hE, hO) of one
+//                  periodic lattice (v / h flag of the sites on even / odd
+//                  full-lattice columns), projected here per word.
+// csl > 0: replicas csl compact columns wide (csl divides W1); ysl > 0:
+// replicas ysl rows tall (ysl divides H). 0 is the periodic wrap.
+constexpr int LINKS_NONE = 0;
+constexpr int LINKS_JPLANES = 1;
+constexpr int LINKS_SPLIT = 2;
+
+struct Geometry {
+  const uint32_t* links[4];
+  int link_mode;
+  int csl, ysl;
+};
+
+// Host side: a Geometry from the launcher's arguments, or false for one the
+// kernels do not take (split links are the periodic path only).
+inline bool make_geometry(const void* l0, const void* l1, const void* l2,
+                          const void* l3, int link_mode, int csl, int ysl,
+                          int H, int W1, Geometry& g) {
+  g = Geometry{{static_cast<const uint32_t*>(l0), static_cast<const uint32_t*>(l1),
+        static_cast<const uint32_t*>(l2), static_cast<const uint32_t*>(l3)},
+       link_mode, csl, ysl};
+  if (link_mode < LINKS_NONE || link_mode > LINKS_SPLIT) return false;
+  if (csl < 0 || ysl < 0 || (csl && W1 % csl) || (ysl && H % ysl)) return false;
+  if (link_mode == LINKS_SPLIT && (csl || ysl)) return false;
+  for (const uint32_t* p : g.links) {
+    if (link_mode != LINKS_NONE && p == nullptr) return false;
+  }
+  return true;
+}
+
 // The word (y, j) of one thread and the src words around it. Bit g of word
 // (y, j) is compact column c = g*W1 + j; the off-column neighbour of c is
 // c-1 or c+1: lane j-1 / j+1 of the same bit, and at the row's first / last
 // lane the word one bit over (a 1-bit rotation). Black looks left on even
-// rows and right on odd rows; white the mirror.
+// rows and right on odd rows; white the mirror: a site looks right where it
+// sits on an odd full-lattice column.
+//
+// Replicas (pallas_bit1.py:296-304, :511-517): at lane j % csl == 0 the left
+// neighbour is lane j + csl - 1 of the same bit, at j % csl == csl - 1 the
+// right one lane j - csl + 1 (csl divides W1, so c % csl == j % csl in every
+// bit group and the wrap needs no rotation); row y % ysl == 0 takes row
+// y + ysl - 1 as up, row y % ysl == ysl - 1 row y - ysl + 1 as down, and
+// src_up / src_dn are not read.
+//
+// Disorder: the four link flags are XORed into the four neighbour words
+// (never into me) before the adder, in every accept.
 struct Site {
   int64_t idx;
   int y, j;
@@ -122,20 +171,66 @@ __device__ __forceinline__ bool load_site(const uint32_t* __restrict__ dst,
                                           const uint32_t* __restrict__ src,
                                           const uint32_t* __restrict__ src_up,
                                           const uint32_t* __restrict__ src_dn,
-                                          int H, int W1, int color, Site& s) {
+                                          int H, int W1, int color,
+                                          const Geometry& g, Site& s) {
   s.idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s.idx >= static_cast<int64_t>(H) * W1) return false;
   s.y = static_cast<int>(s.idx / W1);
   s.j = static_cast<int>(s.idx - static_cast<int64_t>(s.y) * W1);
-  const uint32_t* row = src + static_cast<int64_t>(s.y) * W1;
+  const int64_t w1 = W1;
+  const uint32_t* row = src + s.y * w1;
   const int j = s.j;
   s.me = dst[s.idx];
   s.same = row[j];
-  s.up = s.y == 0 ? src_up[j] : row[j - W1];
-  s.dn = s.y == H - 1 ? src_dn[j] : row[j + W1];
-  const uint32_t left = j == 0 ? rotl(row[W1 - 1], 1) : row[j - 1];
-  const uint32_t right = j == W1 - 1 ? rotl(row[0], 31) : row[j + 1];
-  s.off = (color == 0) == static_cast<bool>(s.y & 1) ? right : left;
+  const bool odd_col = (color == 0) == static_cast<bool>(s.y & 1);
+  if (g.link_mode == LINKS_NONE && g.csl == 0 && g.ysl == 0) {
+    // Periodic and ferromagnetic, the main path: a block of its own, so
+    // that none of the geometry's work below is issued here.
+    s.up = s.y == 0 ? src_up[j] : row[j - w1];
+    s.dn = s.y == H - 1 ? src_dn[j] : row[j + w1];
+    const uint32_t left = j == 0 ? rotl(row[W1 - 1], 1) : row[j - 1];
+    const uint32_t right = j == W1 - 1 ? rotl(row[0], 31) : row[j + 1];
+    s.off = odd_col ? right : left;
+    return true;
+  }
+  if (g.ysl) {
+    const int r = s.y % g.ysl;
+    s.up = row[r == 0 ? (g.ysl - 1) * w1 + j : j - w1];
+    s.dn = row[r == g.ysl - 1 ? j - (g.ysl - 1) * w1 : j + w1];
+  } else {
+    s.up = s.y == 0 ? src_up[j] : row[j - w1];
+    s.dn = s.y == H - 1 ? src_dn[j] : row[j + w1];
+  }
+  uint32_t left, right;
+  if (g.csl) {
+    const int l = j % g.csl;
+    left = row[l == 0 ? j + g.csl - 1 : j - 1];
+    right = row[l == g.csl - 1 ? j - g.csl + 1 : j + 1];
+  } else {
+    left = j == 0 ? rotl(row[W1 - 1], 1) : row[j - 1];
+    right = j == W1 - 1 ? rotl(row[0], 31) : row[j + 1];
+  }
+  s.off = odd_col ? right : left;
+  if (g.link_mode == LINKS_JPLANES) {
+    s.up ^= g.links[0][s.idx];
+    s.dn ^= g.links[1][s.idx];
+    s.same ^= g.links[2][s.idx];
+    s.off ^= g.links[3][s.idx];
+  } else if (g.link_mode == LINKS_SPLIT) {
+    // A site on an odd column takes vO and its right link hO[j]; on an even
+    // column vE and its left link, hO of compact column c - 1 (lane j - 1,
+    // or at lane 0 the last word one bit over, as for the spins). Its
+    // same-column link is hE either way; j_up is the v flag one row up
+    // (row H - 1 above row 0: one periodic lattice). (A select of two
+    // pointers: indexing g.links by a runtime value would put the whole
+    // Geometry into local memory.)
+    const uint32_t* v = odd_col ? g.links[1] : g.links[0];
+    const uint32_t* hO = g.links[3] + s.y * w1;
+    s.up ^= v[s.y == 0 ? (H - 1) * w1 + j : s.idx - w1];
+    s.dn ^= v[s.idx];
+    s.same ^= g.links[2][s.idx];
+    s.off ^= odd_col ? hO[j] : (j == 0 ? rotl(hO[W1 - 1], 1) : hO[j - 1]);
+  }
   return true;
 }
 

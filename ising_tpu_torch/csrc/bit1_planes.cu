@@ -108,9 +108,9 @@ bit1_planes_kernel(uint32_t* __restrict__ dst, const uint32_t* __restrict__ src,
                    const uint32_t* __restrict__ src_up,
                    const uint32_t* __restrict__ src_dn, int H, int W1,
                    uint32_t row0, uint32_t step, uint32_t tag, int color,
-                   uint32_t k0, uint32_t k1, AcceptTable tab) {
+                   uint32_t k0, uint32_t k1, AcceptTable tab, Geometry geo) {
   Site s;
-  if (!load_site(dst, src, src_up, src_dn, H, W1, color, s)) return;
+  if (!load_site(dst, src, src_up, src_dn, H, W1, color, geo, s)) return;
   uint32_t pl[KBITS];
   draw_planes<FAMILY, R, KBITS>(row0 + static_cast<uint32_t>(s.y),
                                 static_cast<uint32_t>(W1),
@@ -164,23 +164,24 @@ template <int FAMILY, int R, int KBITS>
 void launch(int accept, dim3 grid, cudaStream_t stream, uint32_t* dst,
             const uint32_t* src, const uint32_t* up, const uint32_t* dn, int H,
             int W1, uint32_t row0, uint32_t step, uint32_t tag, int color,
-            uint32_t k0, uint32_t k1, const AcceptTable& tab) {
+            uint32_t k0, uint32_t k1, const AcceptTable& tab,
+            const Geometry& geo) {
   if (accept == ACCEPT_FIELD) {
     bit1_planes_kernel<FAMILY, R, KBITS, ACCEPT_FIELD><<<grid, 256, 0, stream>>>(
-        dst, src, up, dn, H, W1, row0, step, tag, color, k0, k1, tab);
+        dst, src, up, dn, H, W1, row0, step, tag, color, k0, k1, tab, geo);
   } else if (accept == ACCEPT_GREEDY) {
     bit1_planes_kernel<FAMILY, R, KBITS, ACCEPT_GREEDY><<<grid, 256, 0, stream>>>(
-        dst, src, up, dn, H, W1, row0, step, tag, color, k0, k1, tab);
+        dst, src, up, dn, H, W1, row0, step, tag, color, k0, k1, tab, geo);
   } else {
     bit1_planes_kernel<FAMILY, R, KBITS, ACCEPT_METROPOLIS><<<grid, 256, 0, stream>>>(
-        dst, src, up, dn, H, W1, row0, step, tag, color, k0, k1, tab);
+        dst, src, up, dn, H, W1, row0, step, tag, color, k0, k1, tab, geo);
   }
 }
 
 using Launch = void (*)(int, dim3, cudaStream_t, uint32_t*, const uint32_t*,
                         const uint32_t*, const uint32_t*, int, int, uint32_t,
                         uint32_t, uint32_t, int, uint32_t, uint32_t,
-                        const AcceptTable&);
+                        const AcceptTable&, const Geometry&);
 
 // The (family, rounds, kbits) triples of the bit-plane modes: philox7b,
 // threefry13b, chacha8b/6b/4b (k = 16) and hw (Philox-10, k = 24).
@@ -205,17 +206,22 @@ Launch find_launch(int family, int rounds, int kbits) {
 // Metropolis, 1 greedy, 2 external field; table: TABLE_WORDS (253) host
 // words, laid out as AcceptTable. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a (family, rounds, kbits, accept) that is not
-// instantiated here or a shape the grid cannot cover.
+// instantiated here, a shape the grid cannot cover or a geometry the kernel
+// does not take. l0..l3, link_mode, csl, ysl as for bit1_sweep_launch.
 extern "C" int bit1_planes_launch(void* dst, const void* src, const void* src_up,
                                   const void* src_dn, int H, int W1,
                                   uint32_t row0, uint32_t step, uint32_t tag,
                                   int color, uint32_t k0, uint32_t k1,
                                   int family, int rounds, int kbits, int accept,
-                                  const uint32_t* table, void* stream) {
+                                  const uint32_t* table, const void* l0,
+                                  const void* l1, const void* l2, const void* l3,
+                                  int link_mode, int csl, int ysl, void* stream) {
   dim3 grid;
+  Geometry geo;
   const Launch fn = find_launch(family, rounds, kbits);
   if (fn == nullptr || accept < 0 || accept > ACCEPT_FIELD || table == nullptr ||
-      !grid_for(H, W1, grid)) {
+      !grid_for(H, W1, grid) ||
+      !make_geometry(l0, l1, l2, l3, link_mode, csl, ysl, H, W1, geo)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   AcceptTable tab;
@@ -223,6 +229,6 @@ extern "C" int bit1_planes_launch(void* dst, const void* src, const void* src_up
   fn(accept, grid, static_cast<cudaStream_t>(stream), static_cast<uint32_t*>(dst),
      static_cast<const uint32_t*>(src), static_cast<const uint32_t*>(src_up),
      static_cast<const uint32_t*>(src_dn), H, W1, row0, step, tag, color, k0, k1,
-     tab);
+     tab, geo);
   return static_cast<int>(cudaGetLastError());
 }

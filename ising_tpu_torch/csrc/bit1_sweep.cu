@@ -1,9 +1,10 @@
 // One checkerboard color half-sweep of the 1-bit (bit1) Ising lattice, for
 // Hopper (sm_90a), in the u32-draw rng modes. Replaces the u32 path of the
 // TPU kernel ising_tpu/ops/pallas_bit1.py:_bit1_kernel (:426-458: Philox,
-// Threefry and ChaCha counter modes, T > 0 and the greedy T <= 0 quench).
-// The bit-plane modes are in bit1_planes.cu; shared device code in
-// bit1_common.cuh.
+// Threefry and ChaCha counter modes, T > 0 and the greedy T <= 0 quench),
+// with its quenched-disorder links and sub-lattice replica wraps (:290-363,
+// :511-517), which live in load_site (bit1_common.cuh) and so serve both
+// kernels. The bit-plane modes are in bit1_planes.cu.
 //
 // Layout: a color plane is (H, W1) 32-bit words; bit g of word (y, j) is the
 // spin at compact column c = g*W1 + j. One thread owns one word: it reads its
@@ -17,7 +18,8 @@
 // (Threefry-13), 490 (Philox-10) or 912 (ChaCha-8) 32-bit integer
 // operations per word (chip_smoke.py:ops_per_word). At 16384^2 that is
 // 50 MB of traffic against 2-4e9 integer operations, so the integer pipes
-// bound it, not HBM. The design therefore keeps every operand in registers
+// bound it, not HBM. Disorder adds 4 link words read per word (7 words
+// moved, 117 MB), still under the operation bound of every mode. The design therefore keeps every operand in registers
 // (no shared memory), unrolls the generator completely for the round count
 // (a template parameter), and uses the hardware __umulhi for Philox and
 // funnel shifts for the rotations. Neighbouring threads take neighbouring j,
@@ -52,9 +54,9 @@ bit1_sweep_kernel(uint32_t* __restrict__ dst, const uint32_t* __restrict__ src,
                   const uint32_t* __restrict__ src_dn, int H, int W1,
                   uint32_t row0, uint32_t step, uint32_t tag, int color,
                   uint32_t thr7, uint32_t thr8, uint32_t thr9, uint32_t k0,
-                  uint32_t k1) {
+                  uint32_t k1, Geometry geo) {
   Site s;
-  if (!load_site(dst, src, src_up, src_dn, H, W1, color, s)) return;
+  if (!load_site(dst, src, src_up, src_dn, H, W1, color, geo, s)) return;
   const Classes cls = neighbour_classes(s);
   const uint32_t gy = row0 + static_cast<uint32_t>(s.y);
   const uint32_t w1 = static_cast<uint32_t>(W1);
@@ -107,20 +109,22 @@ void launch(bool greedy, dim3 grid, cudaStream_t stream, uint32_t* dst,
             const uint32_t* src, const uint32_t* up, const uint32_t* dn, int H,
             int W1, uint32_t row0, uint32_t step, uint32_t tag, int color,
             uint32_t thr7, uint32_t thr8, uint32_t thr9, uint32_t k0,
-            uint32_t k1) {
+            uint32_t k1, const Geometry& geo) {
   if (greedy) {
     bit1_sweep_kernel<FAMILY, R, true><<<grid, 256, 0, stream>>>(
-        dst, src, up, dn, H, W1, row0, step, tag, color, thr7, thr8, thr9, k0, k1);
+        dst, src, up, dn, H, W1, row0, step, tag, color, thr7, thr8, thr9, k0,
+        k1, geo);
   } else {
     bit1_sweep_kernel<FAMILY, R, false><<<grid, 256, 0, stream>>>(
-        dst, src, up, dn, H, W1, row0, step, tag, color, thr7, thr8, thr9, k0, k1);
+        dst, src, up, dn, H, W1, row0, step, tag, color, thr7, thr8, thr9, k0,
+        k1, geo);
   }
 }
 
 using Launch = void (*)(bool, dim3, cudaStream_t, uint32_t*, const uint32_t*,
                         const uint32_t*, const uint32_t*, int, int, uint32_t,
                         uint32_t, uint32_t, int, uint32_t, uint32_t, uint32_t,
-                        uint32_t, uint32_t);
+                        uint32_t, uint32_t, const Geometry&);
 
 // The (family, rounds) pairs of the u32 rng modes (ising_tpu/rng.py:99-113).
 Launch find_launch(int family, int rounds) {
@@ -140,23 +144,28 @@ Launch find_launch(int family, int rounds) {
 // (k0, k1 = seed lo, hi), 1 = Threefry (k0, k1 = threefry_stream_key(seed,
 // step, tag)). Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a (family, rounds) pair that is not instantiated
-// here or a shape the grid cannot cover.
+// here, a shape the grid cannot cover or a geometry the kernel does not take.
+// l0..l3, link_mode, csl, ysl: the Geometry of bit1_common.cuh (0 for none).
 extern "C" int bit1_sweep_launch(void* dst, const void* src, const void* src_up,
                                  const void* src_dn, int H, int W1,
                                  uint32_t row0, uint32_t step, uint32_t tag,
                                  int color, uint32_t thr7, uint32_t thr8,
                                  uint32_t thr9, uint32_t k0, uint32_t k1,
                                  int family, int rounds, int greedy,
+                                 const void* l0, const void* l1, const void* l2,
+                                 const void* l3, int link_mode, int csl, int ysl,
                                  void* stream) {
   dim3 grid;
+  Geometry geo;
   const Launch fn = find_launch(family, rounds);
-  if (fn == nullptr || !grid_for(H, W1, grid)) {
+  if (fn == nullptr || !grid_for(H, W1, grid) ||
+      !make_geometry(l0, l1, l2, l3, link_mode, csl, ysl, H, W1, geo)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   fn(greedy != 0, grid, static_cast<cudaStream_t>(stream),
      static_cast<uint32_t*>(dst), static_cast<const uint32_t*>(src),
      static_cast<const uint32_t*>(src_up), static_cast<const uint32_t*>(src_dn),
-     H, W1, row0, step, tag, color, thr7, thr8, thr9, k0, k1);
+     H, W1, row0, step, tag, color, thr7, thr8, thr9, k0, k1, geo);
   return static_cast<int>(cudaGetLastError());
 }
 

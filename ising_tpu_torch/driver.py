@@ -1,10 +1,10 @@
 """Simulation driver of the port: state, step loop and measurement loop.
 
-The port of ``ising_tpu/driver.py`` for one device without disorder or
-replicas: the same print schedules, the same log lines, the same flips/ns
-and bandwidth formula, the temperature ramp and the external field. Steps
-run as host-issued launches; the host synchronises only at measurement
-events.
+The port of ``ising_tpu/driver.py`` for one device: the same print
+schedules, the same log lines, the same flips/ns and bandwidth formula,
+the temperature ramp, the external field, quenched +-J disorder and
+sub-lattice replicas. Steps run as host-issued launches; the host
+synchronises only at measurement events.
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ import torch
 
 from . import observables
 from .config import SimConfig, resolve_device
-from .constants import MIN_TEMP, TGT_MAGN_MAX_DIFF
-from .lattice import init_store
+from .constants import BLACK, MIN_TEMP, TGT_MAGN_MAX_DIFF, WHITE
+from .lattice import init_store, links_to_color_planes
 from .models import ising
 from .ops import get_backend
+from .ops.bit1 import pack_bits1, unpack_bits1
 from .parallel import make_stepper
 
 TIMED_WINDOW = "run_loop.timed_window"
@@ -53,6 +54,67 @@ def reference_exp_times(nsteps: int) -> list[int]:
     return times
 
 
+def _row_chunk(Y: int, chunk_rows: int) -> int:
+    """An even chunk height of at most chunk_rows that divides Y."""
+    R = min(Y, chunk_rows)
+    R -= R % 2
+    while Y % R:
+        R -= 2
+    return R
+
+
+def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu"):
+    """(links, links_packed, jplanes) for cfg.j_prob, built in row chunks.
+
+    The links of each chunk are drawn from the same counter stream as a
+    one-shot draw, and each color's flag planes are projected row-locally
+    with the one v halo row above the chunk, so the result does not depend
+    on the chunk height. With ncols % 64 == 0 the (v, h) links stay
+    bit-packed, parity-split as (vE, vO, hE, hO) word planes: the layout
+    the word-domain disordered energy reads. When the backend can project
+    the flags in its kernel (bit1 on one device without replicas), that
+    store is the jplanes of both colors and no per-color planes are made;
+    otherwise jplanes is (black's, white's) (j_up, j_dn, j_same, j_off)
+    in the backend's encoding.
+    """
+    Y, X = cfg.nrows, cfg.ncols
+    enc = getattr(backend, "encode_jplanes", lambda p: p)
+    links_packed = X % 64 == 0
+    R = _row_chunk(Y, chunk_rows)
+    split = links_packed and getattr(backend, "split_links_capable", False)
+    if split:
+        backend.split_links = True
+    jseed = cfg.seed if cfg.j_seed is None else cfg.j_seed
+    link_parts, jb_parts, jw_parts = [], [], []
+    for r in range(0, Y, R):
+        v_s, h_s = ising.generate_disorder_links(
+            jseed, Y, X, cfg.j_prob, row0=r, local_rows=R, device=device)
+        if not split:
+            v_up = None
+            if R < Y:
+                v_up, _ = ising.generate_disorder_links(
+                    jseed, Y, X, cfg.j_prob, row0=(r - 1) % Y,
+                    local_rows=1, device=device)
+            jb_parts.append(tuple(enc(
+                links_to_color_planes(v_s, h_s, BLACK, v_up=v_up))))
+            jw_parts.append(tuple(enc(
+                links_to_color_planes(v_s, h_s, WHITE, v_up=v_up))))
+        if links_packed:
+            link_parts.append(tuple(pack_bits1(p) for p in (
+                v_s[:, 0::2], v_s[:, 1::2], h_s[:, 0::2], h_s[:, 1::2])))
+        else:
+            link_parts.append((v_s, h_s))
+        del v_s, h_s
+
+    def cat(parts):
+        return tuple(torch.cat([p[i] for p in parts])
+                     for i in range(len(parts[0])))
+    links = cat(link_parts)
+    if split:
+        return links, links_packed, (links, links)
+    return links, links_packed, (cat(jb_parts), cat(jw_parts))
+
+
 class Simulation:
     """One Ising MC run: state on `cfg.device`, stepper, measurements."""
 
@@ -62,7 +124,14 @@ class Simulation:
         self.temp = cfg.temperature
         self.step = 0
         self.backend = get_backend(cfg)
-        self._step_n = make_stepper(cfg, self.backend)
+        # Quenched disorder: the link store (bit-packed and parity-split
+        # when ncols % 64 == 0; links() gives the uint8 planes) and the
+        # stepper's J planes.
+        self._links_store, self._links_packed, jplanes = None, False, None
+        if cfg.j_prob is not None:
+            self._links_store, self._links_packed, jplanes = build_disorder(
+                cfg, self.backend, device=self.device)
+        self._step_n = make_stepper(cfg, self.backend, jplanes=jplanes)
         self.black, self.white = init_store(cfg.seed, cfg.nrows, cfg.ncols,
                                             self.backend.encode,
                                             device=self.device)
@@ -71,6 +140,30 @@ class Simulation:
     def bits(self):
         """Current (black, white) uint8 bit planes (decoded)."""
         return self.backend.decode(self.black, self.white)
+
+    def _links_slab_of(self, store, r: int, n: int, chunk: int = 8192):
+        """(v, h) uint8 link rows [r, r+n) of the given store; a packed
+        store is unpacked and re-interleaved in row slabs of at most
+        `chunk` rows, so the transient stays one slab's."""
+        if not self._links_packed:
+            v, h = store
+            return v[r:r + n], h[r:r + n]
+        out = [torch.empty((n, self.cfg.ncols), dtype=torch.uint8,
+                           device=store[0].device) for _ in range(2)]
+        for a in range(0, n, chunk):
+            b = min(n, a + chunk)
+            for plane, dst, parity in zip(store, (0, 0, 1, 1), (0, 1, 0, 1)):
+                out[dst][a:b, parity::2] = unpack_bits1(plane[r + a:r + b])
+        return out[0], out[1]
+
+    def _links_slab(self, r: int, n: int):
+        return self._links_slab_of(self._links_store, r, n)
+
+    def links(self):
+        """(v, h) full uint8 disorder link planes, or None without -J."""
+        if self._links_store is None:
+            return None
+        return self._links_slab(0, self.cfg.nrows)
 
     def _up_rows(self):
         """Per-row up counts: the backend's own reduction where it has one
@@ -123,12 +216,28 @@ class Simulation:
         self.backend.retune(self.temp, field)
 
     def energy_total(self) -> int:
-        """Exact integer bond sum over the current state (H = -this)."""
-        if hasattr(self.backend, "energy_rows"):
-            rows = self.backend.energy_rows(self.black, self.white)
-        else:
-            rows = observables.energy_row_sums(*self.bits())
-        return int(rows.sum())
+        """Exact integer bond sum sum_bonds J_ij s_i s_j over the current
+        state (H = -this). In replica mode it sums the full lattice's
+        bonds, those across replica edges included, as the JAX package's
+        does."""
+        return int(self._energy_rows().sum())
+
+    def _energy_rows(self):
+        """Per-row bond sums: on the words where the backend can (bit1,
+        with the packed link store under disorder), else streamed from
+        storage in row slabs with the link slabs."""
+        b, w = self.black, self.white
+        if self._links_store is None and hasattr(self.backend, "energy_rows"):
+            return self.backend.energy_rows(b, w)
+        if (self._links_store is not None and self._links_packed
+                and hasattr(self.backend, "energy_rows_disordered")):
+            return self.backend.energy_rows_disordered(b, w,
+                                                       self._links_store)
+        decode = lambda r, n: self.backend.decode(
+            observables._rows_wrap(b, r, n), observables._rows_wrap(w, r, n))
+        links_rows = None if self._links_store is None else self._links_slab
+        return observables.energy_rows_via(decode, self.cfg.nrows,
+                                           links_rows=links_rows)
 
     def energy(self) -> float:
         """Internal energy per spin; a field adds its exact -h sum(s)."""

@@ -1,10 +1,12 @@
 """Reference trajectories of the JAX package, for checking the port.
 
-Each case, keyed (rng mode, temperature) or (rng mode, temperature,
-field), runs a 64 x 16384 lattice (the full bench width, 32 rows of words
-per color) from seed SEED_DEF for NSTEPS steps. ``up`` holds the up-spin
-count before the first step and after each step; ``crc32`` is zlib.crc32
-of the final black then white bit1 words (uint32, little-endian).
+Each case, keyed (rng mode, temperature), (rng mode, temperature, field)
+or, with quenched disorder or replicas, (rng mode, temperature, field,
+j_prob, xsl, ysl), runs a 64 x 16384 lattice (the full bench width, 32
+rows of words per color) from seed SEED_DEF for NSTEPS steps. ``up``
+holds the up-spin count before the first step and after each step;
+``crc32`` is zlib.crc32 of the final black then white bit1 words (uint32,
+little-endian); a disordered case also holds the final ``energy_total``.
 
 The counter-mode values come from the JAX package's xla backend. The hw
 values come from its bit1 backend with the Pallas kernel in interpret
@@ -53,6 +55,26 @@ GOLDEN = {
                   "crc32": 0xB8A39E5B},
     ("chacha8b", 1.5, 0.1): {"up": (524222, 567882, 637263, 702143, 760234),
                              "crc32": 0x3F6E5930},
+    # -J 0.1: split links on bit1
+    ("threefry13", 1.5, 0.0, 0.1, None, None): {
+        "up": (524222, 524501, 525615, 525171, 524361), "crc32": 0x947586B9,
+        "energy_total": 1328284},
+    ("chacha6b", 1.5, 0.0, 0.1, None, None): {
+        "up": (524222, 524504, 525434, 525226, 524438), "crc32": 0x13F9ED85,
+        "energy_total": 1330336},
+    ("philox", 0.0, 0.0, 0.5, None, None): {
+        "up": (524222, 523790, 523736, 523969, 524062), "crc32": 0xD1DB8AB9,
+        "energy_total": 1272628},
+    # --xsl 128 --ysl 8: csl = 64 divides W1 = 256
+    ("chacha6b", 1.5, 0.0, None, 128, 8): {
+        "up": (524222, 524494, 526157, 526802, 526540), "crc32": 0xD9368040},
+    # replicas with disorder: per-color J planes
+    ("threefry13", 1.5, 0.0, 0.1, 128, 16): {
+        "up": (524222, 524325, 525344, 524737, 524175), "crc32": 0x3C6B8C9F,
+        "energy_total": 1271200},
+    ("philox7b", 1.5, 0.1, 0.1, None, None): {
+        "up": (524222, 565253, 619138, 660247, 693394), "crc32": 0x55E4C9CE,
+        "energy_total": 1351636},
 }
 
 
@@ -62,19 +84,26 @@ def words_crc32(black_u32, white_u32) -> int:
     return zlib.crc32(np.asarray(white_u32, "<u4").tobytes(), crc)
 
 
-def port_trajectory(rng: str, temp: float, field: float = 0.0, *,
-                    device="cuda", backend: str = "bit1") -> dict:
-    """The port's {"up", "crc32"} for one golden case, on `device`."""
+def port_trajectory(rng: str, temp: float, field: float = 0.0,
+                    j_prob: float | None = None, xsl: int | None = None,
+                    ysl: int | None = None, *, device="cuda",
+                    backend: str = "bit1") -> dict:
+    """The port's {"up", "crc32"[, "energy_total"]} for one golden case,
+    on `device`."""
     from .config import SimConfig
     from .driver import Simulation
     from .interop import to_numpy_words
     from .ops.bit1 import pack_bits1
     sim = Simulation(SimConfig(nrows=NROWS, ncols=NCOLS, temp=temp,
                                field=field, seed=SEED, backend=backend,
-                               rng=rng, device=str(device)))
+                               rng=rng, j_prob=j_prob, xsl=xsl, ysl=ysl,
+                               device=str(device)))
     ups = [sim.measure()["up"]]
     for _ in range(NSTEPS):
         sim.advance(1)
         ups.append(sim.measure()["up"])
     words = (pack_bits1(p) for p in sim.bits())
-    return {"up": tuple(ups), "crc32": words_crc32(*to_numpy_words(*words))}
+    out = {"up": tuple(ups), "crc32": words_crc32(*to_numpy_words(*words))}
+    if j_prob is not None:
+        out["energy_total"] = sim.energy_total()
+    return out

@@ -69,3 +69,38 @@ def full_to_compact(full):
     even_cols, odd_cols = full[:, 0::2], full[:, 1::2]
     return (torch.where(odd, odd_cols, even_cols),
             torch.where(odd, even_cols, odd_cols))
+
+
+def links_to_color_planes(v, h, color: int, v_up=None):
+    """Project full-lattice disorder links onto one color's neighbour planes.
+
+    v[y, x] flags the vertical link (y,x)-(y+1,x), h[y, x] the horizontal
+    link (y,x)-(y,x+1). Returns four compact (Y, X/2) uint8 planes
+    (j_up, j_dn, j_same, j_off): the antiferro flag of the link from each
+    `color` site to its up / down / same-column / off-column neighbour.
+    Both colors project from the same links, so the two views agree.
+
+    v_up: optional (1, X) halo row holding the v links above the first row
+    (row-slab chunked generation, starting on an even global row); without
+    it the full-lattice periodic roll.
+    """
+    odd = _row_odd(v.shape[0], v.device)
+
+    def pick(full_plane):
+        even_cols, odd_cols = full_plane[:, 0::2], full_plane[:, 1::2]
+        if color == BLACK:
+            return torch.where(odd, odd_cols, even_cols)
+        return torch.where(odd, even_cols, odd_cols)
+
+    j_dn = pick(v)
+    v_above = torch.roll(v, 1, dims=0) if v_up is None \
+        else torch.cat([v_up, v[:-1]])
+    j_up = pick(v_above)
+    # black on even rows sits at x = 2j: its same-column neighbour (white
+    # j) is to the right; mirrored for white
+    same_is_right = ~odd if color == BLACK else odd
+    j_right = pick(h)
+    j_left = pick(torch.roll(h, 1, dims=1))
+    j_same = torch.where(same_is_right, j_right, j_left)
+    j_off = torch.where(same_is_right, j_left, j_right)
+    return j_up, j_dn, j_same, j_off

@@ -1,8 +1,9 @@
-"""2D Ising acceptance tables and exact results (host numpy).
+"""2D Ising acceptance tables, exact results and disorder links.
 
-A copy of the host-side part of ``ising_tpu/models/ising.py``: the port
-must consume the identical integer thresholds, so these functions are the
-same float64 arithmetic, line for line.
+A copy of ``ising_tpu/models/ising.py``: the port must consume the
+identical integer thresholds, so the host functions are the same float64
+arithmetic, line for line; the quenched disorder links are drawn in torch
+from the same Philox stream.
 
   * Spins are bits b in {0,1}; the physical spin is s = 2b - 1.
   * A flip changes the energy by dE = 2*(2b-1)*(2n-4), n = neighbor bit sum.
@@ -17,8 +18,10 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ..constants import TCRIT
+from ..rng import TAG_HAMILT, color_draws
 
 
 def acceptance_probabilities(temp: float, field: float = 0.0) -> np.ndarray:
@@ -134,3 +137,29 @@ def onsager_energy(temp: float) -> float:
     k = 2.0 * math.sinh(beta2) / (math.cosh(beta2) ** 2)
     K = _ellipk_agm(k)
     return -coth * (1.0 + (2.0 / math.pi) * (2.0 * th * th - 1.0) * K)
+
+
+def generate_disorder_links(seed: int, nrows: int, ncols: int, prob: float,
+                            *, row0: int = 0, local_rows: int | None = None,
+                            device="cpu"):
+    """Quenched +-J disorder: Bernoulli(prob) antiferromagnetic link flags.
+
+    Returns (v, h) uint8 full-lattice planes of shape (rows, ncols):
+      v[y, x] = 1 if the vertical link (y,x)-(y+1 mod Y, x) is antiferro,
+      h[y, x] = 1 if the horizontal link (y,x)-(y, x+1 mod X) is antiferro.
+
+    One Philox-10 u32 draw per link, whatever the sweep's rng mode: v from
+    tag TAG_HAMILT | 0, h from TAG_HAMILT | 1, over the full width
+    (row_stride = ncols); flag = (draw & 0xFFFF) < round(prob * 2^16).
+    row0/local_rows carve out a row slab of the same stream, so chunked
+    generation is bit-identical to one-shot.
+    """
+    cut = int(round(prob * 65536.0))
+    rows = local_rows if local_rows is not None else nrows
+    out = []
+    for tag in (TAG_HAMILT | 0, TAG_HAMILT | 1):
+        d = color_draws(seed, rows, ncols, step=0, tag=tag, row0=row0,
+                        row_stride=ncols, device=device)
+        out.append(((d & 0xFFFF) < cut).to(torch.uint8))
+        del d
+    return out[0], out[1]

@@ -2,13 +2,15 @@
 
 The port of ``ising_tpu/observables.py``: per-row up-spin counts and bond
 sums, on uint8 bit planes (the xla backend's storage) and straight on the
-bit1 backend's (Y, W1) words, without a decode to byte planes. torch has
-no popcount, so words are counted with the SWAR bit-count on int64
-copies; every sum is exact in int64.
+bit1 backend's (Y, W1) words, without a decode to byte planes, with or
+without quenched disorder links; and the per-replica |m| of replica
+mode. torch has no popcount, so words are counted with the SWAR
+bit-count on int64 copies; every sum is exact in int64.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .rng import MASK
@@ -20,25 +22,61 @@ def row_up_counts(black, white):
             + white.sum(dim=1, dtype=torch.int64))
 
 
-def energy_row_sums(black, white, row_chunk: int = 8192):
-    """Per-row exact bond sums sum_x (s s_right + s s_down), int64, of two
-    (Y, C) uint8 bit planes; the Hamiltonian is minus their total. Each
-    row has 2C horizontal and 2C vertical bonds, and the sum is the bond
-    count less twice the antialigned ones. Row-chunked, with one wrap row
-    appended per slab."""
-    Y = black.shape[0]
+def _row_block(Y: int, row_chunk: int) -> int:
+    """The slab height: row_chunk or less, even, dividing Y."""
     R = min(Y, row_chunk)
     while Y % R:
         R -= 2
+    return R
+
+
+def _energy_block(e_ext, o_ext, vh=None, hh=None):
+    """Per-row bond sums of R rows from R + 1 rows of column-parity planes,
+    with optional (R, X) antiferro link flags vh / hh: each row has 2C
+    horizontal and 2C vertical bonds, and the sum is the bond count less
+    twice the antialigned ones."""
+    R = e_ext.shape[0] - 1
+    e0, o0 = e_ext[:R], o_ext[:R]
+    hx1 = e0 ^ o0                              # (y, 2j) - (y, 2j+1)
+    hx2 = o0 ^ torch.roll(e0, -1, dims=1)      # (y, 2j+1) - (y, 2j+2)
+    vx1 = e0 ^ e_ext[1:]                       # vertical, even columns
+    vx2 = o0 ^ o_ext[1:]                       # vertical, odd columns
+    if hh is not None:
+        hx1, hx2 = hx1 ^ hh[:, 0::2], hx2 ^ hh[:, 1::2]
+    if vh is not None:
+        vx1, vx2 = vx1 ^ vh[:, 0::2], vx2 ^ vh[:, 1::2]
+    anti = (hx1 + hx2 + vx1 + vx2).sum(dim=1, dtype=torch.int64)
+    return 4 * e0.shape[1] - 2 * anti
+
+
+def energy_rows_via(decode_rows, nrows: int, links_rows=None,
+                    row_chunk: int = 8192):
+    """Per-row exact bond sums from storage via row callbacks:
+    decode_rows(r, n) -> compact (black, white) uint8 planes of the
+    wrapped rows [r, r+n); links_rows(r, n) -> (v, h) uint8 link rows
+    [r, r+n), or None without disorder. Row-chunked, with one wrap row
+    appended per slab, so no full-lattice decode is made."""
+    R = _row_block(nrows, row_chunk)
     parts = []
-    for r in range(0, Y, R):
-        e_ext, o_ext = _col_parity_planes(_rows_wrap(black, r, R + 1),
-                                          _rows_wrap(white, r, R + 1))
-        e0, o0 = e_ext[:R], o_ext[:R]
-        anti = ((e0 ^ o0) + (o0 ^ torch.roll(e0, -1, dims=1))
-                + (e0 ^ e_ext[1:]) + (o0 ^ o_ext[1:]))
-        parts.append(4 * e0.shape[1] - 2 * anti.sum(dim=1, dtype=torch.int64))
+    for r in range(0, nrows, R):
+        e_ext, o_ext = _col_parity_planes(*decode_rows(r, R + 1))
+        vh, hh = (None, None) if links_rows is None else links_rows(r, R)
+        parts.append(_energy_block(e_ext, o_ext, vh, hh))
     return torch.cat(parts)
+
+
+def energy_row_sums(black, white, v=None, h=None, row_chunk: int = 8192):
+    """Per-row exact bond sums sum_x (J_r s s_right + J_d s s_down), int64,
+    of two (Y, C) uint8 bit planes, with optional full-lattice antiferro
+    link flags v / h (J = 1 - 2 flag); the Hamiltonian is minus their
+    total."""
+    links = None
+    if v is not None or h is not None:
+        links = lambda r, n: (None if v is None else v[r:r + n],
+                              None if h is None else h[r:r + n])
+    return energy_rows_via(
+        lambda r, n: (_rows_wrap(black, r, n), _rows_wrap(white, r, n)),
+        black.shape[0], links, row_chunk=row_chunk)
 
 
 def popcount32(words):
@@ -97,29 +135,52 @@ def _col_shift_words(x, d: int):
                        torch.roll(hi, -dl, dims=1))
 
 
-def _bit1_energy_block(e_ext, o_ext):
-    """Per-row bond sums of R rows, from R + 1 rows of E/O words."""
+def _bit1_energy_block(e_ext, o_ext, links=None):
+    """Per-row bond sums of R rows, from R + 1 rows of E/O words; links:
+    the (vE, vO, hE, hO) flag words of the R rows (parity-split, as the
+    driver stores them), XORed into each bond class before the popcount."""
     R = e_ext.shape[0] - 1
     e0, o0 = e_ext[:R], o_ext[:R]
     ncols = 2 * 32 * e0.shape[1]
-    anti = (_popcount_rows(e0 ^ o0)
-            + _popcount_rows(o0 ^ _col_shift_words(e0, 1))
-            + _popcount_rows(e0 ^ e_ext[1:R + 1])
-            + _popcount_rows(o0 ^ o_ext[1:R + 1]))
+    bonds = [e0 ^ e_ext[1:R + 1], o0 ^ o_ext[1:R + 1],        # v: E, O
+             e0 ^ o0, o0 ^ _col_shift_words(e0, 1)]           # h: E, O
+    if links is not None:
+        bonds = [b ^ (p.to(torch.int64) & MASK)
+                 for b, p in zip(bonds, links)]
+    anti = sum(_popcount_rows(b) for b in bonds)
     return 2 * ncols - 2 * anti
 
 
-def bit1_energy_row_sums(black_w, white_w, row_chunk: int = 8192):
-    """Per-row exact bond sums sum_bonds s_i s_j (int64) on word storage;
-    the Hamiltonian is minus their total."""
+def bit1_energy_row_sums(black_w, white_w, links_words=None,
+                         row_chunk: int = 8192):
+    """Per-row exact bond sums sum_bonds J s_i s_j (int64) on word storage;
+    the Hamiltonian is minus their total. links_words: the parity-split
+    (vE, vO, hE, hO) link flag words (driver.build_disorder's store), so
+    the disordered energy runs without a decode too."""
     Y = black_w.shape[0]
-    R = min(Y, row_chunk)
-    while Y % R:
-        R -= 2
+    R = _row_block(Y, row_chunk)
     parts = []
     for r in range(0, Y, R):
         e_ext, o_ext = _col_parity_planes(
             _rows_wrap(black_w, r, R + 1).to(torch.int64) & MASK,
             _rows_wrap(white_w, r, R + 1).to(torch.int64) & MASK)
-        parts.append(_bit1_energy_block(e_ext, o_ext))
+        links = (None if links_words is None
+                 else [p[r:r + R] for p in links_words])
+        parts.append(_bit1_energy_block(e_ext, o_ext, links))
     return torch.cat(parts)
+
+
+def replica_magnetizations(black, white, xsl: int, ysl: int) -> np.ndarray:
+    """|m| of each sub-lattice replica, row-major over the (Y/ysl, X/xsl)
+    grid of replicas, from the compact uint8 planes (each replica holds
+    xsl/2 compact columns of each color); up counts exact in int64."""
+    Y, ch = black.shape
+    csl = xsl // 2
+
+    def tile_ups(p):
+        t = p.reshape(Y // ysl, ysl, ch // csl, csl)
+        return t.sum(dim=(1, 3), dtype=torch.int64)
+
+    n = xsl * ysl
+    ups = (tile_ups(black) + tile_ups(white)).cpu().numpy()
+    return (np.abs(2 * ups - n) / float(n)).reshape(-1)

@@ -4,7 +4,8 @@ The port of ``ising_tpu/ops/pallas_bit1.py`` and its TPU kernel
 ``_bit1_kernel`` in every rng mode: the u32-draw path (Philox, Threefry
 and ChaCha counter modes), the bit-plane path (the "...b" modes and hw)
 with its bit-serial accept, the greedy T <= 0 quench, and the 10-class
-external-field accept. Disorder and replicas are not ported yet.
+external-field accept, quenched +-J disorder (per-color J planes, or the
+parity-split link store projected in the kernel) and sub-lattice replicas.
 
 Storage: a compact color plane (Y, C = X/2) is held as (Y, W1 = C/32)
 torch.int32 words carrying the same 32 bits as the JAX package's uint32
@@ -34,7 +35,6 @@ import functools
 
 import torch
 
-from ..config import not_ported
 from ..constants import BLACK, WHITE
 from ..models import ising
 from ..rng import (MASK, PHILOX_ROUNDS, TAG_SWEEP, counter_color_draws,
@@ -77,12 +77,29 @@ def pack_bits1(bits):
     return _s((g * _bit_weights(bits.device)).sum(dim=1))
 
 
-def unpack_bits1(packed):
-    """(Y, W1) int32 words -> (Y, 32*W1) uint8 bit plane."""
+def unpack_bits1(packed, out=None):
+    """(Y, W1) int32 words -> (Y, 32*W1) uint8 bit plane, written into
+    `out` when given. One bit at a time, shifted in int32 (the sign bits
+    an arithmetic shift brings in are masked off): the only transient is
+    one (Y, W1) int32 plane."""
     Y, W1 = packed.shape
-    shifts = torch.arange(SPW, device=packed.device)[:, None]
-    planes = (_u(packed)[:, None, :] >> shifts) & 1
-    return planes.to(torch.uint8).reshape(Y, SPW * W1)
+    if out is None:
+        out = torch.empty((Y, SPW * W1), dtype=torch.uint8,
+                          device=packed.device)
+    view = out.view(Y, SPW, W1)
+    for g in range(SPW):
+        view[:, g, :] = (packed >> g) & 1
+    return out
+
+
+def unpack_rows(store, chunk: int = 8192):
+    """unpack_bits1 of a (Y, W1) word plane in row chunks: the transient
+    stays one chunk's int32 plane, however tall the lattice."""
+    Y, W1 = store.shape
+    out = torch.empty((Y, SPW * W1), dtype=torch.uint8, device=store.device)
+    for r in range(0, Y, chunk):
+        unpack_bits1(store[r:r + chunk], out=out[r:r + chunk])
+    return out
 
 
 def _neighbor_adder(up, dn, same, off):
@@ -216,24 +233,68 @@ def bitserial_field_flip(planes, me, n0, n1, n2, tvals10, always10: int):
     return always | lt
 
 
-def _off_column(src, color: int):
-    """Word plane of each site's off-column in-row neighbor (left on even
-    rows for black, right on odd rows; mirrored for white). At the row's
-    first / last lane the neighbor is the word one bit over."""
+def _lane_left(x):
+    """Word plane of compact column c - 1, periodic: lane j - 1, and at
+    lane 0 the last word one bit over (x: int64 holding uint32)."""
+    last = x[:, -1:]
+    return torch.cat([((last << 1) & MASK) | (last >> 31), x[:, :-1]], 1)
+
+
+def _lane_right(x):
+    """Word plane of compact column c + 1, periodic."""
+    first = x[:, :1]
+    return torch.cat([x[:, 1:], (first >> 1) | ((first << 31) & MASK)], 1)
+
+
+def _odd_column(H: int, color: int, device):
+    """(H, 1) mask of the rows where this color's sites sit on odd
+    full-lattice columns (black on odd rows, white on even rows): there
+    the off-column neighbour is to the right, elsewhere to the left."""
+    odd = (torch.arange(H, device=device) % 2 == 1)[:, None]
+    return odd if color == BLACK else ~odd
+
+
+def _off_column(src, color: int, csl: int | None = None):
+    """Word plane of each site's off-column in-row neighbor. Periodic: at
+    the row's first / last lane the neighbor is the word one bit over.
+    With replicas of csl compact columns (csl divides W1, so column
+    c % csl == lane % csl in every bit group), the neighbour wraps inside
+    the replica at its edge lanes, with no bit rotation."""
     H, W1 = src.shape
-    last, first = src[:, W1 - 1:], src[:, :1]
-    left = torch.cat([((last << 1) & MASK) | (last >> 31), src[:, :-1]], 1)
-    right = torch.cat([src[:, 1:], (first >> 1) | ((first << 31) & MASK)], 1)
-    odd = (torch.arange(H, device=src.device) % 2 == 1)[:, None]
-    if color == BLACK:
-        return torch.where(odd, right, left)
-    return torch.where(odd, left, right)
+    if csl is None:
+        left, right = _lane_left(src), _lane_right(src)
+    else:
+        lane = torch.arange(W1, device=src.device)[None, :]
+        left = torch.where(lane % csl == 0, torch.roll(src, 1 - csl, 1),
+                           torch.roll(src, 1, 1))
+        right = torch.where(lane % csl == csl - 1,
+                            torch.roll(src, csl - 1, 1),
+                            torch.roll(src, -1, 1))
+    return torch.where(_odd_column(H, color, src.device), right, left)
 
 
-def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step, *,
-                         color: int, seed: int, rng_mode: str,
-                         greedy: bool, t4k: int = 0, t8k: int = 0,
-                         tvals10=None, always10: int = 0):
+def split_link_planes(links, color: int):
+    """This color's (j_up, j_dn, j_same, j_off) flag words, projected from
+    the parity-split link store (vE, vO, hE, hO) of one periodic lattice
+    (int64 holding uint32): vE / hE hold the v / h link flags of the sites
+    on even full-lattice columns, vO / hO of those on odd ones. A site on
+    an odd column takes vO and its right link hO; on an even column vE and
+    its left link, which is hO of compact column c - 1; its same-column
+    link is hE either way."""
+    vE, vO, hE, hO = links
+    p = _odd_column(vE.shape[0], color, vE.device)
+    j_dn = torch.where(p, vO, vE)
+    j_up = torch.where(p, torch.roll(vO, 1, 0), torch.roll(vE, 1, 0))
+    j_off = torch.where(p, hO, _lane_left(hO))
+    return j_up, j_dn, hE, j_off
+
+
+def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step,
+                         jplanes=None, *, color: int, seed: int,
+                         rng_mode: str, greedy: bool, t4k: int = 0,
+                         t8k: int = 0, tvals10=None, always10: int = 0,
+                         split_links: bool = False, csl: int | None = None,
+                         ysl: int | None = None):
     """One color half-sweep in plain torch: the new (H, W1) int32 dst.
 
     dst/src are this color's and the other color's (H, W1) words; src_up /
@@ -241,13 +302,32 @@ def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step, *,
     threshold table (the u32 modes read entries 7, 8, 9); row0 the slab's
     global first row. The bit-plane modes (accept_bits(rng_mode) > 0) read
     the k-bit thresholds (t4k, t8k) instead, or with an external field the
-    10-class table (tvals10, always10), which also covers T <= 0. Inputs
-    are not modified.
+    10-class table (tvals10, always10), which also covers T <= 0.
+
+    jplanes: quenched disorder as four (H, W1) word planes, either this
+    color's (j_up, j_dn, j_same, j_off) flags, or with split_links the
+    parity-split link store (vE, vO, hE, hO) of one periodic lattice; the
+    flags are XORed into the four neighbour words before the count. csl /
+    ysl: sub-lattice replicas of csl compact columns (dividing W1) and ysl
+    rows (dividing H): the neighbours wrap inside each replica, and src_up
+    / src_dn are not read. Inputs are not modified.
     """
     me, s = _u(dst), _u(src)
-    up = torch.cat([_u(src_up), s[:-1]])
-    dn = torch.cat([s[1:], _u(src_dn)])
-    off = _off_column(s, color)
+    if ysl is None:
+        up = torch.cat([_u(src_up), s[:-1]])
+        dn = torch.cat([s[1:], _u(src_dn)])
+    else:
+        from .xla_ref import make_row_wrap_maps
+        up_idx, dn_idx = make_row_wrap_maps(s.shape[0], ysl, device=s.device)
+        up, dn = s[up_idx], s[dn_idx]
+    off = _off_column(s, color, csl)
+    same = s
+    if jplanes is not None:
+        links = [_u(p) for p in jplanes]
+        if split_links:
+            links = split_link_planes(links, color)
+        up, dn = up ^ links[0], dn ^ links[1]
+        same, off = same ^ links[2], off ^ links[3]
     H, W1 = dst.shape
     tag = TAG_SWEEP | color
     if accept_bits(rng_mode):
@@ -255,7 +335,7 @@ def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step, *,
                              row0=row0, device=dst.device)
         if tvals10 is not None:
             flip = bitserial_field_flip(
-                planes, me, *_neighbor_adder(up, dn, s, off), tvals10,
+                planes, me, *_neighbor_adder(up, dn, same, off), tvals10,
                 always10)
             return _s(me ^ flip)
         p4, p8, p0 = bitserial_lt_planes(planes, t4k, t8k)
@@ -265,7 +345,7 @@ def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step, *,
         p4 = _accept_plane(draws, thr[8])
         p8 = _accept_plane(draws, thr[9])
         p0 = _accept_plane(draws, thr[7]) if greedy else None
-    ge3, ge4, eq2 = _neighbor_class_masks(me, up, dn, s, off)
+    ge3, ge4, eq2 = _neighbor_class_masks(me, up, dn, same, off)
     if greedy:
         flip = ((~ge3 & ~eq2) | (eq2 & p0) | (ge3 & ~ge4 & p4)
                 | (ge4 & p8))
@@ -299,9 +379,33 @@ _FAMILY_CODE = {"philox": 0, "threefry": 1, "chacha": 2}
 ACCEPT_METROPOLIS, ACCEPT_GREEDY, ACCEPT_FIELD = 0, 1, 2
 
 
-def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
-               seed: int, rng_mode: str, greedy: bool, t4k: int = 0,
-               t8k: int = 0, tvals10=None, always10: int = 0):
+LINKS_NONE, LINKS_JPLANES, LINKS_SPLIT = 0, 1, 2
+
+
+def _check_geometry(H: int, W1: int, jplanes, split_links, csl, ysl):
+    if jplanes is not None and len(jplanes) != 4:
+        raise ValueError(f"bit1_sweep: jplanes must be 4 word planes, got "
+                         f"{len(jplanes)}")
+    if split_links and jplanes is None:
+        raise ValueError("bit1_sweep: split_links needs the link store as "
+                         "jplanes")
+    if split_links and (csl is not None or ysl is not None):
+        raise ValueError("bit1_sweep: split links are the periodic "
+                         "single-lattice path; replicas take per-color "
+                         "J planes")
+    if csl is not None and not (isinstance(csl, int) and 0 < csl
+                                and W1 % csl == 0):
+        raise ValueError(f"bit1_sweep: csl ({csl!r}) must divide W1 ({W1})")
+    if ysl is not None and not (isinstance(ysl, int) and 0 < ysl
+                                and H % ysl == 0):
+        raise ValueError(f"bit1_sweep: ysl ({ysl!r}) must divide H ({H})")
+
+
+def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, jplanes=None, *,
+               color: int, seed: int, rng_mode: str, greedy: bool,
+               t4k: int = 0, t8k: int = 0, tvals10=None, always10: int = 0,
+               split_links: bool = False, csl: int | None = None,
+               ysl: int | None = None):
     """One color half-sweep of dst, in place; returns dst.
 
     On CUDA tensors this launches a kernel of csrc/ (one thread per word):
@@ -316,6 +420,9 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
     _check_words("src", src, (H, W1), device)
     _check_words("src_up", src_up, (1, W1), device)
     _check_words("src_dn", src_dn, (1, W1), device)
+    _check_geometry(H, W1, jplanes, split_links, csl, ysl)
+    for z, p in enumerate(jplanes or ()):
+        _check_words(f"jplanes[{z}]", p, (H, W1), device)
     if color not in (BLACK, WHITE):
         raise ValueError(f"bit1_sweep: color must be 0 or 1, got {color!r}")
     kbits = accept_bits(rng_mode)
@@ -324,15 +431,16 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
                          f"bit-plane rng mode or hw, not {rng_mode!r}")
     if device.type == "cpu":
         dst.copy_(bit1_sweep_reference(
-            dst, src, src_up, src_dn, thr, row0, step, color=color,
+            dst, src, src_up, src_dn, thr, row0, step, jplanes, color=color,
             seed=seed, rng_mode=rng_mode, greedy=greedy, t4k=t4k, t8k=t8k,
-            tvals10=tvals10, always10=always10))
+            tvals10=tvals10, always10=always10, split_links=split_links,
+            csl=csl, ysl=ysl))
         return dst
     if device.type != "cuda":
         raise ValueError(f"bit1_sweep runs on cuda or cpu, not {device}")
-    if any(_overlaps(dst, t) for t in (src, src_up, src_dn)):
+    if any(_overlaps(dst, t) for t in (src, src_up, src_dn, *(jplanes or ()))):
         raise ValueError("bit1_sweep updates dst in place: dst must not "
-                         "overlap src, src_up or src_dn")
+                         "overlap src, src_up, src_dn or a J plane")
     family, rounds = parse_rng_mode(rng_mode)
     tag = TAG_SWEEP | color
     if family == "hw":
@@ -344,6 +452,10 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
     ptrs = (dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
             src_dn.data_ptr(), H, W1, int(row0) & MASK, int(step) & MASK,
             tag, color)
+    links = tuple(p.data_ptr() for p in jplanes) if jplanes else (0,) * 4
+    mode = (LINKS_NONE if jplanes is None
+            else LINKS_SPLIT if split_links else LINKS_JPLANES)
+    geometry = (*links, mode, csl or 0, ysl or 0)
     lib, _ = kernel_lib.load()
     if kbits:
         if tvals10 is not None:
@@ -352,13 +464,13 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, *, color: int,
             accept = ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS
         code = lib.bit1_planes_launch(
             *ptrs, k0, k1, _FAMILY_CODE[family], rounds, kbits, accept,
-            accept_table(kbits, t4k, t8k, tvals10, always10),
+            accept_table(kbits, t4k, t8k, tvals10, always10), *geometry,
             _cuda_stream(device))
         kernel_lib.check(lib, code, "bit1_planes launch")
     else:
         code = lib.bit1_sweep_launch(
             *ptrs, int(thr[7]), int(thr[8]), int(thr[9]), k0, k1,
-            _FAMILY_CODE[family], rounds, int(bool(greedy)),
+            _FAMILY_CODE[family], rounds, int(bool(greedy)), *geometry,
             _cuda_stream(device))
         kernel_lib.check(lib, code, "bit1_sweep launch")
     bit1_sweep.launches += 1
@@ -375,7 +487,30 @@ class Bit1Backend:
     bytes_per_spin = 0.125
 
     def __init__(self, cfg):
+        self.csl = self.ysl = None
+        if cfg.xsl is not None:
+            # The JAX backend's replica fences (pallas_bit1.py:584-601):
+            # csl = xsl/2 must divide W1 = ncols/64, so the wrap never
+            # crosses a bit group. (Its ysl % 8 keeps a TPU block height;
+            # the port keeps it so that both packages take the same runs.)
+            csl = cfg.xsl // 2
+            W1 = cfg.ncols // (2 * SPW)
+            if W1 % csl:
+                raise ValueError(
+                    f"bit1 replica mode needs xsl/2 ({csl}) to divide "
+                    f"ncols/64 ({W1}); use xsl <= ncols/32 or the packed "
+                    "backend (which admits xsl up to ncols/8)")
+            if cfg.ysl % 8:
+                raise ValueError("bit1 replica mode needs ysl % 8 == 0")
+            self.csl, self.ysl = csl, cfg.ysl
         self.cfg = cfg
+        # One device without replicas: the kernel projects each color's
+        # flags from the parity-split link store itself (2 bits per site
+        # resident instead of 4 + 2). The driver turns split_links on when
+        # it passes that store as jplanes (build_disorder).
+        self.split_links_capable = (cfg.ndev == 1 and cfg.xsl is None
+                                    and cfg.ncols % 64 == 0)
+        self.split_links = False
         # The JAX backend's interface (pallas_bit1.py:608-625): the mode's
         # plane count, the bit-serial accept's k (HW_KBITS unless a "...b"
         # mode fixes it; unused in the u32 modes), and whether the accept
@@ -397,8 +532,10 @@ class Bit1Backend:
     def encode(self, black_bits, white_bits):
         return pack_bits1(black_bits), pack_bits1(white_bits)
 
-    def decode(self, black_store, white_store):
-        return unpack_bits1(black_store), unpack_bits1(white_store)
+    def decode(self, black_store, white_store, chunk: int = 8192):
+        """uint8 bit planes, unpacked in row chunks (pallas_bit1.py:648)."""
+        return (unpack_rows(black_store, chunk),
+                unpack_rows(white_store, chunk))
 
     def row_up_counts(self, black_store, white_store):
         """Per-row up-spin counts by popcount on the words."""
@@ -410,11 +547,22 @@ class Bit1Backend:
         from ..observables import bit1_energy_row_sums
         return bit1_energy_row_sums(black_store, white_store)
 
+    def energy_rows_disordered(self, black_store, white_store, links_words):
+        """Disordered bond sums on the words: links_words is the driver's
+        parity-split (vE, vO, hE, hO) link store."""
+        from ..observables import bit1_energy_row_sums
+        return bit1_energy_row_sums(black_store, white_store,
+                                    links_words=links_words)
+
+    def encode_jplanes(self, planes):
+        """(j_up, j_dn, j_same, j_off) uint8 planes -> bit1 word planes."""
+        return tuple(pack_bits1(p) for p in planes)
+
     def update_color(self, dst, src, *, color, thr10, step, row0=0,
                      src_up=None, src_dn=None, jplanes=None):
-        if jplanes is not None:
-            raise not_ported("quenched disorder on bit1", 4)
         return bit1_sweep(dst, src, src_up, src_dn, thr10, row0, step,
-                          color=color, seed=self.cfg.seed,
+                          jplanes, color=color, seed=self.cfg.seed,
                           rng_mode=self.cfg.rng, greedy=self.greedy,
-                          **self.accept)
+                          split_links=self.split_links
+                          and jplanes is not None,
+                          csl=self.csl, ysl=self.ysl, **self.accept)

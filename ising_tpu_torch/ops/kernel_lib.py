@@ -32,6 +32,8 @@ _c = ctypes
 # t4k, t8k, the draw-class bits, 10 always-words, 10 x TABLE_KBITS bit-words
 TABLE_KBITS = 24
 TABLE_WORDS = 3 + 10 + 10 * TABLE_KBITS
+# Geometry (bit1_common.cuh): the four link planes, link mode, csl, ysl.
+GEOMETRY = [_c.c_void_p] * 4 + [_c.c_int] * 3
 # Argument types of the C entry points (pointers and the stream as
 # c_void_p, so that ctypes does not cut them to 32 bits).
 SIGNATURES = {
@@ -42,6 +44,7 @@ SIGNATURES = {
          _c.c_uint32, _c.c_uint32, _c.c_uint32,               # thr7 thr8 thr9
          _c.c_uint32, _c.c_uint32,                            # k0 k1
          _c.c_int, _c.c_int, _c.c_int,                        # family rounds greedy
+         *GEOMETRY,
          _c.c_void_p],                                        # stream
         _c.c_int),
     "bit1_planes_launch": (
@@ -51,6 +54,7 @@ SIGNATURES = {
          _c.c_uint32, _c.c_uint32,                            # k0 k1
          _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # family rounds kbits accept
          _c.POINTER(_c.c_uint32),                             # table
+         *GEOMETRY,
          _c.c_void_p],                                        # stream
         _c.c_int),
     "ising_cuda_error_string": ([_c.c_int], _c.c_char_p),

@@ -13,21 +13,24 @@ from ..constants import BLACK, WHITE
 from ..rng import MASK
 
 
-def make_stepper(cfg, backend):
+def make_stepper(cfg, backend, jplanes=None):
     """step_n(black, white, thr10, step0, n) -> (black, white) after n
-    steps; the planes are updated in place."""
+    steps; the planes are updated in place. jplanes: the disorder of
+    driver.build_disorder as (black's, white's) J planes; in split-link
+    mode both are the one link store."""
     if cfg.ndev != 1:
         raise not_ported("more than one device", 7)
+    jb, jw = (None, None) if jplanes is None else jplanes
 
     def step_n(b, w, thr10, step0, n):
         for i in range(n):
             step = (int(step0) + i) & MASK
             b = backend.update_color(b, w, color=BLACK, thr10=thr10,
                                      step=step, row0=0, src_up=w[-1:],
-                                     src_dn=w[:1])
+                                     src_dn=w[:1], jplanes=jb)
             w = backend.update_color(w, b, color=WHITE, thr10=thr10,
                                      step=step, row0=0, src_up=b[-1:],
-                                     src_dn=b[:1])
+                                     src_dn=b[:1], jplanes=jw)
         return b, w
 
     return step_n

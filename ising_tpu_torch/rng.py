@@ -42,6 +42,7 @@ THREEFRY_ROUNDS = 20
 # Stream tags (counter word 3). Bit 0 is the checkerboard color.
 TAG_SWEEP = 0x000
 TAG_INIT = 0x100
+TAG_HAMILT = 0x200  # quenched disorder links (models/ising.py)
 
 # rng-mode string -> (family, rounds, plane_bits), the JAX package's table.
 RNG_MODES = {

@@ -130,10 +130,28 @@ def test_cli_prints_jax_magnetization_lines(rng, capsys):
     ["--backend", "packed"],
 ])
 def test_cli_unported_flags_exit_1(extra, capsys):
+    """Flags of features still to port exit 1 naming their ROADMAP item.
+    -J and --xsl/--ysl (item 4) run now: -J takes effect, as the JAX
+    package's CLI shows with the same flags, and a replica geometry that
+    bit1's words cannot tile (xsl/2 = 16 against W1 = 1) exits 1 with the
+    JAX package's wording."""
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
-    assert cli.main(argv + extra) == 1
-    assert "not yet ported (ROADMAP item" in capsys.readouterr().err
+    code = cli.main(argv + extra)
+    out, err = capsys.readouterr()
+    if "-J" in extra:
+        assert code == 0
+        assert f"\tdisorder: P(antiferro link) = {extra[1]}" in out
+        assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
+        want = _mag_lines(capsys.readouterr().out)
+        assert cli.main(argv + extra + ["-p", "1"]) == 0
+        assert _mag_lines(capsys.readouterr().out) == want
+    elif "--xsl" in extra:
+        assert code == 1
+        assert "xsl/2 (16) to divide ncols/64 (1)" in err
+    else:
+        assert code == 1
+        assert "not yet ported (ROADMAP item" in err
 
 
 def test_cli_default_backend_is_not_ported(capsys):
@@ -155,10 +173,20 @@ def test_registry_and_config_fences():
         get_backend(SimConfig(backend="packed", ncols=64))
     assert isinstance(get_backend(SimConfig(backend="bit1", ncols=64)),
                       Bit1Backend)
-    for kw, item in ((dict(j_prob=0.1), 4), (dict(xsl=32, ysl=8), 4),
-                     (dict(ndev=2), 7), (dict(dump_lattice=True), 6),
+    for kw, item in ((dict(ndev=2), 7), (dict(dump_lattice=True), 6),
                      (dict(corr_out=True, rng="chacha6b"), 6)):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            SimConfig(backend="bit1", nrows=16, ncols=64, **kw)
+    # Item 4 is ported: disorder and replicas construct, and the JAX
+    # package's own checks of them still hold.
+    cfg = SimConfig(backend="bit1", nrows=16, ncols=64, j_prob=0.1,
+                    j_seed=3, xsl=2, ysl=8)
+    assert (cfg.j_prob, cfg.j_seed, cfg.xsl, cfg.ysl) == (0.1, 3, 2, 8)
+    for kw, msg in ((dict(j_prob=1.5), r"j_prob must be in \[0, 1\]"),
+                    (dict(xsl=32), "both xsl and ysl"),
+                    (dict(xsl=24, ysl=8), "xsl must be even and divide"),
+                    (dict(xsl=32, ysl=6), "ysl must be even and divide")):
+        with pytest.raises(ValueError, match=msg):
             SimConfig(backend="bit1", nrows=16, ncols=64, **kw)
     with pytest.raises(ValueError):
         SimConfig(backend="bit1", ncols=96)

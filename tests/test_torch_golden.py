@@ -40,18 +40,23 @@ def _words(bits):
     return (g * weights[None, :, None]).sum(axis=1).astype(np.uint32)
 
 
-def _jax_trajectory(rng, temp, field=0.0, backend=None):
+def _jax_trajectory(rng, temp, field=0.0, j_prob=None, xsl=None, ysl=None,
+                    backend=None):
     if backend is None:
         backend = "bit1" if rng == "hw" or plane_bits(rng) else "xla"
     sim = JaxSimulation(JaxConfig(nrows=golden.NROWS, ncols=golden.NCOLS,
                                   temp=temp, field=field, seed=golden.SEED,
-                                  backend=backend, rng=rng))
+                                  backend=backend, rng=rng, j_prob=j_prob,
+                                  xsl=xsl, ysl=ysl))
     ups = [sim.measure()["up"]]
     for _ in range(golden.NSTEPS):
         sim.advance(1)
         ups.append(sim.measure()["up"])
     b, w = (_words(np.asarray(x)) for x in sim.bits())
-    return {"up": tuple(ups), "crc32": golden.words_crc32(b, w)}
+    out = {"up": tuple(ups), "crc32": golden.words_crc32(b, w)}
+    if j_prob is not None:
+        out["energy_total"] = sim.energy_total()
+    return out
 
 
 @pytest.mark.parametrize("case", list(golden.GOLDEN))
@@ -85,3 +90,23 @@ def test_golden_cases_cover_both_families_and_accepts():
     assert [c for c in golden.GOLDEN if len(c) == 3] == [("chacha8b", 1.5,
                                                           0.1)]
     assert golden.NCOLS == 16384  # the full bench width
+
+
+def test_golden_cases_cover_disorder_and_replicas():
+    """The disorder and replica cases: split links on bit1 (-J alone) in
+    threefry13 and chacha6b at T = 1.5 and in philox at T = 0, replicas
+    whose csl = 64 divides W1 = 256, replicas with J planes, and a
+    bit-plane mode with a field and J; each disordered case records its
+    energy."""
+    extra = {c: v for c, v in golden.GOLDEN.items() if len(c) == 6}
+    assert set(extra) == {
+        ("threefry13", 1.5, 0.0, 0.1, None, None),
+        ("chacha6b", 1.5, 0.0, 0.1, None, None),
+        ("philox", 0.0, 0.0, 0.5, None, None),
+        ("chacha6b", 1.5, 0.0, None, 128, 8),
+        ("threefry13", 1.5, 0.0, 0.1, 128, 16),
+        ("philox7b", 1.5, 0.1, 0.1, None, None)}
+    for case, want in extra.items():
+        assert ("energy_total" in want) == (case[3] is not None)
+        if case[4] is not None:
+            assert (golden.NCOLS // 64) % (case[4] // 2) == 0

@@ -207,7 +207,8 @@ def test_wrapper_launches_kernel_on_cuda_tensor(fake_card, mode, family,
     assert args[:4] == (dst.ptr, src.ptr, up.ptr, dn.ptr)
     assert args[4:10] == (8, 4, 6, 9, 1, 1)
     assert args[10:13] == tuple(int(t) for t in thr[7:10])
-    assert args[15:] == (family, rounds, 1, 1234)
+    assert args[15:18] == (family, rounds, 1)
+    assert args[18:] == (0, 0, 0, 0, bit1.LINKS_NONE, 0, 0, 1234)
 
 
 @pytest.mark.parametrize("mode,family,rounds,kbits,tag", [
@@ -255,7 +256,7 @@ def test_wrapper_launches_planes_kernel(fake_card, mode, family, rounds,
                            for z in range(kernel_lib.TABLE_KBITS)]
     else:
         assert table[:2] == [acc["t4k"], acc["t8k"]]
-    assert args[18] == 1234
+    assert args[18:] == (0, 0, 0, 0, bit1.LINKS_NONE, 0, 0, 1234)
 
 
 def test_wrapper_raises_on_failed_launch(fake_card):
@@ -359,3 +360,45 @@ def test_build_failure_raises(fake_nvcc):
     (fake_nvcc / "broken.cu").write_text("// broken\n")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         kernel_lib.build()
+
+
+def _fake_links(H=8, W1=4):
+    return [FakeCudaWords((H, W1), (4 + z) << 20) for z in range(4)]
+
+
+@pytest.mark.parametrize("kw,mode,csl,ysl", [
+    (dict(), bit1.LINKS_JPLANES, 0, 0),
+    (dict(split_links=True), bit1.LINKS_SPLIT, 0, 0),
+    (dict(csl=2, ysl=8), bit1.LINKS_JPLANES, 2, 8),
+])
+@pytest.mark.parametrize("rng_mode", ["threefry13", "chacha6b"])
+def test_wrapper_passes_geometry(fake_card, kw, mode, csl, ysl, rng_mode):
+    """The link planes, link mode, csl and ysl reach either launcher, just
+    before the stream."""
+    dst, src, up, dn = _fake_args()
+    links = _fake_links()
+    bit1.bit1_sweep(dst, src, up, dn, ising.threshold_table(1.5), 0, 1,
+                    links, color=0, seed=5, rng_mode=rng_mode, greedy=False,
+                    **bit1.plane_accept_args(rng_mode, 1.5), **kw)
+    (args,) = fake_card.calls
+    assert args[-8:] == (*(p.ptr for p in links), mode, csl, ysl, 1234)
+
+
+def test_wrapper_refuses_bad_geometry(fake_card):
+    dst, src, up, dn = _fake_args()
+    thr = ising.threshold_table(1.5)
+    kw = dict(color=0, seed=5, rng_mode="philox", greedy=False)
+    for extra, args, msg in (
+            (dict(csl=3), (), "csl"), (dict(ysl=3), (), "ysl"),
+            (dict(split_links=True), (), "link store"),
+            (dict(split_links=True, csl=2), (_fake_links(),), "replicas"),
+            (dict(), (_fake_links()[:3],), "4 word planes"),
+            (dict(), ([FakeCudaWords((4, 4), 9 << 20)] * 4,), "shape")):
+        with pytest.raises(ValueError, match=msg):
+            bit1.bit1_sweep(dst, src, up, dn, thr, 0, 1, *args, **kw, **extra)
+    # dst must not alias a J plane (the kernel updates dst in place)
+    links = _fake_links()
+    links[2] = FakeCudaWords((8, 4), dst.ptr + 4)
+    with pytest.raises(ValueError, match="J plane"):
+        bit1.bit1_sweep(dst, src, up, dn, thr, 0, 1, links, **kw)
+    assert fake_card.calls == []

@@ -5,9 +5,10 @@ There is no nvcc here, so csrc/*.cu are compiled with the host C++
 compiler over a small header that stands in for the CUDA runtime: one
 thread at a time runs the kernel body, in grid order. That checks the
 kernels' arithmetic (draw layouts of every rng mode, counters with carry,
-neighbours, the u32, bit-serial and 10-class field accepts) against their
-plain torch version before any card sees it. The card itself checks the
-compiled kernels in chip_smoke.py.
+neighbours, the u32, bit-serial and 10-class field accepts, the
+quenched-disorder links as J planes and as the split link store, the
+replica wraps) against their plain torch version before any card sees it.
+The card itself checks the compiled kernels in chip_smoke.py.
 """
 
 import ctypes
@@ -149,17 +150,76 @@ def test_kernel_source_matches_plain_version(shape, emulated_lib, monkeypatch):
                     f"row0={row0}")
 
 
+def _random(gen, shape):
+    return gen.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+# (path, (H, W1), csl, ysl): J planes, the split link store, and replicas
+# (csl == 1, csl == W1 and between; ysl == 8, ysl == H and ysl == 2), alone
+# and with J planes.
+GEOMETRIES = [
+    ("jplanes", (6, 3), None, None), ("jplanes", (8, 256), None, None),
+    ("split", (2, 1), None, None), ("split", (6, 3), None, None),
+    ("split", (16, 8), None, None),
+    ("replicas", (16, 4), 1, 8), ("replicas", (16, 4), 4, 16),
+    ("replicas", (8, 256), 64, 8), ("replicas", (4, 6), 3, 2),
+    ("replicas+J", (16, 4), 2, 16), ("replicas+J", (16, 4), 4, 8),
+    ("replicas+J", (8, 3), 1, 8),
+]
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES,
+                         ids=[f"{g[0]}-{g[1][0]}x{g[1][1]}-{g[2]}-{g[3]}"
+                              for g in GEOMETRIES])
+def test_kernel_source_matches_plain_version_geometry(geometry, emulated_lib,
+                                                      monkeypatch):
+    """Every mode, both colors and every accept (in turn) on the
+    disordered and replica paths of load_site."""
+    monkeypatch.setattr(kernel_lib, "load", lambda: (emulated_lib, None))
+    monkeypatch.setattr(bit1, "_cuda_stream", lambda device: None)
+    path, (H, W1), csl, ysl = geometry
+    gen = np.random.default_rng(GEOMETRIES.index(geometry))
+    for i, mode in enumerate(PORTED_MODES):
+        accepts = [a for a in ACCEPTS if not a[1] or bit1.accept_bits(mode)]
+        temp, field = accepts[i % len(accepts)]
+        color = i % 2
+        dst, src = _random(gen, (H, W1)), _random(gen, (H, W1))
+        up, dn = _random(gen, (1, W1)), _random(gen, (1, W1))
+        links = [_random(gen, (H, W1)) for _ in range(4)]
+        if path in ("jplanes", "split"):
+            csl = ysl = None
+        kw = dict(color=color, seed=int(gen.integers(0, 1 << 63)),
+                  rng_mode=mode, greedy=temp <= 0, csl=csl, ysl=ysl,
+                  split_links=path == "split",
+                  **bit1.plane_accept_args(mode, temp, field))
+        thr = ising.threshold_table(temp, field)
+        step, row0 = int(gen.integers(0, 1 << 32)), 2 * i
+        jt = None if path == "replicas" else [_torch(p) for p in links]
+        want = bit1.bit1_sweep_reference(_torch(dst), _torch(src), _torch(up),
+                                         _torch(dn), thr, row0, step, jt, **kw)
+        d = HostWords(dst)
+        jh = None if path == "replicas" else [HostWords(p) for p in links]
+        bit1.bit1_sweep(d, HostWords(src), HostWords(up), HostWords(dn), thr,
+                        row0, step, jh, **kw)
+        np.testing.assert_array_equal(
+            d.a, want.numpy().view(np.uint32),
+            err_msg=f"{geometry} {mode} T={temp} h={field} color={color}")
+
+
 def test_cases_cover_every_mode_and_accept():
     assert {c[1] for c in CASES} == set(PORTED_MODES)
     plane = {c[1] for c in CASES if c[2][1]}
     assert plane == {m for m in PORTED_MODES if plane_bits(m) or m == "hw"}
 
 
+NO_LINKS = (None, None, None, None, 0, 0, 0)
+
+
 def test_launcher_refuses_unknown_rounds(emulated_lib):
     buf = np.zeros((2, 1), np.uint32)
     p = buf.ctypes.data
     code = emulated_lib.bit1_sweep_launch(p, p, p, p, 2, 1, 0, 0, 0, 0, 0, 0,
-                                          0, 0, 0, 0, 9, 0, None)
+                                          0, 0, 0, 0, 9, 0, *NO_LINKS, None)
     assert code != 0
     assert Path(kernel_lib.CSRC_DIR / "bit1_sweep.cu").is_file()
     table = (ctypes.c_uint32 * kernel_lib.TABLE_WORDS)()
@@ -167,6 +227,31 @@ def test_launcher_refuses_unknown_rounds(emulated_lib):
                                           (1, 20, 16, 1), (2, 8, 16, 3)):
         assert emulated_lib.bit1_planes_launch(
             p, p, p, p, 2, 1, 0, 0, 0, 0, 0, 0, family, rounds, kbits,
-            accept, table, None) != 0
+            accept, table, *NO_LINKS, None) != 0
     assert emulated_lib.bit1_planes_launch(
-        p, p, p, p, 2, 1, 0, 0, 0, 0, 0, 0, 2, 8, 16, 0, table, None) == 0
+        p, p, p, p, 2, 1, 0, 0, 0, 0, 0, 0, 2, 8, 16, 0, table, *NO_LINKS,
+        None) == 0
+
+
+@pytest.mark.parametrize("geometry,ok", [
+    ((None,) * 4 + (0, 0, 0), True),
+    ((1,) * 4 + (1, 2, 4), True),        # J planes, csl | W1, ysl | H
+    ((1,) * 4 + (2, 0, 0), True),        # split links
+    ((1,) * 4 + (3, 0, 0), False),       # unknown link mode
+    ((1,) * 4 + (2, 2, 0), False),       # split links with replicas
+    ((1, 1, None, 1, 1, 0, 0), False),   # a missing J plane
+    ((None,) * 4 + (0, 3, 0), False),    # csl does not divide W1 = 4
+    ((None,) * 4 + (0, 0, 3), False),    # ysl does not divide H = 4
+    ((None,) * 4 + (0, -1, 0), False),
+])
+def test_launchers_check_geometry(emulated_lib, geometry, ok):
+    buf = np.zeros((4, 4), np.uint32)
+    p = buf.ctypes.data
+    links = [p if x == 1 else x for x in geometry[:4]]
+    g = (*links, *geometry[4:])
+    table = (ctypes.c_uint32 * kernel_lib.TABLE_WORDS)()
+    codes = (emulated_lib.bit1_sweep_launch(p, p, p, p, 4, 4, 0, 0, 0, 0, 0,
+                                            0, 0, 0, 0, 0, 10, 0, *g, None),
+             emulated_lib.bit1_planes_launch(p, p, p, p, 4, 4, 0, 0, 0, 0, 0,
+                                             0, 2, 8, 16, 0, table, *g, None))
+    assert codes == ((0, 0) if ok else (1, 1))
