@@ -14,10 +14,16 @@ Phases, each printed as it ends:
                external field; both colors, several steps; then on the
                disorder and replica paths (J planes, the split link store,
                replicas with csl == 1, csl == W1, ysl == 8 and ysl == H,
-               replicas with J planes), in every mode and accept;
+               replicas with J planes), in every mode and accept; then
+               packed_sweep the same way on random words (bit 31 set in
+               half of them), at the 16384 width and at 1056 (W = 66, not
+               a multiple of 32), in the u32 modes and hw, at T > 0, T = 0
+               and with the full field table (h = 0.3, not hw), on the
+               ordered, J-word, replica and replica + J paths;
   4. golden    the port's Simulation on the card reproduces the JAX
                package's trajectories recorded in ising_tpu_torch/golden.py,
-               the disordered ones with their energy;
+               the disordered ones with their energy, on every backend of
+               the port that runs each case (golden.backends);
   5. main path the CLI's Simulation at 16384^2 (bench.py's shape) in
                threefry13, philox and chacha6b, three runs each; with -J 0.1
                (the split link store) in threefry13 and chacha6b, three runs
@@ -27,14 +33,24 @@ Phases, each printed as it ends:
                before and after and checks E/N. Then the CLI's default
                backend, xla (plain torch), at its default 2048^2, also with
                -J 0.1 --xsl 64 --ysl 64, whose lattice and energy must equal
-               bit1's at the same flags;
+               bit1's at the same flags. Then the packed backend through
+               the same CLI at 16384^2: three runs each in threefry13,
+               philox, chacha8 and hw, with -J 0.1 and with --xsl 128
+               --ysl 128 in threefry13, one run with both, each reading
+               packed_sweep's launch count; and at 2048^2 packed's lattice
+               and energy against bit1's and xla's, in threefry13 and in
+               chacha8 with -J 0.1 --xsl 64 --ysl 64;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
-               threefry13, philox and chacha6b: the kernel against its plain
-               version once more, bit for bit, for both colors; then both
-               timed per color phase (CUDA events), beside the least time
-               the card could take and the compiled code's pipe mix.
+               threefry13, philox, chacha6b and chacha8: the kernel against
+               its plain version once more, bit for bit, for both colors;
+               then both timed per color phase (CUDA events), beside the
+               least time the card could take and the compiled code's pipe
+               mix; then packed_sweep in every u32 mode and hw, with the
+               field in philox, and on the J-word, replica and replica + J
+               paths in threefry13, philox and chacha8, beside bit1's time
+               in the same mode and path.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -62,8 +78,8 @@ import torch
 from ising_tpu_torch import cli, golden, observables
 from ising_tpu_torch.driver import Simulation
 from ising_tpu_torch.models import ising
-from ising_tpu_torch.ops import bit1, kernel_lib
-from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode
+from ising_tpu_torch.ops import bit1, kernel_lib, packed
+from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
 
 BUDGET_S = 600          # the whole script, build included
 MAIN_SHAPE = 16384      # bench.py's flagship lattice, 16384^2
@@ -93,7 +109,7 @@ TIMED_FIELD = 0.3
 # Disorder and replica paths: (path, (csl, ysl) or None for the shape's own
 # edge geometries); phase 3 runs each in every mode and accept.
 GEOMETRY_PATHS = ("jplanes", "split_links", "replicas", "replicas+jplanes")
-TIMED_PATH_MODES = ("threefry13", "philox", "chacha6b")
+TIMED_PATH_MODES = ("threefry13", "philox", "chacha6b", "chacha8")
 TIMED_CSL, TIMED_YSL = 64, 128    # --xsl 128 --ysl 128
 COMPARE_STEPS = 3
 TIMED_LAUNCHES = 100
@@ -106,6 +122,29 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 INT_OPS_PER_SM_CLOCK = 128
 PIPE_LANES_PER_SM = 64      # each of the ALU and FMA pipes
 H100_BOOST_MHZ = 1980.0     # data-sheet max SM clock, if nvidia-smi has none
+
+# The packed backend: its u32 modes (and hw), its main-path runs (the
+# README's `--backend packed --rng hw` at 16384^2, and its replica command
+# --xsl 128 --ysl 128, whose csl = 64 divides W = 1024), the shapes of its
+# kernel-vs-plain cases (W = 1024 and W = 66), its timed cases and the
+# 2048^2 runs whose lattices must equal bit1's and xla's.
+PACKED_MODES = tuple(m for m in PORTED_MODES if not plane_bits(m))
+PACKED_MAIN_MODES = ("threefry13", "philox", "chacha8", "hw")
+PACKED_MAIN_PATHS = (("jword", J_FLAGS, "threefry13", 3, -1.2),
+                     ("replicas", REPLICA_FLAGS, "threefry13", 3, -1.5),
+                     ("replicas+jword", REPLICA_FLAGS + J_FLAGS, "threefry13",
+                      1, -1.2))
+PACKED_COMPARE_SHAPES = ((512, 16384, 0), (64, 1056, (1 << 25) - 32),
+                         (64, 1056, (1 << 32) - 32))
+PACKED_PATHS = ("jword", "replicas", "replicas+jword")
+PACKED_TIMED_FIELD_MODES = ("philox",)
+PACKED_TIMED_PATH_MODES = ("threefry13", "philox", "chacha8")
+# the packed path's counterpart on bit1 (phase 6 times it there too)
+BIT1_PATH_OF = {None: None, "jword": "jplanes", "replicas": "replicas",
+                "replicas+jword": "replicas+jplanes"}
+EQUALITY_SHAPE, EQUALITY_ITERS = 2048, 8
+EQUALITY_RUNS = (("threefry13", []),
+                 ("chacha8", ["-J", "0.1", "--xsl", "64", "--ysl", "64"]))
 
 T_START = time.perf_counter()
 
@@ -247,6 +286,43 @@ def ops_per_word(mode: str, greedy: bool, field_table=None,
     return calls * per_call + accept + common + PATH_OPS[path]
 
 
+# The packed kernel's paths under ops_per_word's rule: the J word's four
+# flags, each shifted (but the first) and masked into its neighbour with one
+# three-input op (7); replicas as for bit1 (+2). Traffic per word: read dst
+# and src, write dst (3), and the J word (4).
+PACKED_PATH_OPS = {None: 0, "jword": 7, "replicas": 2, "replicas+jword": 9}
+PACKED_PATH_WORDS = {None: 3, "jword": 4, "replicas": 3, "replicas+jword": 4}
+
+
+def packed_ops_per_word(mode: str, accept: int, path: str | None = None):
+    """32-bit integer operations that one packed word's update (8 spins)
+    needs, under ops_per_word's rule. The generator: 8 draws per word (half
+    a ChaCha block). Per thread: index and (y, j) 4, and where the thread
+    makes more than one generator call the counter base 2 (a ChaCha thread
+    makes one call for its pair of words, whose counter call_ops charges).
+    Per word: the up / down edge selects, the two rotations and selects of
+    the row ends and the off-column choice 7; the xor into dst 1; the
+    whole-word sum of 4 neighbours 2; the mirrored count (own bits, their
+    0xF masks, 4 - n, the merge) 4; each class word ge_k an add and a mask
+    (2, for 2 / 3 / 4 classes). Per field: T > 0 two compares and their set
+    bits (4), greedy three (6), the full table the own and 4 class bit
+    tests, 9 selects, a compare and a set bit (16). The flip word: 4 (T > 0),
+    6 (greedy), none (full table)."""
+    family, rounds = parse_rng_mode(mode)
+    if family == "hw":   # salted Philox-10
+        family, rounds = "philox", 10
+    draws, per_call = call_ops(family, rounds)
+    nclass, per_field, flip = {packed.ACCEPT_METROPOLIS: (2, 4, 4),
+                               packed.ACCEPT_GREEDY: (3, 6, 6),
+                               packed.ACCEPT_FIELD: (4, 16, 0)}[accept]
+    # the ChaCha thread updates two words
+    per_thread = 4 if family == "chacha" else 4 + 2
+    words_per_thread = 2 if family == "chacha" else 1
+    return (packed.FIELDS / draws * per_call + per_thread / words_per_thread
+            + 7 + 1 + 2 + 4 + 2 * nclass + packed.FIELDS * per_field + flip
+            + PACKED_PATH_OPS[path])
+
+
 # SASS opcodes by the pipe that executes them (Volta to Hopper SMs).
 ALU_OPS = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "P2R",
            "R2P", "PLOP3", "IABS", "IMNMX", "FSEL", "FSETP", "MOV", "FLO",
@@ -269,11 +345,12 @@ def pipe_of(opcode: str) -> str:
 
 def sass_mix(lib_path: str):
     """{(kernel, template arguments): Counter(pipe -> SASS instructions)}
-    of each bit1 kernel instantiation, from cuobjdump: for bit1_sweep
-    (family, rounds, greedy), for bit1_planes (family, rounds, kbits,
-    accept). The kernels are fully unrolled and branch-free apart from
-    their edge selects, so this is close to the instructions one thread
-    (one word) issues. None without cuobjdump."""
+    of each kernel instantiation, from cuobjdump: for bit1_sweep (family,
+    rounds, greedy), for bit1_planes (family, rounds, kbits, accept), for
+    packed_sweep (family, rounds, accept). The kernels are fully unrolled
+    and branch-free apart from their edge and path selects, so this is
+    close to the instructions one thread (one word; a pair of words in the
+    packed ChaCha kernel) issues. None without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(kernel_lib.find_nvcc()).parent / "cuobjdump")
     try:
@@ -282,7 +359,8 @@ def sass_mix(lib_path: str):
         return None
     mix, key = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*(bit1_\w+?)_kernelI((?:L[ib]\d+E)+)", line)
+        m = re.search(r"Function : \S*(bit1_\w+?|packed_sweep)_kernelI"
+                      r"((?:L[ib]\d+E)+)", line)
         if m:
             key = (m[1], tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2])))
             mix[key] = collections.Counter()
@@ -409,13 +487,84 @@ def phase_compare_geometry(dev):
     return cases, max_err
 
 
+def packed_geometry_cases(H: int, W: int):
+    """(path, csl, ysl) of the packed kernel's cases at (H, W): ordered, the
+    J word, and the replica edges csl == 1, csl == W, ysl == 8, ysl == H,
+    alone and with the J word."""
+    return [(None, None, None), ("jword", None, None), ("replicas", 1, 8),
+            ("replicas", W, H), ("replicas+jword", W, 8),
+            ("replicas+jword", 1, H)]
+
+
+def packed_accepts(mode: str):
+    """(temperature, field) of the packed cases: T > 0, the greedy quench
+    and the full table (not in hw, whose field config refuses)."""
+    return [(t, h) for t, h in ACCEPTS if not h or mode != "hw"]
+
+
+def packed_kwargs(mode, temp, field, path, csl, ysl):
+    return dict(seed=golden.SEED, rng_mode=mode, greedy=temp <= 0,
+                full_table=field != 0,
+                csl=csl if path and "replicas" in path else None,
+                ysl=ysl if path and "replicas" in path else None)
+
+
+def phase_compare_packed(dev):
+    """packed_sweep against its plain version on the same CUDA tensors, at
+    every shape, mode and accept, both colors: the ordered path over
+    COMPARE_STEPS steps at every shape, the J-word and replica paths at the
+    first two. Random words: every bit, bit 31 included, so the 4-bit
+    rotation at the row's ends moves set bits. Returns (cases, max err)."""
+    gen = np.random.default_rng(2026)
+    cases, max_err = 0, 0
+    for si, (Y, X, row0) in enumerate(PACKED_COMPARE_SHAPES):
+        H, W = Y, X // 16
+        geos = packed_geometry_cases(H, W) if si < 2 else [(None,) * 3]
+        for path, csl, ysl in geos:
+            for mode in PACKED_MODES:
+                for temp, field in packed_accepts(mode):
+                    thr = ising.threshold_table(temp, field)
+                    b, w = (random_words(gen, (H, W), dev) for _ in range(2))
+                    jw = (random_words(gen, (H, W), dev)
+                          if path and "jword" in path else None)
+                    kw = packed_kwargs(mode, temp, field, path, csl, ysl)
+                    kw["seed"] = int(gen.integers(0, 1 << 62))
+                    for step in range(COMPARE_STEPS if path is None else 1):
+                        for color, (dst, src) in enumerate(((b, w), (w, b))):
+                            up, dn = src[-1:], src[:1]
+                            ref = packed.packed_sweep_reference(
+                                dst, src, up, dn, thr, row0, step, jw,
+                                color=color, **kw)
+                            packed.packed_sweep(dst, src, up, dn, thr, row0,
+                                                step, jw, color=color, **kw)
+                            torch.cuda.synchronize()
+                            err = int((dst.to(torch.int64)
+                                       - ref.to(torch.int64)).abs().max())
+                            max_err = max(max_err, err)
+                            cases += 1
+                            require(torch.equal(dst, ref),
+                                    f"packed kernel != plain: {Y}x{X} "
+                                    f"row0={row0} {path or 'ordered'} "
+                                    f"csl={csl} ysl={ysl} {mode} T={temp} "
+                                    f"h={field} step={step} color={color}")
+            say(f"[kernel] packed {Y}x{X} row0={row0} {path or 'ordered'} "
+                f"csl={csl} ysl={ysl}: the {len(PACKED_MODES)} u32 modes and "
+                "hw, T in (1.5, 0) and h = 0.3, both colors equal to the "
+                "plain version")
+    return cases, max_err
+
+
 def phase_golden():
+    """Every golden case on every backend of the port that runs it."""
     for case, want in golden.GOLDEN.items():
-        got = golden.port_trajectory(*case, device="cuda")
-        require(got == want, f"golden {case}: got {got}, want {want}")
-        say(f"[golden] {golden.NROWS}x{golden.NCOLS} (mode, T[, h]) = "
-            f"{case}: up counts {got['up']} and crc32 {got['crc32']:08X} "
-            "match the JAX package")
+        for backend in golden.backends(case):
+            got = golden.port_trajectory(*case[:6], device="cuda",
+                                         backend=backend)
+            require(got == want,
+                    f"golden {case} on {backend}: got {got}, want {want}")
+        say(f"[golden] {golden.NROWS}x{golden.NCOLS} {case} on "
+            f"{', '.join(golden.backends(case))}: up counts {got['up']} and "
+            f"crc32 {got['crc32']:08X} match the JAX package")
 
 
 def cli_simulation(argv):
@@ -425,30 +574,38 @@ def cli_simulation(argv):
     return Simulation(cli.config_from_args(args))
 
 
-def main_runs(card, mode, extra, runs, e_max, what):
-    """`runs` CLI runs at 16384^2 in `mode` with the flags `extra`, each
-    from a new Simulation whose set-up (disorder included) is timed and
-    whose peak device memory is read; the launch count is set to 0 just
-    before each run loop and read just after."""
+def main_runs(card, mode, extra, runs, e_max, what, backend="bit1"):
+    """`runs` CLI runs at 16384^2 in `mode` with the flags `extra` on
+    `backend` (bit1 or packed), each from a new Simulation whose set-up
+    (disorder included) is timed and whose peak device memory is read; the
+    launch counts of both kernels are set to 0 just before each run loop
+    and read just after: the backend's own must be 2 per step, the other
+    0."""
+    sweep, other = ((bit1.bit1_sweep, packed.packed_sweep)
+                    if backend == "bit1" else
+                    (packed.packed_sweep, bit1.bit1_sweep))
+    name = sweep.__name__
     launches, rates, setups, peaks = 0, [], [], []
     for _ in range(runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         sim = cli_simulation(
-            ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y",
+            ["--backend", backend, "-x", str(MAIN_SHAPE), "-y",
              str(MAIN_SHAPE), "-w", str(MAIN_WARMUP), "-n", str(MAIN_ITERS),
              "-p", "16", "-t", "1.5", "--rng", mode] + extra)
         torch.cuda.synchronize()
         setups.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
-        bit1.bit1_sweep.launches = 0
+        sweep.launches = other.launches = 0
         result = sim.run()
-        n = bit1.bit1_sweep.launches
+        n = sweep.launches
         want = 2 * (MAIN_WARMUP + MAIN_ITERS)
         require(result["steps"] == MAIN_ITERS,
                 f"ran {result['steps']} of {MAIN_ITERS} steps")
-        require(n == want, f"bit1_sweep launched {n} times, expected {want}")
+        require(n == want, f"{name} launched {n} times, expected {want}")
+        require(other.launches == 0,
+                f"{other.__name__} launched on the {backend} path")
         e_n = sim.energy()
         require(math.isfinite(e_n) and e_n < e_max,
                 f"E/N = {e_n} after the {what} run (expected < {e_max})")
@@ -463,7 +620,8 @@ def main_runs(card, mode, extra, runs, e_max, what):
                 f"range {m.min():.6f}-{m.max():.6f}")
         launches += n
         rates.append(result["flips_ns"])
-        say(f"[main] {MAIN_SHAPE}^2 {what} {mode}: bit1_sweep launches {n} "
+        say(f"[main] {MAIN_SHAPE}^2 {backend} {what} {mode}: {name} "
+            f"launches {n} "
             f"(= 2 x {MAIN_WARMUP + MAIN_ITERS} steps), E/N {e_n:.6f}, "
             f"{result['flips_ns']:.2f} flips/ns; set-up "
             f"{setups[-1]:.3f} s, peak device memory "
@@ -471,24 +629,27 @@ def main_runs(card, mode, extra, runs, e_max, what):
         del sim
         torch.cuda.empty_cache()
     median = sorted(rates)[len(rates) // 2]
-    say(f"[main] {MAIN_SHAPE}^2 {what} {mode}: {median:.2f} flips/ns median "
-        f"of {runs} runs (range {min(rates):.2f}-{max(rates):.2f})")
+    say(f"[main] {MAIN_SHAPE}^2 {backend} {what} {mode}: {median:.2f} "
+        f"flips/ns median of {runs} runs (range {min(rates):.2f}-"
+        f"{max(rates):.2f})")
     return {"launches": launches, "e_n": e_n, "flips_ns": median,
             "flips_ns_runs": rates, "setup_s": setups,
             "peak_bytes": max(peaks)}
 
 
-def phase_main_path(card):
+def phase_main_path(card, backend="bit1"):
     """The CLI's flags, parsed and turned into a Simulation as cli.main
     does, then its run loop, which prints the CLI's lines: MAIN_REPEATS
-    runs per mode, then the disorder and replica runs of MAIN_PATHS.
-    Returns ({mode: result}, {path: {mode: result}})."""
-    ordered = {mode: main_runs(card, mode, [], MAIN_REPEATS, -1.5, "ordered")
-               for mode in MAIN_MODES}
+    runs per mode, then the disorder and replica runs of the backend's
+    paths. Returns ({mode: result}, {path: {mode: result}})."""
+    modes, main_paths = ((MAIN_MODES, MAIN_PATHS) if backend == "bit1"
+                         else (PACKED_MAIN_MODES, PACKED_MAIN_PATHS))
+    ordered = {mode: main_runs(card, mode, [], MAIN_REPEATS, -1.5, "ordered",
+                               backend) for mode in modes}
     paths = collections.defaultdict(dict)
-    for path, extra, mode, runs, e_max in MAIN_PATHS:
+    for path, extra, mode, runs, e_max in main_paths:
         paths[path][mode] = main_runs(card, mode, extra, runs, e_max,
-                                      f"{path} ({' '.join(extra)})")
+                                      f"{path} ({' '.join(extra)})", backend)
     return ordered, dict(paths)
 
 
@@ -539,6 +700,35 @@ def phase_xla_path(card):
         f"{result['flips_ns']:.3f} flips/ns (plain torch) on {card['smi']}")
 
 
+def phase_packed_equality(card):
+    """packed's lattice after the CLI's flags at 2048^2 equals bit1's and
+    xla's, and its energy_total xla's: in threefry13, and in chacha8 with
+    -J 0.1 --xsl 64 --ysl 64 (csl = 32 divides W = 128)."""
+    for mode, extra in EQUALITY_RUNS:
+        flags = ["-x", str(EQUALITY_SHAPE), "-y", str(EQUALITY_SHAPE), "-n",
+                 str(EQUALITY_ITERS), "-p", "4", "-t", "1.5", "--rng",
+                 mode] + extra
+        sims = {be: cli_simulation(flags + ["--backend", be])
+                for be in ("packed", "bit1", "xla")}
+        packed.packed_sweep.launches = 0
+        result = sims["packed"].run()
+        n = packed.packed_sweep.launches
+        require(n == 2 * EQUALITY_ITERS,
+                f"packed_sweep launched {n} times at {EQUALITY_SHAPE}^2")
+        for be in ("bit1", "xla"):
+            sims[be].run()
+            for a, b in zip(sims["packed"].bits(), sims[be].bits()):
+                require(torch.equal(a, b),
+                        f"packed != {be} at {EQUALITY_SHAPE}^2 {mode} "
+                        f"{' '.join(extra)}")
+        e_p, e_x = (sims[be].energy_total() for be in ("packed", "xla"))
+        require(e_p == e_x, f"packed energy_total {e_p}, xla {e_x}")
+        say(f"[packed] {EQUALITY_SHAPE}^2 {mode} {' '.join(extra)}: lattice "
+            f"after {EQUALITY_ITERS} steps equal to bit1's and xla's, "
+            f"energy_total ({e_p}) equal to xla's, {n} launches, "
+            f"{result['flips_ns']:.2f} flips/ns on {card['smi']}")
+
+
 def time_launches(fn, n: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -548,6 +738,36 @@ def time_launches(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def compare_and_time(what: str, kernel, plain, args):
+    """`kernel` against its `plain` version for both colors (bit for bit),
+    then the kernel's time per launch (median of TIMED_REPEATS x
+    TIMED_LAUNCHES, with their range) and the plain version's. args(i) ->
+    (positional, keyword arguments) of launch i, whose dst is positional
+    argument 0. Returns (ms, sorted runs, plain ms, max abs err)."""
+    max_err = 0
+    for i in range(2):   # black then white, at the main path's shape
+        a, k = args(i)
+        ref = plain(*a, **k)
+        kernel(*a, **k)
+        torch.cuda.synchronize()
+        err = int((a[0].to(torch.int64) - ref.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        require(torch.equal(a[0], ref), f"kernel != plain at {what} color={i}")
+
+    def launch(fn):
+        def call(i):
+            a, k = args(i)
+            fn(*a, **k)
+        return call
+
+    time_launches(launch(kernel), 10)
+    runs = sorted(time_launches(launch(kernel), TIMED_LAUNCHES)
+                  for _ in range(TIMED_REPEATS))
+    launch(plain)(0)
+    return (runs[len(runs) // 2], runs,
+            time_launches(launch(plain), PLAIN_LAUNCHES), max_err)
 
 
 def timing_cases():
@@ -592,33 +812,12 @@ def phase_timing(card, mix):
             return (dst, src, src[-1:], src[:1], thr, 0, i, jplanes), dict(
                 color=i % 2, **kw)
 
-        def kernel(i):
-            a, k = args(i)
-            bit1.bit1_sweep(*a, **k)
-
-        def plain(i):
-            a, k = args(i)
-            bit1.bit1_sweep_reference(*a, **k)
-
-        for i in range(2):   # black then white, at the main path's shape
-            a, k = args(i)
-            ref = bit1.bit1_sweep_reference(*a, **k)
-            bit1.bit1_sweep(*a, **k)
-            torch.cuda.synchronize()
-            err = int((a[0].to(torch.int64) - ref.to(torch.int64)).abs().max())
-            max_err = max(max_err, err)
-            cases += 1
-            require(torch.equal(a[0], ref),
-                    f"kernel != plain at {H}x{MAIN_SHAPE} {what} color={i}")
+        ms, runs, plain_ms, err = compare_and_time(
+            f"{H}x{MAIN_SHAPE} {what}", bit1.bit1_sweep,
+            bit1.bit1_sweep_reference, args)
+        max_err, cases = max(max_err, err), cases + 2
         say(f"[timing] {MAIN_SHAPE}^2 {what}: kernel equal to the plain "
             "version for both colors")
-
-        time_launches(kernel, 10)
-        runs = sorted(time_launches(kernel, TIMED_LAUNCHES)
-                      for _ in range(TIMED_REPEATS))
-        ms = runs[len(runs) // 2]
-        plain(0)
-        plain_ms = time_launches(plain, PLAIN_LAUNCHES)
         nbytes = PATH_WORDS[path] * words * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops = ops_per_word(mode, greedy=False, field_table=(
@@ -659,17 +858,105 @@ def phase_timing(card, mix):
     return out, cases, max_err
 
 
-def kernel_entry(name, path, timing, launches, main_path, max_err, info):
+def packed_timing_cases():
+    """(mode, field, path) triples of the packed kernel that phase 6 times:
+    every u32 mode and hw ordered, the field in PACKED_TIMED_FIELD_MODES,
+    then each J-word and replica path in PACKED_TIMED_PATH_MODES."""
+    return ([(mode, 0.0, None) for mode in PACKED_MODES]
+            + [(mode, TIMED_FIELD, None) for mode in PACKED_TIMED_FIELD_MODES]
+            + [(mode, 0.0, path) for path in PACKED_PATHS
+               for mode in PACKED_TIMED_PATH_MODES])
+
+
+def phase_timing_packed(card, mix, bit1_timing):
+    """packed_sweep per color phase at 16384^2 (W = 1024), T = 1.5, on
+    random words: kernel against plain (bit for bit, both colors), then the
+    kernel's and the plain version's times, the bound, and bit1's time in
+    the same mode and path (bit1_timing; None where phase 6 did not time
+    it). Returns ({(mode, field, path): timing}, cases, max abs err)."""
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(8)
+    H, W = MAIN_SHAPE, MAIN_SHAPE // 16
+    planes = [random_words(gen, (H, W), dev) for _ in range(2)]
+    jword = random_words(gen, (H, W), dev)
+    words = H * W
+    spins = words * packed.FIELDS
+    rate = card["sms"] * INT_OPS_PER_SM_CLOCK * card["clock_hz"]
+    pipe_rate = card["sms"] * PIPE_LANES_PER_SM * card["clock_hz"]
+    out, cases, max_err = {}, 0, 0
+    for mode, field, path in packed_timing_cases():
+        thr = ising.threshold_table(1.5, field)
+        kw = packed_kwargs(mode, 1.5, field, path, TIMED_CSL, TIMED_YSL)
+        jw = jword if path and "jword" in path else None
+        what = (f"packed {mode}" + (f" h={field}" if field else "")
+                + (f" {path}" if path else ""))
+
+        def args(i):
+            dst, src = planes[i % 2], planes[1 - i % 2]
+            return (dst, src, src[-1:], src[:1], thr, 0, i, jw), dict(
+                color=i % 2, **kw)
+
+        ms, runs, plain_ms, err = compare_and_time(
+            f"{H}x{MAIN_SHAPE} {what}", packed.packed_sweep,
+            packed.packed_sweep_reference, args)
+        max_err, cases = max(max_err, err), cases + 2
+        bytes_ms = PACKED_PATH_WORDS[path] * words * 4 / HBM_BYTES_PER_S * 1e3
+        accept = (packed.ACCEPT_FIELD if field else packed.ACCEPT_METROPOLIS)
+        ops = packed_ops_per_word(mode, accept, path)
+        ops_ms = ops * words / rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+        family, rounds = parse_rng_mode(mode)
+        if family == "hw":
+            family, rounds = "philox", 10
+        pipes = dict((mix or {}).get(
+            ("packed_sweep", (bit1._FAMILY_CODE[family], rounds, accept)), {}))
+        # the ChaCha kernel's thread updates two words
+        per = 2 if family == "chacha" else 1
+        pipe_ms = {p: pipes[p] * words / per / pipe_rate * 1e3
+                   for p in ("alu", "fma") if p in pipes}
+        bit1_ms = None if field else bit1_timing.get(
+            (mode, 0.0, BIT1_PATH_OF[path]), {}).get("ms")
+        ordered = out.get((mode, 0.0, None), {}).get("ms")
+        out[(mode, field, path)] = {
+            "ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": bytes_ms,
+            "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_thread": pipes,
+            "pipe_ms": pipe_ms, "bit1_ms": bit1_ms}
+        say(f"[timing] {MAIN_SHAPE}^2 {what}, one color phase: kernel "
+            f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
+            f"launches (range {runs[0]:.4f}-{runs[-1]:.4f}; "
+            f"{spins / ms / 1e6:.1f} flips/ns"
+            + (f"; {ms / ordered:.3f}x the ordered {ordered:.4f} ms"
+               if path else "")
+            + f"), plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by "
+            f"{bound_by} (bytes {bytes_ms:.4f} ms; {ops:.1f} integer "
+            f"ops/word -> {ops_ms:.4f} ms), {bound_ms / ms:.1%} of bound; "
+            + (f"bit1 {bit1_ms:.4f} ms; " if bit1_ms else "")
+            + f"compiled code per thread {pipes}, "
+            + ", ".join(f"{p} {t:.4f} ms" for p, t in pipe_ms.items())
+            + f", on {card['smi']}")
+    return out, cases, max_err
+
+
+BIT1_KERNEL = {"source": "ising_tpu_torch/csrc/bit1_sweep.cu",
+               "replaces": "ising_tpu/ops/pallas_bit1.py:265"}
+PACKED_KERNEL = {"source": "ising_tpu_torch/csrc/packed_sweep.cu",
+                 "replaces": "ising_tpu/ops/pallas_packed.py:396"}
+
+
+def kernel_entry(name, path, timing, launches, main_path, max_err, info,
+                 kernel=BIT1_KERNEL):
     """One entry of the kernels line: the timing of `path` in the first
     mode its main-path runs used (threefry13 where it has none)."""
     t = timing[(next(iter(main_path), "threefry13"), 0.0, path)]
     return {
         "name": name,
         "route": "cuda",
-        "source": "ising_tpu_torch/csrc/bit1_sweep.cu",
+        "source": kernel["source"],
         "sources": [f"ising_tpu_torch/csrc/{p.name}" for p in
                     sorted(kernel_lib.CSRC_DIR.glob("*.cu*"))],
-        "replaces": "ising_tpu/ops/pallas_bit1.py:265",
+        "replaces": kernel["replaces"],
         "path": path or "ordered",
         "launches": launches,
         "main_path": main_path,
@@ -705,16 +992,24 @@ def main() -> int:
         cases, max_err = cases + geo_cases, max(max_err, geo_err)
         say(f"[kernel] {cases} kernel-vs-plain cases equal, max abs err "
             f"{max_err}  [time {elapsed():.1f} s]")
+        p_cases, p_err = phase_compare_packed(dev)
+        say(f"[kernel] {p_cases} packed kernel-vs-plain cases equal, max abs "
+            f"err {p_err}  [time {elapsed():.1f} s]")
         phase_golden()
         say(f"[time] {elapsed():.1f} s")
         ordered, paths = phase_main_path(card)
+        p_ordered, p_paths = phase_main_path(card, "packed")
         say(f"[time] {elapsed():.1f} s")
         phase_xla_path(card)
+        phase_packed_equality(card)
         say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, mix)
         cases, max_err = cases + full_cases, max(max_err, full_err)
-        say(f"[kernel] {cases} kernel-vs-plain cases equal in all, max abs "
-            f"err {max_err}  [time {elapsed():.1f} s]")
+        p_timing, full_cases, full_err = phase_timing_packed(card, mix, timing)
+        p_cases, p_err = p_cases + full_cases, max(p_err, full_err)
+        say(f"[kernel] {cases} bit1 and {p_cases} packed kernel-vs-plain "
+            f"cases equal in all, max abs err {max(max_err, p_err)}  "
+            f"[time {elapsed():.1f} s]")
     except Failed as e:
         say(f"FAILED: {e}")
         return 1
@@ -734,6 +1029,15 @@ def main() -> int:
             sum(r["launches"] for r in runs.values()), runs, max_err, info))
     entries[0]["J planes"] = kernel_entry(
         "bit1_sweep[jplanes]", "jplanes", timing, 0, {}, max_err, info)
+    # packed_sweep and its J-word and replica paths, likewise
+    entries.append(kernel_entry("packed_sweep", None, p_timing,
+                                sum(r["launches"] for r in p_ordered.values()),
+                                p_ordered, p_err, info, PACKED_KERNEL))
+    for path, runs in p_paths.items():
+        entries.append(kernel_entry(
+            f"packed_sweep[{path}]", path, p_timing,
+            sum(r["launches"] for r in runs.values()), runs, p_err, info,
+            PACKED_KERNEL))
     kernels = {"kernels": entries}
     say(card["smi"])
     say(json.dumps(kernels))

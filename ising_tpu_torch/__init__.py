@@ -3,8 +3,10 @@
 A package beside the JAX package ``ising_tpu``, which stays the reference.
 It runs checkerboard Metropolis on one device with the bit1 backend (the
 half-sweep as hand-written CUDA kernels, csrc/) and the xla backend
-(plain torch), in every rng mode, at T > 0 and in the greedy quench, with
-the external field, quenched +-J disorder and sub-lattice replicas. It
+(plain torch), in every rng mode, and with the packed backend (4 bits per
+spin, its own CUDA kernel) in the u32 modes and hw, at T > 0 and in the
+greedy quench, with the external field, quenched +-J disorder and
+sub-lattice replicas. It
 imports torch and never jax or ising_tpu. Entry points run on CUDA unless
 the caller passes device="cpu".
 """

@@ -47,7 +47,8 @@ class SimConfig:
 
     seed: int = SEED_DEF
 
-    # Update backend; the port runs "xla" and "bit1" (ops/registry.py).
+    # Update backend; the port runs "xla", "bit1" and "packed"
+    # (ops/registry.py).
     backend: str = "xla"
 
     # RNG mode, any of rng.RNG_MODES.

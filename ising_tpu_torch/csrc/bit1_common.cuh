@@ -1,112 +1,17 @@
 // Device code shared by the bit1 sweep kernels (bit1_sweep.cu, bit1_planes.cu):
-// the counter generators of ising_tpu/rng.py and ising_tpu/ops/pallas_packed.py
-// (_draw_counters, _philox_draw_block, _threefry_draw_block,
-// _chacha_draw_block) and the neighbour words (with the replica wraps and the
-// quenched-disorder links), bit-sliced adder and class masks of
-// ising_tpu/ops/pallas_bit1.py (_bit1_kernel :279-363, :511-517,
-// _neighbor_adder, _neighbor_class_masks).
+// the neighbour words (with the replica wraps and the quenched-disorder
+// links), bit-sliced adder and class masks of ising_tpu/ops/pallas_bit1.py
+// (_bit1_kernel :279-363, :511-517, _neighbor_adder, _neighbor_class_masks).
+// The generators are in counter_rng.cuh.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_rng.cuh"
+
 namespace ising {
-
-constexpr uint32_t PHILOX_M0 = 0xD2511F53u;
-constexpr uint32_t PHILOX_M1 = 0xCD9E8D57u;
-constexpr uint32_t PHILOX_W0 = 0x9E3779B9u;
-constexpr uint32_t PHILOX_W1 = 0xBB67AE85u;
-
-constexpr int FAMILY_PHILOX = 0;
-constexpr int FAMILY_THREEFRY = 1;
-constexpr int FAMILY_CHACHA = 2;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// Philox4x32-R (ising_tpu/rng.py:philox4x32): four draws per counter.
-template <int R>
-__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
-                                        uint32_t c3, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const uint32_t hi0 = __umulhi(PHILOX_M0, c0), lo0 = PHILOX_M0 * c0;
-    const uint32_t hi1 = __umulhi(PHILOX_M1, c2), lo1 = PHILOX_M1 * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += PHILOX_W0;
-    k1 += PHILOX_W1;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-// Threefry2x32-R with Random123's round structure
-// (ising_tpu/rng.py:threefry2x32): two draws per counter.
-__host__ __device__ constexpr int threefry_rot(int r) {
-  return r == 0 ? 13 : r == 1 ? 15 : r == 2 ? 26 : r == 3 ? 6
-       : r == 4 ? 17 : r == 5 ? 29 : r == 6 ? 16 : 24;
-}
-
-template <int R>
-__device__ __forceinline__ uint2 threefry(uint32_t c0, uint32_t c1,
-                                          uint32_t k0, uint32_t k1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    x0 += x1;
-    x1 = rotl(x1, threefry_rot(r % 8)) ^ x0;
-    if ((r + 1) % 4 == 0) {
-      const int j = (r + 1) / 4;
-      x0 += ks[j % 3];
-      x1 += ks[(j + 1) % 3] + static_cast<uint32_t>(j);
-    }
-  }
-  return make_uint2(x0, x1);
-}
-
-// ChaCha-R (ising_tpu/rng.py:chacha_block): 16 draws per counter. R counts
-// single rounds, applied as column/diagonal pairs (R even). State:
-//   [ C0 C1 C2 C3 | k0 k1 P0 P1 | P2 P3 P4 P5 | c0 c1 step tag ]
-__device__ __forceinline__ void chacha_qr(uint32_t& a, uint32_t& b, uint32_t& c,
-                                          uint32_t& d) {
-  a += b; d = rotl(d ^ a, 16);
-  c += d; b = rotl(b ^ c, 12);
-  a += b; d = rotl(d ^ a, 8);
-  c += d; b = rotl(b ^ c, 7);
-}
-
-template <int R>
-__device__ __forceinline__ void chacha(uint32_t c0, uint32_t c1, uint32_t step,
-                                       uint32_t tag, uint32_t k0, uint32_t k1,
-                                       uint32_t (&out)[16]) {
-  static_assert(R % 2 == 0, "chacha rounds must be even");
-  const uint32_t init[16] = {
-      0x61707865u, 0x3320646Eu, 0x79622D32u, 0x6B206574u, k0, k1,
-      0x243F6A88u, 0x85A308D3u, 0x13198A2Eu, 0x03707344u, 0xA4093822u,
-      0x299F31D0u, c0, c1, step, tag};
-  uint32_t x[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = init[i];
-#pragma unroll
-  for (int r = 0; r < R / 2; ++r) {
-    chacha_qr(x[0], x[4], x[8], x[12]);
-    chacha_qr(x[1], x[5], x[9], x[13]);
-    chacha_qr(x[2], x[6], x[10], x[14]);
-    chacha_qr(x[3], x[7], x[11], x[15]);
-    chacha_qr(x[0], x[5], x[10], x[15]);
-    chacha_qr(x[1], x[6], x[11], x[12]);
-    chacha_qr(x[2], x[7], x[8], x[13]);
-    chacha_qr(x[3], x[4], x[9], x[14]);
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = x[i] + init[i];
-}
 
 // Where a site's neighbours come from: the same for every thread of a launch,
 // so each branch on it is uniform. link_mode says how quenched +-J disorder
@@ -275,18 +180,9 @@ __device__ __forceinline__ uint32_t flip_mask(const Classes& c, uint32_t p0,
   }
 }
 
-// 64-bit spatial counter q = gy * nq + k as (lo, hi): the global row gy wraps
-// mod 2^32 like the JAX package's uint32 row index, and the product keeps its
-// carry into the high word.
-__device__ __forceinline__ uint64_t counter(uint32_t gy, uint32_t nq, uint32_t k) {
-  return static_cast<uint64_t>(gy) * nq + k;
-}
-
+// One thread per word of an (H, W1) plane.
 inline bool grid_for(int H, int W1, dim3& grid) {
-  const int64_t words = static_cast<int64_t>(H) * W1;
-  if (H <= 0 || W1 <= 0 || (words + 255) / 256 > 0x7FFFFFFF) return false;
-  grid = dim3(static_cast<unsigned>((words + 255) / 256));
-  return true;
+  return H > 0 && W1 > 0 && grid_for_threads(static_cast<int64_t>(H) * W1, grid);
 }
 
 }  // namespace ising

@@ -1,19 +1,20 @@
 """Where the main path's time goes on the card, from a torch.profiler trace.
 
     python3 -m ising_tpu_torch.device_trace [--size 16384] [--rng threefry13]
+        [--backend bit1|packed]
 
-Runs the run loop the CLI runs (bit1, T = 1.5, -w 8 -n 64 -p 16 by
-default) with the profiler recording CPU and CUDA activity, and prints,
-for the span of the run loop that its flips/ns times (after the warm-up
-and the first measurement, which `driver.run_loop` marks as
-TIMED_WINDOW):
+Runs the run loop the CLI runs (bit1 unless --backend packed, T = 1.5,
+-w 8 -n 64 -p 16 by default) with the profiler recording CPU and CUDA
+activity, and prints, for the span of the run loop that its flips/ns
+times (after the warm-up and the first measurement, which
+`driver.run_loop` marks as TIMED_WINDOW):
 
 - the span's wall time and the device's busy time inside it (the union
   of kernel, copy and set intervals), hence the device's idle share;
 - device time by kernel name;
-- the gaps between one bit1 kernel (either of the two behind bit1_sweep)
-  and the next kernel: a gap near zero means the host enqueues launches
-  faster than the card runs them.
+- the gaps between one sweep kernel (either of the two behind
+  bit1_sweep, or packed_sweep's) and the next kernel: a gap near zero
+  means the host enqueues launches faster than the card runs them.
 
 The last line is one JSON object with those numbers. With --device cpu it
 records CPU activity only, and the device numbers are zero.
@@ -34,7 +35,7 @@ from .config import SimConfig
 from .driver import TIMED_WINDOW as WINDOW
 from .driver import Simulation
 
-KERNELS = ("bit1_sweep_kernel", "bit1_planes_kernel")
+KERNELS = ("bit1_sweep_kernel", "bit1_planes_kernel", "packed_sweep_kernel")
 
 
 def is_kernel(name: str) -> bool:
@@ -126,12 +127,13 @@ def main(argv=None) -> int:
     p.add_argument("-w", "--nwarmup", type=int, default=8)
     p.add_argument("-n", "--nit", type=int, default=64)
     p.add_argument("-p", "--print", dest="print_freq", type=int, default=16)
+    p.add_argument("--backend", default="bit1", choices=("bit1", "packed"))
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     results = {}
     for mode in args.rng or ["threefry13", "philox"]:
         cfg = SimConfig(nrows=args.size, ncols=args.size, temp=1.5,
-                        backend="bit1", rng=mode, nwarmup=args.nwarmup,
+                        backend=args.backend, rng=mode, nwarmup=args.nwarmup,
                         niters=args.nit, print_freq=args.print_freq,
                         device=args.device)
         t0 = time.perf_counter()
@@ -139,8 +141,9 @@ def main(argv=None) -> int:
         for line in lines:
             print(line)
         gaps = out["gap_after_kernel_us"]
-        print(f"[trace] {args.size}^2 {mode}: timed span {out['wall_us']:.1f} "
-              f"us, device busy {out['device_busy_us']:.1f} us, idle share "
+        print(f"[trace] {args.size}^2 {mode} on {args.backend}: timed span "
+              f"{out['wall_us']:.1f} us, device busy "
+              f"{out['device_busy_us']:.1f} us, idle share "
               f"{out['idle_share']:.4f}; {out['kernel_launches']} kernel "
               f"launches (of {2 * cfg.niters}), gap after each: median "
               f"{gaps['median']} us, p90 "

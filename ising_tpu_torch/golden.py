@@ -3,16 +3,20 @@
 Each case, keyed (rng mode, temperature), (rng mode, temperature, field)
 or, with quenched disorder or replicas, (rng mode, temperature, field,
 j_prob, xsl, ysl), runs a 64 x 16384 lattice (the full bench width, 32
-rows of words per color) from seed SEED_DEF for NSTEPS steps. ``up``
+rows of words per color) from seed SEED_DEF for NSTEPS steps. A seventh
+entry names the one backend whose trajectory it is: hw draws differ by
+backend (bit1 takes 24 bit planes per word, packed one u32 per spin), and
+the counter modes do not, so ``backends(case)`` lists every backend of the
+port that runs a case. ``up``
 holds the up-spin count before the first step and after each step;
 ``crc32`` is zlib.crc32 of the final black then white bit1 words (uint32,
 little-endian); a disordered case also holds the final ``energy_total``.
 
 The counter-mode values come from the JAX package's xla backend. The hw
-values come from its bit1 backend with the Pallas kernel in interpret
-mode, where the kernel draws hw as salted Philox-10, the stream the
-port's hw is; on a TPU the hardware generator gives other values, which
-nothing here records. tests/test_torch_golden.py derives every case again
+values come from its bit1 and packed backends with the Pallas kernels in
+interpret mode, where the kernels draw hw as salted Philox-10, the stream
+the port's hw is; on a TPU the hardware generator gives other values,
+which nothing here records. tests/test_torch_golden.py derives every case again
 and checks it is equal, and chip_smoke.py checks the port's CUDA kernels
 reproduce them on the card.
 """
@@ -24,6 +28,7 @@ import zlib
 import numpy as np
 
 from .constants import SEED_DEF
+from .rng import plane_bits
 
 NROWS, NCOLS, NSTEPS = 64, 16384, 4
 SEED = SEED_DEF
@@ -75,7 +80,37 @@ GOLDEN = {
     ("philox7b", 1.5, 0.1, 0.1, None, None): {
         "up": (524222, 565253, 619138, 660247, 693394), "crc32": 0x55E4C9CE,
         "energy_total": 1351636},
+    # hw on packed: one salted Philox-10 u32 per spin
+    ("hw", 1.5, 0.0, None, None, None, "packed"): {
+        "up": (524222, 524756, 525118, 525515, 525659), "crc32": 0x6C525E38},
+    # the u32 full table of the field (xla and packed)
+    ("philox", 1.5, 0.1): {"up": (524222, 568384, 637189, 701654, 759599),
+                           "crc32": 0xBC2F721D},
+    # --xsl 128 --ysl 8 in a u32 ChaCha mode
+    ("chacha8", 1.5, 0.0, None, 128, 8): {
+        "up": (524222, 523937, 524995, 525428, 525480), "crc32": 0x2D7467B0},
 }
+
+BACKENDS = ("bit1", "xla", "packed")
+
+
+def backends(case) -> tuple:
+    """The port's backends that run `case`: the one it names, else those
+    whose config takes its mode and field. bit1 takes a field only in the
+    bit-plane modes and hw, packed draws u32 only, and xla's hw stream has
+    no counter contract."""
+    if len(case) == 7:
+        return (case[6],)
+    rng, field = case[0], case[2] if len(case) > 2 else 0.0
+    planes = plane_bits(rng) > 0
+    out = []
+    if planes or rng == "hw" or not field:
+        out.append("bit1")
+    if rng != "hw":
+        out.append("xla")
+    if not planes and rng != "hw":
+        out.append("packed")
+    return tuple(out)
 
 
 def words_crc32(black_u32, white_u32) -> int:
@@ -86,10 +121,10 @@ def words_crc32(black_u32, white_u32) -> int:
 
 def port_trajectory(rng: str, temp: float, field: float = 0.0,
                     j_prob: float | None = None, xsl: int | None = None,
-                    ysl: int | None = None, *, device="cuda",
-                    backend: str = "bit1") -> dict:
+                    ysl: int | None = None, backend: str = "bit1", *,
+                    device="cuda") -> dict:
     """The port's {"up", "crc32"[, "energy_total"]} for one golden case,
-    on `device`."""
+    on `device` (port_trajectory(*case) runs a case's named backend)."""
     from .config import SimConfig
     from .driver import Simulation
     from .interop import to_numpy_words

@@ -3,9 +3,10 @@
 The port of ``ising_tpu/observables.py``: per-row up-spin counts and bond
 sums, on uint8 bit planes (the xla backend's storage) and straight on the
 bit1 backend's (Y, W1) words, without a decode to byte planes, with or
-without quenched disorder links; and the per-replica |m| of replica
-mode. torch has no popcount, so words are counted with the SWAR
-bit-count on int64 copies; every sum is exact in int64.
+without quenched disorder links; up counts on the packed backend's words
+too; and the per-replica |m| of replica mode. torch has no popcount, so
+words are counted with the SWAR bit-count on int64 copies; every sum is
+exact in int64.
 """
 
 from __future__ import annotations
@@ -79,23 +80,46 @@ def energy_row_sums(black, white, v=None, h=None, row_chunk: int = 8192):
         black.shape[0], links, row_chunk=row_chunk)
 
 
-def popcount32(words):
-    """Per-element bit count of int32 (or int64 holding uint32) words."""
-    x = words.to(torch.int64) & MASK
+def popcount32(words, mask: int = MASK):
+    """Per-element count of the bits under `mask` of int32 (or int64
+    holding uint32) words."""
+    x = words.to(torch.int64) & mask
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return ((x * 0x01010101) & MASK) >> 24
 
 
-def _popcount_rows(x):
-    return popcount32(x).sum(dim=1)
+PACKED_SPIN_MASK = 0x11111111  # the spin bit of each packed 4-bit field
 
 
-def word_row_up_counts(black_w, white_w, row_chunk: int = 16384):
-    """Per-row up-spin counts (int64) of the two color planes."""
-    parts = [_popcount_rows(black_w[r:r + row_chunk])
-             + _popcount_rows(white_w[r:r + row_chunk])
+def _popcount_rows(x, field_mask: int = MASK):
+    return popcount32(x, field_mask).sum(dim=1)
+
+
+def word_row_up_counts(black_w, white_w, field_mask: int = MASK,
+                       row_chunk: int = 16384):
+    """Per-row up-spin counts (int64) of the two color planes: the set bits
+    of each word under field_mask (every bit for bit1's words)."""
+    parts = [_popcount_rows(black_w[r:r + row_chunk], field_mask)
+             + _popcount_rows(white_w[r:r + row_chunk], field_mask)
+             for r in range(0, black_w.shape[0], row_chunk)]
+    return torch.cat(parts)
+
+
+def _field_sum_rows(x):
+    """Per-row count of the packed spin bits: with at most one bit per
+    4-bit field, the multiply sums the eight fields into the top field
+    without a carry (each partial sum is at most 8)."""
+    x = x.to(torch.int64) & PACKED_SPIN_MASK
+    return (((x * PACKED_SPIN_MASK) & MASK) >> 28).sum(dim=1)
+
+
+def packed_row_up_counts(black_w, white_w, row_chunk: int = 16384):
+    """Per-row up-spin counts on the packed backend's words: the low bit of
+    each 4-bit field, without unpacking."""
+    parts = [_field_sum_rows(black_w[r:r + row_chunk])
+             + _field_sum_rows(white_w[r:r + row_chunk])
              for r in range(0, black_w.shape[0], row_chunk)]
     return torch.cat(parts)
 

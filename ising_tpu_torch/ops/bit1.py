@@ -92,13 +92,16 @@ def unpack_bits1(packed, out=None):
     return out
 
 
-def unpack_rows(store, chunk: int = 8192):
-    """unpack_bits1 of a (Y, W1) word plane in row chunks: the transient
-    stays one chunk's int32 plane, however tall the lattice."""
-    Y, W1 = store.shape
-    out = torch.empty((Y, SPW * W1), dtype=torch.uint8, device=store.device)
+def unpack_rows(store, chunk: int = 8192, unpack=unpack_bits1,
+                per_word: int = SPW):
+    """unpack (unpack_bits1, or packed's unpack_bits with its per_word 8)
+    of a (Y, W) word plane in row chunks: the transient stays one chunk's
+    int32 plane, however tall the lattice."""
+    Y, W = store.shape
+    out = torch.empty((Y, per_word * W), dtype=torch.uint8,
+                      device=store.device)
     for r in range(0, Y, chunk):
-        unpack_bits1(store[r:r + chunk], out=out[r:r + chunk])
+        unpack(store[r:r + chunk], out=out[r:r + chunk])
     return out
 
 
@@ -233,17 +236,21 @@ def bitserial_field_flip(planes, me, n0, n1, n2, tvals10, always10: int):
     return always | lt
 
 
-def _lane_left(x):
+def _rotl(x, r: int):
+    """Rotate int64-held uint32 words left by r bits."""
+    return ((x << r) & MASK) | (x >> (32 - r))
+
+
+def _lane_left(x, group: int = 1):
     """Word plane of compact column c - 1, periodic: lane j - 1, and at
-    lane 0 the last word one bit over (x: int64 holding uint32)."""
-    last = x[:, -1:]
-    return torch.cat([((last << 1) & MASK) | (last >> 31), x[:, :-1]], 1)
+    lane 0 the last word one column group over: `group` bits, 1 for bit1's
+    words, 4 for packed's fields (x: int64 holding uint32)."""
+    return torch.cat([_rotl(x[:, -1:], group), x[:, :-1]], 1)
 
 
-def _lane_right(x):
+def _lane_right(x, group: int = 1):
     """Word plane of compact column c + 1, periodic."""
-    first = x[:, :1]
-    return torch.cat([x[:, 1:], (first >> 1) | ((first << 31) & MASK)], 1)
+    return torch.cat([x[:, 1:], _rotl(x[:, :1], 32 - group)], 1)
 
 
 def _odd_column(H: int, color: int, device):
@@ -254,15 +261,15 @@ def _odd_column(H: int, color: int, device):
     return odd if color == BLACK else ~odd
 
 
-def _off_column(src, color: int, csl: int | None = None):
+def _off_column(src, color: int, csl: int | None = None, group: int = 1):
     """Word plane of each site's off-column in-row neighbor. Periodic: at
-    the row's first / last lane the neighbor is the word one bit over.
-    With replicas of csl compact columns (csl divides W1, so column
-    c % csl == lane % csl in every bit group), the neighbour wraps inside
-    the replica at its edge lanes, with no bit rotation."""
+    the row's first / last lane the neighbor is the word one column group
+    (`group` bits) over. With replicas of csl compact columns (csl divides
+    W1, so column c % csl == lane % csl in every group), the neighbour
+    wraps inside the replica at its edge lanes, with no rotation."""
     H, W1 = src.shape
     if csl is None:
-        left, right = _lane_left(src), _lane_right(src)
+        left, right = _lane_left(src, group), _lane_right(src, group)
     else:
         lane = torch.arange(W1, device=src.device)[None, :]
         left = torch.where(lane % csl == 0, torch.roll(src, 1 - csl, 1),
@@ -354,16 +361,16 @@ def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step,
     return _s(me ^ flip)
 
 
-def _check_words(name, t, shape, device):
+def _check_words(name, t, shape, device, fn: str = "bit1_sweep"):
     if t.device != device:
-        raise ValueError(f"bit1_sweep: {name} is on {t.device}, dst on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, dst on {device}")
     if t.dtype != torch.int32:
-        raise TypeError(f"bit1_sweep: {name} must be torch.int32, got {t.dtype}")
+        raise TypeError(f"{fn}: {name} must be torch.int32, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"bit1_sweep: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"bit1_sweep: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def _overlaps(a, b) -> bool:
@@ -393,12 +400,17 @@ def _check_geometry(H: int, W1: int, jplanes, split_links, csl, ysl):
         raise ValueError("bit1_sweep: split links are the periodic "
                          "single-lattice path; replicas take per-color "
                          "J planes")
+    _check_replicas("bit1_sweep", H, W1, "W1", csl, ysl)
+
+
+def _check_replicas(fn: str, H: int, W: int, wname: str, csl, ysl):
+    """csl / ysl, where given, are positive ints dividing W / H."""
     if csl is not None and not (isinstance(csl, int) and 0 < csl
-                                and W1 % csl == 0):
-        raise ValueError(f"bit1_sweep: csl ({csl!r}) must divide W1 ({W1})")
+                                and W % csl == 0):
+        raise ValueError(f"{fn}: csl ({csl!r}) must divide {wname} ({W})")
     if ysl is not None and not (isinstance(ysl, int) and 0 < ysl
                                 and H % ysl == 0):
-        raise ValueError(f"bit1_sweep: ysl ({ysl!r}) must divide H ({H})")
+        raise ValueError(f"{fn}: ysl ({ysl!r}) must divide H ({H})")
 
 
 def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, jplanes=None, *,

@@ -57,6 +57,16 @@ SIGNATURES = {
          *GEOMETRY,
          _c.c_void_p],                                        # stream
         _c.c_int),
+    "packed_sweep_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # dst src up dn
+         _c.c_int, _c.c_int,                                  # H, W
+         _c.c_uint32, _c.c_uint32, _c.c_uint32, _c.c_int,     # row0 step tag color
+         _c.POINTER(_c.c_uint32),                             # thr10
+         _c.c_uint32, _c.c_uint32,                            # k0 k1
+         _c.c_int, _c.c_int, _c.c_int,                        # family rounds accept
+         _c.c_void_p, _c.c_int, _c.c_int,                     # jword csl ysl
+         _c.c_void_p],                                        # stream
+        _c.c_int),
     "ising_cuda_error_string": ([_c.c_int], _c.c_char_p),
 }
 

@@ -1,16 +1,16 @@
-"""Backend registry of the port. The xla and bit1 backends run here; the
-others raise NotImplementedError naming the ROADMAP.md queue-1 item that
-ports them (see ising_tpu/ops/registry.py for the interface)."""
+"""Backend registry of the port. The xla, bit1 and packed backends run
+here; the others raise NotImplementedError naming the ROADMAP.md queue-1
+item that ports them (see ising_tpu/ops/registry.py for the interface)."""
 
 from __future__ import annotations
 
 from ..config import not_ported
 
-_UNPORTED = {"packed": 8, "dense": 9, "mxu": 9}
+_UNPORTED = {"dense": 9, "mxu": 9}
 
 
 def available_backends():
-    return ("xla", "bit1")
+    return ("xla", "bit1", "packed")
 
 
 def get_backend(cfg):
@@ -20,6 +20,9 @@ def get_backend(cfg):
     if cfg.backend == "bit1":
         from .bit1 import Bit1Backend
         return Bit1Backend(cfg)
+    if cfg.backend == "packed":
+        from .packed import PackedBackend
+        return PackedBackend(cfg)
     if cfg.backend in _UNPORTED:
         raise not_ported(f"the {cfg.backend!r} backend",
                          _UNPORTED[cfg.backend])

@@ -3,7 +3,8 @@
 The ndev == 1 branch of ``ising_tpu/parallel/sharded.py`` without fusion or
 collectives: each step updates black against white, then white against
 black, with the periodic wrap rows taken from the other plane. The loop
-runs on the host; each color phase is one bit1 kernel launch.
+runs on the host; each color phase is one kernel launch of the backend
+(bit1_sweep or packed_sweep; plain torch on xla).
 """
 
 from __future__ import annotations

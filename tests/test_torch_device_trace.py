@@ -74,3 +74,13 @@ def test_summarize_counts_both_bit1_kernels():
     assert out["gap_after_kernel_us"] == {"n": 2, "median": 9.0, "p90": 9.0,
                                           "max": 9.0}
     assert not device_trace.is_kernel("popcount")
+
+
+def test_trace_runs_packed_on_cpu(capsys):
+    assert device_trace.main(["--size", "64", "-w", "2", "-n", "4", "-p",
+                              "2", "--rng", "chacha8", "--backend", "packed",
+                              "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[trace] 64^2 chacha8 on packed" in out
+    assert device_trace.is_kernel(
+        "void (anonymous namespace)::packed_sweep_kernel<2, 8, 0>(...)")

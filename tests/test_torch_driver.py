@@ -16,6 +16,7 @@ from ising_tpu_torch.driver import Simulation, exponential_print_steps, \
     reference_exp_times
 from ising_tpu_torch.ops import available_backends, get_backend
 from ising_tpu_torch.ops.bit1 import Bit1Backend
+from ising_tpu_torch.ops.packed import PackedBackend
 
 
 def _logs(sim):
@@ -134,12 +135,21 @@ def test_cli_unported_flags_exit_1(extra, capsys):
     -J and --xsl/--ysl (item 4) run now: -J takes effect, as the JAX
     package's CLI shows with the same flags, and a replica geometry that
     bit1's words cannot tile (xsl/2 = 16 against W1 = 1) exits 1 with the
-    JAX package's wording."""
+    JAX package's wording. The packed backend (item 8) runs now, and
+    prints the JAX package's magnetization lines."""
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
     code = cli.main(argv + extra)
     out, err = capsys.readouterr()
-    if "-J" in extra:
+    if extra == ["--backend", "packed"]:
+        assert code == 0
+        assert "\tbackend: packed (rng: threefry13)" in out
+        assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
+        want = _mag_lines(capsys.readouterr().out)
+        assert cli.main(argv + extra + ["-p", "1"]) == 0
+        assert _mag_lines(capsys.readouterr().out) == want
+        assert len(want) == 3
+    elif "-J" in extra:
         assert code == 0
         assert f"\tdisorder: P(antiferro link) = {extra[1]}" in out
         assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
@@ -155,22 +165,30 @@ def test_cli_unported_flags_exit_1(extra, capsys):
 
 
 def test_cli_default_backend_is_not_ported(capsys):
-    """The CLI's default backend, xla, is ported now: no --backend runs it.
-    The backends still to port exit 1 with their ROADMAP item."""
+    """The CLI's default backend, xla, is ported now: no --backend runs it;
+    so is packed. The backends still to port, dense and mxu, exit 1 with
+    their ROADMAP item."""
     assert cli.main(["-x", "64", "-y", "8", "-n", "2", "--device",
                      "cpu"]) == 0
     assert "backend: xla (rng: threefry13)" in capsys.readouterr().out
-    assert cli.main(["-x", "64", "-y", "8", "--device", "cpu", "--backend",
-                     "packed"]) == 1
-    assert "'packed' backend is not yet ported (ROADMAP item 8)" in \
-        capsys.readouterr().err
+    assert cli.main(["-x", "64", "-y", "8", "-n", "2", "--device", "cpu",
+                     "--backend", "packed", "--rng", "philox"]) == 0
+    assert "backend: packed (rng: philox)" in capsys.readouterr().out
+    for backend in ("dense", "mxu"):
+        assert cli.main(["-x", "256", "-y", "8", "--device", "cpu",
+                         "--backend", backend]) == 1
+        assert f"'{backend}' backend is not yet ported (ROADMAP item 9)" \
+            in capsys.readouterr().err
 
 
 def test_registry_and_config_fences():
     from ising_tpu_torch.ops.xla_ref import XlaBackend
     assert isinstance(get_backend(SimConfig(device="cpu")), XlaBackend)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        get_backend(SimConfig(backend="packed", ncols=64))
+    assert isinstance(get_backend(SimConfig(backend="packed", ncols=64)),
+                      PackedBackend)
+    for backend in ("dense", "mxu"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+            get_backend(SimConfig(backend=backend, ncols=256))
     assert isinstance(get_backend(SimConfig(backend="bit1", ncols=64)),
                       Bit1Backend)
     for kw, item in ((dict(ndev=2), 7), (dict(dump_lattice=True), 6),
@@ -201,7 +219,7 @@ def test_registry_and_config_fences():
         SimConfig(ncols=48, rng="chacha6")
     for rng in ("chacha6b", "hw", "chacha8", "philox"):
         SimConfig(backend="xla", ncols=64, rng=rng, field=0.1)
-    assert available_backends() == ("xla", "bit1")
+    assert available_backends() == ("xla", "bit1", "packed")
 
 
 def test_cuda_requested_without_card_raises(monkeypatch):

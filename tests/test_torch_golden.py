@@ -1,13 +1,14 @@
 """The reference trajectories in ising_tpu_torch/golden.py, derived again
-from the JAX package, and reproduced by the port on the CPU with both of
-its backends. chip_smoke.py checks the same constants against the CUDA
-kernels.
+from the JAX package, and reproduced by the port on the CPU with each of
+its backends that runs a case (golden.backends). chip_smoke.py checks the
+same constants against the CUDA kernels.
 
 The JAX package's xla backend derives the u32 counter-mode cases. Its
 bit1 backend, with the Pallas kernel in interpret mode, derives hw (the
-off-TPU hw stream) and the bit-plane cases: its xla backend computes the
-same bit-plane trajectories (checked once below) but takes up to a
-minute to compile one of them on the CPU.
+off-TPU hw stream) and the bit-plane cases (its xla backend computes the
+same bit-plane trajectories, checked once below, but takes up to a minute
+to compile one of them on the CPU); its packed backend, also in interpret
+mode, derives the case that names packed (hw drawn per spin).
 """
 
 import numpy as np
@@ -69,15 +70,37 @@ def test_plane_golden_is_jax_xla_trajectory():
         golden.GOLDEN[("chacha4b", 1.5)]
 
 
-@pytest.mark.parametrize("case", list(golden.GOLDEN))
+def _cases_of(backend):
+    return [c for c in golden.GOLDEN if backend in golden.backends(c)]
+
+
+@pytest.mark.parametrize("case", _cases_of("bit1"))
 def test_port_reproduces_golden_on_cpu(case):
     assert golden.port_trajectory(*case, device="cpu") == golden.GOLDEN[case]
 
 
-@pytest.mark.parametrize("case", [c for c in golden.GOLDEN if c[0] != "hw"])
+@pytest.mark.parametrize("case", _cases_of("xla"))
 def test_port_xla_reproduces_golden_on_cpu(case):
     assert golden.port_trajectory(*case, device="cpu", backend="xla") == \
         golden.GOLDEN[case]
+
+
+@pytest.mark.parametrize("case", _cases_of("packed"))
+def test_port_packed_reproduces_golden_on_cpu(case):
+    assert golden.port_trajectory(*case[:6], device="cpu",
+                                  backend="packed") == golden.GOLDEN[case]
+
+
+def test_golden_cases_cover_packed():
+    """Every u32 counter case runs on packed too; hw has a packed case of
+    its own (one salted Philox-10 u32 per spin, not bit1's 24 planes)."""
+    u32 = [c for c in golden.GOLDEN if c[0] != "hw" and not plane_bits(c[0])]
+    assert len(u32) == 10 and all("packed" in golden.backends(c) for c in u32)
+    assert golden.backends(("hw", 1.5)) == ("bit1",)
+    hw = ("hw", 1.5, 0.0, None, None, None, "packed")
+    assert golden.backends(hw) == ("packed",)
+    assert golden.GOLDEN[hw] != golden.GOLDEN[("hw", 1.5)]
+    assert golden.backends(("philox", 1.5, 0.1)) == ("xla", "packed")
 
 
 def test_golden_cases_cover_both_families_and_accepts():
@@ -87,17 +110,17 @@ def test_golden_cases_cover_both_families_and_accepts():
     assert {c[1] <= 0 for c in golden.GOLDEN} == {True, False}
     assert {c[1] <= 0 for c in golden.GOLDEN if plane_bits(c[0])} == \
         {True, False}
-    assert [c for c in golden.GOLDEN if len(c) == 3] == [("chacha8b", 1.5,
-                                                          0.1)]
+    assert [c for c in golden.GOLDEN if len(c) == 3] == [
+        ("chacha8b", 1.5, 0.1), ("philox", 1.5, 0.1)]
     assert golden.NCOLS == 16384  # the full bench width
 
 
 def test_golden_cases_cover_disorder_and_replicas():
     """The disorder and replica cases: split links on bit1 (-J alone) in
     threefry13 and chacha6b at T = 1.5 and in philox at T = 0, replicas
-    whose csl = 64 divides W1 = 256, replicas with J planes, and a
-    bit-plane mode with a field and J; each disordered case records its
-    energy."""
+    whose csl = 64 divides W1 = 256 (in a bit-plane and a u32 ChaCha
+    mode), replicas with J planes, and a bit-plane mode with a field and
+    J; each disordered case records its energy."""
     extra = {c: v for c, v in golden.GOLDEN.items() if len(c) == 6}
     assert set(extra) == {
         ("threefry13", 1.5, 0.0, 0.1, None, None),
@@ -105,7 +128,8 @@ def test_golden_cases_cover_disorder_and_replicas():
         ("philox", 0.0, 0.0, 0.5, None, None),
         ("chacha6b", 1.5, 0.0, None, 128, 8),
         ("threefry13", 1.5, 0.0, 0.1, 128, 16),
-        ("philox7b", 1.5, 0.1, 0.1, None, None)}
+        ("philox7b", 1.5, 0.1, 0.1, None, None),
+        ("chacha8", 1.5, 0.0, None, 128, 8)}
     for case, want in extra.items():
         assert ("energy_total" in want) == (case[3] is not None)
         if case[4] is not None:

@@ -1,5 +1,5 @@
-"""The CUDA sources of the bit1 sweep, compiled for the CPU and run through
-the real wrapper.
+"""The CUDA sources of the bit1 and packed sweeps, compiled for the CPU and
+run through the real wrappers.
 
 There is no nvcc here, so csrc/*.cu are compiled with the host C++
 compiler over a small header that stands in for the CUDA runtime: one
@@ -7,7 +7,9 @@ thread at a time runs the kernel body, in grid order. That checks the
 kernels' arithmetic (draw layouts of every rng mode, counters with carry,
 neighbours, the u32, bit-serial and 10-class field accepts, the
 quenched-disorder links as J planes and as the split link store, the
-replica wraps) against their plain torch version before any card sees it.
+replica wraps; in the packed kernel ChaCha's pair of words, the 4-bit
+rotation at the row's ends, the J word and the replica edges) against their
+plain torch version before any card sees it.
 The card itself checks the compiled kernels in chip_smoke.py.
 """
 
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 
 from ising_tpu_torch.models import ising
-from ising_tpu_torch.ops import bit1, kernel_lib
+from ising_tpu_torch.ops import bit1, kernel_lib, packed
 from ising_tpu_torch.rng import PORTED_MODES, plane_bits
 
 import torch
@@ -61,7 +63,8 @@ void emulate_launch(dim3 grid, unsigned block, F f, A... a) {
 
 # kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
-EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3}
+EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
+                         "packed_sweep.cu": 1}
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +77,8 @@ def emulated_lib(tmp_path_factory):
     sources = []
     for cu in kernel_lib._sources():
         src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ", cu.read_text())
-        # the greedy and the plain instantiation; the planes kernel's field
+        # the greedy and the plain instantiation; the planes kernel's field;
+        # the packed kernel's one templated launch
         assert n == EMULATED_LAUNCH_SITES[cu.name]
         sources.append(d / (cu.stem + ".cpp"))
         sources[-1].write_text(src)
@@ -255,3 +259,101 @@ def test_launchers_check_geometry(emulated_lib, geometry, ok):
              emulated_lib.bit1_planes_launch(p, p, p, p, 4, 4, 0, 0, 0, 0, 0,
                                              0, 2, 8, 16, 0, table, *g, None))
     assert codes == ((0, 0) if ok else (1, 1))
+
+
+# The packed kernel: the u32 modes and hw, T > 0, the greedy quench and the
+# full table (h != 0, also at T <= 0), on words with every bit random (bit
+# 31 included, which the 4-bit rotation at lane 0 fills from field 7).
+PACKED_MODES = [m for m in PORTED_MODES if not plane_bits(m)]
+PACKED_ACCEPTS = ((1.5, 0.0), (0.0, 0.0), (1.5, 0.3), (0.0, -0.2))
+# (path, (H, W), csl, ysl): W odd and W = 1 for the one-word families (not
+# ChaCha, whose thread owns words q and q + W/2), W = 66 (ncols 1056, not a
+# multiple of 32); the J word; replicas with csl == 1, csl == W and between,
+# ysl == 2, 8 and H; replicas with the J word.
+PACKED_GEOMETRIES = [
+    ("ordered", (2, 2), None, None), ("ordered", (6, 6), None, None),
+    ("ordered", (8, 66), None, None), ("ordered", (4, 3), None, None),
+    ("ordered", (2, 1), None, None),
+    ("jword", (6, 4), None, None), ("jword", (8, 66), None, None),
+    ("replicas", (16, 4), 1, 8), ("replicas", (16, 4), 4, 16),
+    ("replicas", (8, 66), 33, 8), ("replicas", (4, 6), 3, 2),
+    ("replicas+J", (16, 4), 2, 16), ("replicas+J", (8, 6), 1, 8),
+    ("replicas+J", (8, 66), 66, 2),
+]
+
+
+@pytest.mark.parametrize("geometry", PACKED_GEOMETRIES,
+                         ids=[f"{g[0]}-{g[1][0]}x{g[1][1]}-{g[2]}-{g[3]}"
+                              for g in PACKED_GEOMETRIES])
+def test_packed_kernel_source_matches_plain_version(geometry, emulated_lib,
+                                                    monkeypatch):
+    """Every u32 mode and hw in every accept, both colors, row offsets
+    whose counters carry into the high word and rows that wrap mod 2^32."""
+    monkeypatch.setattr(kernel_lib, "load", lambda: (emulated_lib, None))
+    monkeypatch.setattr(packed, "_cuda_stream", lambda device: None)
+    path, (H, W), csl, ysl = geometry
+    gen = np.random.default_rng(100 + PACKED_GEOMETRIES.index(geometry))
+    for i, (mode, (temp, field)) in enumerate(itertools.product(
+            PACKED_MODES, PACKED_ACCEPTS)):
+        if mode.startswith("chacha") and W % 2:
+            continue
+        color = i % 2
+        row0 = (0, (1 << 29) - 4, (1 << 32) - 2)[i % 3]
+        dst, src = _random(gen, (H, W)), _random(gen, (H, W))
+        up, dn = _random(gen, (1, W)), _random(gen, (1, W))
+        jword = _random(gen, (H, W)) if path.endswith("J") or \
+            path == "jword" else None
+        kw = dict(color=color, seed=int(gen.integers(0, 1 << 63)),
+                  rng_mode=mode, greedy=temp <= 0, full_table=field != 0,
+                  csl=csl, ysl=ysl)
+        thr = ising.threshold_table(temp, field)
+        step = int(gen.integers(0, 1 << 32))
+        want = packed.packed_sweep_reference(
+            _torch(dst), _torch(src), _torch(up), _torch(dn), thr, row0, step,
+            None if jword is None else _torch(jword), **kw)
+        d = HostWords(dst)
+        packed.packed_sweep(d, HostWords(src), HostWords(up), HostWords(dn),
+                            thr, row0, step,
+                            None if jword is None else HostWords(jword), **kw)
+        np.testing.assert_array_equal(
+            d.a, want.numpy().view(np.uint32),
+            err_msg=f"{geometry} {mode} T={temp} h={field} color={color} "
+                    f"row0={row0}")
+
+
+def test_packed_geometries_cover_the_edges():
+    widths = {g[1][1] for g in PACKED_GEOMETRIES}
+    assert 1 in widths and any(w % 2 for w in widths) and 66 in widths
+    rep = [g for g in PACKED_GEOMETRIES if g[2] is not None]
+    assert {g[2] == 1 for g in rep} == {True, False}
+    assert any(g[2] == g[1][1] for g in rep)
+    assert {8, 2} <= {g[3] for g in rep}
+    assert any(g[3] == g[1][0] for g in rep)
+    assert set(PACKED_MODES) == {"philox", "philox7", "threefry",
+                                 "threefry13", "chacha8", "chacha6", "chacha4",
+                                 "hw"}
+
+
+@pytest.mark.parametrize("args,ok", [
+    ((0, 10, 0, 0, 0), True),
+    ((2, 8, 2, 0, 0), True),
+    ((1, 13, 1, 2, 4), True),       # csl | W = 4, ysl | H = 4
+    ((0, 9, 0, 0, 0), False),       # no Philox-9
+    ((1, 13, 3, 0, 0), False),      # unknown accept
+    ((0, 10, 0, 3, 0), False),      # csl does not divide W = 4
+    ((0, 10, 0, 0, 3), False),      # ysl does not divide H = 4
+    ((0, 10, 0, -1, 0), False),
+])
+def test_packed_launcher_checks_its_arguments(emulated_lib, args, ok):
+    family, rounds, accept, csl, ysl = args
+    buf = np.zeros((4, 4), np.uint32)
+    p = buf.ctypes.data
+    thr = (ctypes.c_uint32 * 10)()
+    code = emulated_lib.packed_sweep_launch(
+        p, p, p, p, 4, 4, 0, 0, 0, 0, thr, 0, 0, family, rounds, accept,
+        None, csl, ysl, None)
+    assert (code == 0) == ok
+    # ChaCha's thread owns a pair of words: an odd W is refused
+    assert emulated_lib.packed_sweep_launch(
+        p, p, p, p, 4, 3, 0, 0, 0, 0, thr, 0, 0, 2, 8, 0, None, 0, 0,
+        None) != 0
