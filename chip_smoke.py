@@ -6,7 +6,9 @@
 Phases, each printed as it ends:
 
   1. device    the card's name, count, torch/CUDA versions, power limit;
-  2. build     nvcc builds csrc/*.cu into one C library (seconds, ptxas);
+  2. build     nvcc builds csrc/*.cu into one C library (seconds, ptxas:
+               no kernel may have a stack frame; SASS: the mxu kernel must
+               hold HMMA, its sums on the tensor cores);
   3. kernel    bit1_sweep against its plain torch version, bit for bit,
                at the full 16384 width and two small shapes (one whose
                counters carry and whose rows wrap), in every rng mode, at
@@ -19,7 +21,12 @@ Phases, each printed as it ends:
                half of them), at the 16384 width and at 1056 (W = 66, not
                a multiple of 32), in the u32 modes and hw, at T > 0, T = 0
                and with the full field table (h = 0.3, not hw), on the
-               ordered, J-word, replica and replica + J paths;
+               ordered, J-word, replica and replica + J paths; then
+               dense_sweep on random bit planes at 16384^2 and at 1056
+               columns (H = 14 and 7, counters that carry, rows that wrap)
+               in the u32 modes and hw, at T > 0, T = 0, h = 0.3 (not hw)
+               and with J planes; mxu_sweep at 16384^2, 128 x 256 and
+               256 x 768 at T > 0 and T = 0;
   4. golden    the port's Simulation on the card reproduces the JAX
                package's trajectories recorded in ising_tpu_torch/golden.py,
                the disordered ones with their energy, on every backend of
@@ -39,7 +46,14 @@ Phases, each printed as it ends:
                --ysl 128 in threefry13, one run with both, each reading
                packed_sweep's launch count; and at 2048^2 packed's lattice
                and energy against bit1's and xla's, in threefry13 and in
-               chacha8 with -J 0.1 --xsl 64 --ysl 64;
+               chacha8 with -J 0.1 --xsl 64 --ysl 64. Then dense and mxu
+               through the CLI at 8192^2 (bench.py:49-50) and 16384^2 in
+               threefry13, philox, chacha8 and hw, three runs each, and
+               dense with -J 0.1 (its set-up and peak memory timed), each
+               reading its kernel's launch count; at 2048^2 mxu's, dense's,
+               bit1's and xla's lattices equal in threefry13 and philox,
+               dense's and bit1's lattices and energy with -J 0.1, mxu's,
+               dense's and packed's in hw;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
@@ -50,7 +64,9 @@ Phases, each printed as it ends:
                mix; then packed_sweep in every u32 mode and hw, with the
                field in philox, and on the J-word, replica and replica + J
                paths in threefry13, philox and chacha8, beside bit1's time
-               in the same mode and path.
+               in the same mode and path; then dense_sweep (ordered, with
+               J planes, with the field in philox) and mxu_sweep in every
+               u32 mode and hw at 16384^2 and 8192^2 the same way.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -78,7 +94,7 @@ import torch
 from ising_tpu_torch import cli, golden, observables
 from ising_tpu_torch.driver import Simulation
 from ising_tpu_torch.models import ising
-from ising_tpu_torch.ops import bit1, kernel_lib, packed
+from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
 from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
 
 BUDGET_S = 600          # the whole script, build included
@@ -145,6 +161,31 @@ BIT1_PATH_OF = {None: None, "jword": "jplanes", "replicas": "replicas",
 EQUALITY_SHAPE, EQUALITY_ITERS = 2048, 8
 EQUALITY_RUNS = (("threefry13", []),
                  ("chacha8", ["-J", "0.1", "--xsl", "64", "--ysl", "64"]))
+
+# The dense and mxu backends (uint8 planes, one u32 draw per site): their
+# modes (packed's: the u32 modes and hw), the shapes of their
+# kernel-vs-plain cases ((Y, X, row0): the main shape, and small shapes
+# whose counters carry and whose rows wrap, C = 1056 and an odd H; mxu at
+# its smallest lattice, 128 x 256, where ChaCha's runs are 8 columns), the
+# CLI runs at bench.py's 8192^2 (bench.py:49-50) and the main 16384^2, and
+# the 2048^2 runs whose lattices must equal the other backends'.
+PLANE_MODES = PACKED_MODES
+PLANE_MAIN_MODES = ("threefry13", "philox", "chacha8", "hw")
+PLANE_MAIN_SHAPES = (8192, MAIN_SHAPE)
+DENSE_COMPARE_SHAPES = ((MAIN_SHAPE, MAIN_SHAPE, 0), (14, 2112, (1 << 32) - 8),
+                        (7, 2112, (1 << 29) - 4))
+MXU_COMPARE_SHAPES = ((MAIN_SHAPE, MAIN_SHAPE, 0), (128, 256, (1 << 32) - 64),
+                      (256, 768, (1 << 29) - 128))
+PLANE_EQUALITY_RUNS = (("threefry13", [], ("mxu", "dense", "bit1", "xla")),
+                       ("philox", [], ("mxu", "dense", "bit1", "xla")),
+                       ("threefry13", J_FLAGS, ("dense", "bit1")),
+                       ("hw", [], ("mxu", "dense", "packed")))
+PLANE_TIMED_SHAPES = (MAIN_SHAPE, 8192)
+# bytes a site moves: read dst and src, write dst (3); the J planes (7)
+PLANE_PATH_BYTES = {None: 3, "jplanes": 7}
+BF16_FLOPS_PER_S = 989e12   # H100 SXM tensor cores, bf16, dense
+SWEEPS = {"bit1": bit1.bit1_sweep, "packed": packed.packed_sweep,
+          "dense": dense.dense_sweep, "mxu": mxu.mxu_sweep}
 
 T_START = time.perf_counter()
 
@@ -323,6 +364,31 @@ def packed_ops_per_word(mode: str, accept: int, path: str | None = None):
             + PACKED_PATH_OPS[path])
 
 
+def dense_ops_per_site(mode: str, path: str | None = None) -> float:
+    """32-bit integer operations that one dense site's update needs, under
+    ops_per_word's rule, with four sites to a 32-bit word (the kernel's
+    layout where G % 4 == 0). The generator: one call per S sites
+    (call_ops, with its counter) and its index 1. Per word of four sites:
+    the column 1, the off-column word with its wrap (a compare, a select
+    and a funnel shift) 3, dst*5 and the sum of 4 neighbour words 3, the
+    xor of the flips into dst 1; the J planes' 4 xors. Per site: its byte
+    of the index 1, the table's range check 1 (the lookup itself is a
+    shared-memory load), the compare 1 and setting its bit 1. mxu computes
+    the same function on the same bytes, so its bound counts these too,
+    beside its tensor-core products."""
+    family, rounds = parse_rng_mode(mode)
+    if family == "hw":   # salted Philox-10
+        family, rounds = "philox", 10
+    draws, per_call = call_ops(family, rounds)
+    return ((per_call + 1) / draws + (8 + (4 if path == "jplanes" else 0)) / 4
+            + 4)
+
+
+# Tensor-core work of an mxu site: three 16 x 16 x 16 products per 16 x 16
+# fragment (Kv S, S Kl, S Kr), 2 flops per multiply-add.
+MXU_FLOPS_PER_SITE = 3 * 2 * 16 ** 3 / 16 ** 2
+
+
 # SASS opcodes by the pipe that executes them (Volta to Hopper SMs).
 ALU_OPS = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "P2R",
            "R2P", "PLOP3", "IABS", "IMNMX", "FSEL", "FSETP", "MOV", "FLO",
@@ -332,6 +398,8 @@ FMA_OPS = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP"}
 
 def pipe_of(opcode: str) -> str:
     base = opcode.split(".")[0]
+    if base in ("HMMA", "HGMMA"):
+        return "tensor"
     if base in ALU_OPS:
         return "alu"
     if base in FMA_OPS:
@@ -347,7 +415,8 @@ def sass_mix(lib_path: str):
     """{(kernel, template arguments): Counter(pipe -> SASS instructions)}
     of each kernel instantiation, from cuobjdump: for bit1_sweep (family,
     rounds, greedy), for bit1_planes (family, rounds, kbits, accept), for
-    packed_sweep (family, rounds, accept). The kernels are fully unrolled
+    packed_sweep (family, rounds, accept), for dense_sweep (family, rounds,
+    sites per word), for mxu_sweep (family, rounds); "tensor" counts HMMA. The kernels are fully unrolled
     and branch-free apart from their edge and path selects, so this is
     close to the instructions one thread (one word; a pair of words in the
     packed ChaCha kernel) issues. None without cuobjdump."""
@@ -359,7 +428,8 @@ def sass_mix(lib_path: str):
         return None
     mix, key = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*(bit1_\w+?|packed_sweep)_kernelI"
+        m = re.search(r"Function : \S*(bit1_\w+?|packed_sweep|dense_sweep|"
+                      r"mxu_sweep)_kernelI"
                       r"((?:L[ib]\d+E)+)", line)
         if m:
             key = (m[1], tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2])))
@@ -373,6 +443,23 @@ def sass_mix(lib_path: str):
     return mix
 
 
+def stack_frames(ptxas_lines):
+    """{kernel's mangled name: bytes of stack frame} from the -Xptxas -v
+    lines: each 'Function properties for NAME' line is followed by its
+    'N bytes stack frame' line."""
+    frames, name = {}, None
+    for line in ptxas_lines:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m[1]
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            frames[name] = int(m[1])
+            name = None
+    return frames
+
+
 def phase_build():
     t0 = time.perf_counter()
     lib, info = kernel_lib.load()
@@ -380,11 +467,26 @@ def phase_build():
         f"load {time.perf_counter() - t0:.1f} s total -> {info.path}")
     for line in info.ptxas:
         say(f"[build]   {line.strip()}")
+    frames = stack_frames(info.ptxas)
+    require(frames and not any(frames.values()),
+            "ptxas reports a stack frame in "
+            f"{[k for k, v in frames.items() if v]}")
+    say(f"[build] no stack frame in any of the {len(frames)} kernels")
     mix = sass_mix(info.path)
     for key, pipes in sorted((mix or {}).items()):
         say(f"[build] SASS {key[0]}{list(key[1])}: "
             f"{sum(pipes.values())} instructions, {dict(pipes)}")
+    # the mxu kernel's neighbour sums run on the tensor cores
+    mxu_keys = [k for k in (mix or {}) if k[0] == "mxu_sweep"]
+    require(len(mxu_keys) == 7 and all(mix[k]["tensor"] for k in mxu_keys),
+            f"no HMMA in the mxu kernel's SASS: {mxu_keys}")
+    say(f"[build] HMMA in all {len(mxu_keys)} mxu_sweep kernels: "
+        + ", ".join(f"{list(k[1])} {mix[k]['tensor']}" for k in mxu_keys))
     return info, mix
+
+
+def random_bits(gen, shape, device):
+    return torch.from_numpy(gen.integers(0, 2, shape, dtype=np.uint8)).to(device)
 
 
 def random_words(gen, shape, device):
@@ -554,6 +656,61 @@ def phase_compare_packed(dev):
     return cases, max_err
 
 
+def plane_accepts(kernel: str, mode: str):
+    """(temperature, field, J planes) of the dense and mxu kernel-vs-plain
+    cases: T > 0 and the greedy quench; dense also the full table of the
+    field (u32 modes) and the J planes."""
+    out = [(1.5, 0.0, False), (0.0, 0.0, False)]
+    if kernel == "dense":
+        out += [(1.5, 0.3, False)] if mode != "hw" else []
+        out += [(1.5, 0.0, True)]
+    return out
+
+
+def phase_compare_planes(dev, kernel: str):
+    """dense_sweep or mxu_sweep against its plain version on the same CUDA
+    tensors, on random bit planes, in every u32 mode and hw and every
+    accept of plane_accepts, both colors; COMPARE_STEPS steps at the small
+    shapes, one at 16384^2. Returns (cases, max abs err)."""
+    sweep, plain = ((dense.dense_sweep, dense.dense_sweep_reference)
+                    if kernel == "dense" else
+                    (mxu.mxu_sweep, mxu.mxu_sweep_reference))
+    shapes = DENSE_COMPARE_SHAPES if kernel == "dense" else MXU_COMPARE_SHAPES
+    gen = np.random.default_rng(2027)
+    cases, max_err = 0, 0
+    for Y, X, row0 in shapes:
+        H, C = Y, X // 2
+        for mode in PLANE_MODES:
+            for temp, field, jp in plane_accepts(kernel, mode):
+                thr = ising.threshold_table(temp, field)
+                b, w = (random_bits(gen, (H, C), dev) for _ in range(2))
+                extra = ([[random_bits(gen, (H, C), dev) for _ in range(4)]]
+                         if jp else [])
+                kw = dict(seed=int(gen.integers(0, 1 << 62)), rng_mode=mode)
+                for step in range(COMPARE_STEPS if H < 1024 else 1):
+                    for color, (dst, src) in enumerate(((b, w), (w, b))):
+                        up, dn = src[-1:], src[:1]
+                        ref = plain(dst, src, up, dn, thr, row0, step, *extra,
+                                    color=color, **kw)
+                        sweep(dst, src, up, dn, thr, row0, step, *extra,
+                              color=color, **kw)
+                        torch.cuda.synchronize()
+                        err = int((dst.to(torch.int64)
+                                   - ref.to(torch.int64)).abs().max())
+                        max_err = max(max_err, err)
+                        cases += 1
+                        require(torch.equal(dst, ref),
+                                f"{kernel} kernel != plain: {Y}x{X} "
+                                f"row0={row0} {mode} T={temp} h={field} "
+                                f"J={jp} step={step} color={color}")
+                del b, w, extra
+        say(f"[kernel] {kernel} {Y}x{X} row0={row0}: the "
+            f"{len(PLANE_MODES)} u32 modes and hw, T in (1.5, 0)"
+            + (", h = 0.3 and J planes" if kernel == "dense" else "")
+            + ", both colors equal to the plain version")
+    return cases, max_err
+
+
 def phase_golden():
     """Every golden case on every backend of the port that runs it."""
     for case, want in golden.GOLDEN.items():
@@ -574,16 +731,15 @@ def cli_simulation(argv):
     return Simulation(cli.config_from_args(args))
 
 
-def main_runs(card, mode, extra, runs, e_max, what, backend="bit1"):
-    """`runs` CLI runs at 16384^2 in `mode` with the flags `extra` on
-    `backend` (bit1 or packed), each from a new Simulation whose set-up
-    (disorder included) is timed and whose peak device memory is read; the
-    launch counts of both kernels are set to 0 just before each run loop
-    and read just after: the backend's own must be 2 per step, the other
-    0."""
-    sweep, other = ((bit1.bit1_sweep, packed.packed_sweep)
-                    if backend == "bit1" else
-                    (packed.packed_sweep, bit1.bit1_sweep))
+def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
+              shape=MAIN_SHAPE):
+    """`runs` CLI runs at shape^2 in `mode` with the flags `extra` on
+    `backend`, each from a new Simulation whose set-up (disorder included)
+    is timed and whose peak device memory is read; the launch counts of
+    every kernel are set to 0 just before each run loop and read just
+    after: the backend's own must be 2 per step, the others 0."""
+    sweep = SWEEPS[backend]
+    others = [f for b, f in SWEEPS.items() if b != backend]
     name = sweep.__name__
     launches, rates, setups, peaks = 0, [], [], []
     for _ in range(runs):
@@ -591,28 +747,30 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         sim = cli_simulation(
-            ["--backend", backend, "-x", str(MAIN_SHAPE), "-y",
-             str(MAIN_SHAPE), "-w", str(MAIN_WARMUP), "-n", str(MAIN_ITERS),
+            ["--backend", backend, "-x", str(shape), "-y",
+             str(shape), "-w", str(MAIN_WARMUP), "-n", str(MAIN_ITERS),
              "-p", "16", "-t", "1.5", "--rng", mode] + extra)
         torch.cuda.synchronize()
         setups.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
-        sweep.launches = other.launches = 0
+        for f in SWEEPS.values():
+            f.launches = 0
         result = sim.run()
         n = sweep.launches
         want = 2 * (MAIN_WARMUP + MAIN_ITERS)
         require(result["steps"] == MAIN_ITERS,
                 f"ran {result['steps']} of {MAIN_ITERS} steps")
         require(n == want, f"{name} launched {n} times, expected {want}")
-        require(other.launches == 0,
-                f"{other.__name__} launched on the {backend} path")
+        require(not any(f.launches for f in others),
+                f"another kernel launched on the {backend} path: "
+                f"{[(f.__name__, f.launches) for f in others]}")
         e_n = sim.energy()
         require(math.isfinite(e_n) and e_n < e_max,
                 f"E/N = {e_n} after the {what} run (expected < {e_max})")
         if sim.cfg.xsl is not None:
             m = observables.replica_magnetizations(
                 *sim.bits(), sim.cfg.xsl, sim.cfg.ysl)
-            count = (MAIN_SHAPE // sim.cfg.xsl) * (MAIN_SHAPE // sim.cfg.ysl)
+            count = (shape // sim.cfg.xsl) * (shape // sim.cfg.ysl)
             require(m.shape == (count,) and np.all((m >= 0) & (m <= 1)),
                     f"replica |m| of shape {m.shape}, range "
                     f"{m.min()}-{m.max()}")
@@ -620,7 +778,7 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1"):
                 f"range {m.min():.6f}-{m.max():.6f}")
         launches += n
         rates.append(result["flips_ns"])
-        say(f"[main] {MAIN_SHAPE}^2 {backend} {what} {mode}: {name} "
+        say(f"[main] {shape}^2 {backend} {what} {mode}: {name} "
             f"launches {n} "
             f"(= 2 x {MAIN_WARMUP + MAIN_ITERS} steps), E/N {e_n:.6f}, "
             f"{result['flips_ns']:.2f} flips/ns; set-up "
@@ -629,7 +787,7 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1"):
         del sim
         torch.cuda.empty_cache()
     median = sorted(rates)[len(rates) // 2]
-    say(f"[main] {MAIN_SHAPE}^2 {backend} {what} {mode}: {median:.2f} "
+    say(f"[main] {shape}^2 {backend} {what} {mode}: {median:.2f} "
         f"flips/ns median of {runs} runs (range {min(rates):.2f}-"
         f"{max(rates):.2f})")
     return {"launches": launches, "e_n": e_n, "flips_ns": median,
@@ -651,6 +809,59 @@ def phase_main_path(card, backend="bit1"):
         paths[path][mode] = main_runs(card, mode, extra, runs, e_max,
                                       f"{path} ({' '.join(extra)})", backend)
     return ordered, dict(paths)
+
+
+def phase_plane_main_path(card, backend):
+    """dense or mxu through the CLI's flags at bench.py's 8192^2 and at
+    16384^2, MAIN_REPEATS runs in each of PLANE_MAIN_MODES; dense also with
+    -J 0.1 (threefry13) at 16384^2, its set-up and peak memory timed.
+    Returns ({(shape, mode): result}, {"jplanes": {mode: result}})."""
+    ordered = {(shape, mode): main_runs(card, mode, [], MAIN_REPEATS, -1.5,
+                                        "ordered", backend, shape)
+               for shape in PLANE_MAIN_SHAPES for mode in PLANE_MAIN_MODES}
+    paths = {}
+    if backend == "dense":
+        paths["jplanes"] = {"threefry13": main_runs(
+            card, "threefry13", J_FLAGS, MAIN_REPEATS, -1.2,
+            f"jplanes ({' '.join(J_FLAGS)})", backend)}
+    return ordered, paths
+
+
+def phase_plane_equality(card):
+    """At 2048^2 after the CLI's flags, mxu's, dense's, bit1's and xla's
+    lattices are equal in threefry13 and philox; dense's and bit1's
+    lattices and energy_total with -J 0.1; mxu's, dense's and packed's in
+    hw (one salted Philox-10 u32 per spin). The first two backends of each
+    run are checked to launch their own kernel 2 per step."""
+    for mode, extra, backends in PLANE_EQUALITY_RUNS:
+        flags = ["-x", str(EQUALITY_SHAPE), "-y", str(EQUALITY_SHAPE), "-n",
+                 str(EQUALITY_ITERS), "-p", "4", "-t", "1.5", "--rng",
+                 mode] + extra
+        sims = {be: cli_simulation(flags + ["--backend", be])
+                for be in backends}
+        rates = {}
+        for be, sim in sims.items():
+            for f in SWEEPS.values():
+                f.launches = 0
+            rates[be] = sim.run()["flips_ns"]
+            if be in SWEEPS:
+                n = SWEEPS[be].launches
+                require(n == 2 * EQUALITY_ITERS,
+                        f"{be} launched {n} times at {EQUALITY_SHAPE}^2")
+        first = backends[0]
+        for be in backends[1:]:
+            for a, b in zip(sims[first].bits(), sims[be].bits()):
+                require(torch.equal(a, b),
+                        f"{first} != {be} at {EQUALITY_SHAPE}^2 {mode} "
+                        f"{' '.join(extra)}")
+        energies = {be: sims[be].energy_total() for be in backends}
+        require(len(set(energies.values())) == 1,
+                f"energy_total differs: {energies}")
+        say(f"[planes] {EQUALITY_SHAPE}^2 {mode} {' '.join(extra)}: "
+            f"lattices of {', '.join(backends)} equal after {EQUALITY_ITERS} "
+            f"steps, energy_total {energies[first]}; flips/ns "
+            + ", ".join(f"{be} {r:.2f}" for be, r in rates.items())
+            + f" on {card['smi']}")
 
 
 def phase_xla_path(card):
@@ -939,10 +1150,112 @@ def phase_timing_packed(card, mix, bit1_timing):
     return out, cases, max_err
 
 
+def plane_timing_cases():
+    """(kernel, mode, field, path) of the dense and mxu kernels that phase 6
+    times: every u32 mode and hw, dense also with its J planes and with
+    the field in PACKED_TIMED_FIELD_MODES."""
+    return ([("dense", m, 0.0, None) for m in PLANE_MODES]
+            + [("dense", m, 0.0, "jplanes") for m in PLANE_MODES]
+            + [("dense", m, TIMED_FIELD, None)
+               for m in PACKED_TIMED_FIELD_MODES]
+            + [("mxu", m, 0.0, None) for m in PLANE_MODES])
+
+
+def phase_timing_planes(card, mix, bit1_timing):
+    """dense_sweep and mxu_sweep per color phase at 16384^2 and 8192^2, T =
+    1.5 (h = 0.3 where a field is timed), on random bit planes: kernel
+    against plain (bit for bit, both colors), then the kernel's and the
+    plain version's times, the bound (bytes, integer operations and, for
+    mxu, the tensor-core flops) and the compiled code's pipe mix per
+    thread, beside bit1's time in the same mode at 16384^2. Returns
+    ({(kernel, mode, field, path, shape): timing}, cases, max abs err)."""
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(9)
+    rate = card["sms"] * INT_OPS_PER_SM_CLOCK * card["clock_hz"]
+    pipe_rate = card["sms"] * PIPE_LANES_PER_SM * card["clock_hz"]
+    out, cases, max_err = {}, 0, 0
+    for shape in PLANE_TIMED_SHAPES:
+        H, C = shape, shape // 2
+        planes = [random_bits(gen, (H, C), dev) for _ in range(2)]
+        jplanes = [random_bits(gen, (H, C), dev) for _ in range(4)]
+        sites = H * C
+        for kernel, mode, field, path in plane_timing_cases():
+            thr = ising.threshold_table(1.5, field)
+            sweep, plain = ((dense.dense_sweep, dense.dense_sweep_reference)
+                            if kernel == "dense" else
+                            (mxu.mxu_sweep, mxu.mxu_sweep_reference))
+            extra = (jplanes,) if path else ()
+            what = (f"{kernel} {mode}" + (f" h={field}" if field else "")
+                    + (f" {path}" if path else ""))
+
+            def args(i):
+                dst, src = planes[i % 2], planes[1 - i % 2]
+                return (dst, src, src[-1:], src[:1], thr, 0, i, *extra), dict(
+                    color=i % 2, seed=golden.SEED, rng_mode=mode)
+
+            ms, runs, plain_ms, err = compare_and_time(
+                f"{H}x{shape} {what}", sweep, plain, args)
+            max_err, cases = max(max_err, err), cases + 2
+            bytes_ms = PLANE_PATH_BYTES[path] * sites / HBM_BYTES_PER_S * 1e3
+            ops = dense_ops_per_site(mode, path)
+            mma_ms = (MXU_FLOPS_PER_SITE * sites / BF16_FLOPS_PER_S * 1e3
+                      if kernel == "mxu" else 0.0)
+            ops_ms = max(ops * sites / rate * 1e3, mma_ms)
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+            family, rounds = parse_rng_mode(mode)
+            if family == "hw":
+                family, rounds = "philox", 10
+            # a dense thread serves V calls (V = 4 where the row's calls come
+            # in fours), S * V sites; an mxu thread loops over its tile, so
+            # its static count is not per site
+            per = dense.SITES_PER_CALL[family]
+            V = 4 if (C // per) % 4 == 0 else 1
+            targs = (bit1._FAMILY_CODE[family], rounds) + (
+                (V,) if kernel == "dense" else ())
+            pipes = dict((mix or {}).get((f"{kernel}_sweep", targs), {}))
+            pipe_ms = ({p: pipes[p] * sites / (per * V) / pipe_rate * 1e3
+                        for p in ("alu", "fma") if p in pipes}
+                       if kernel == "dense" else {})
+            bit1_ms = (bit1_timing.get((mode, 0.0, None), {}).get("ms")
+                       if shape == MAIN_SHAPE and not field and not path
+                       else None)
+            ordered = out.get((kernel, mode, 0.0, None, shape), {}).get("ms")
+            out[(kernel, mode, field, path, shape)] = {
+                "ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes_ms": bytes_ms, "ops_per_site": ops, "ops_ms": ops_ms,
+                "mma_ms": mma_ms, "sass_per_thread": pipes,
+                "pipe_ms": pipe_ms, "bit1_ms": bit1_ms}
+            say(f"[timing] {shape}^2 {what}, one color phase: kernel "
+                f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
+                f"launches (range {runs[0]:.4f}-{runs[-1]:.4f}; "
+                f"{sites / ms / 1e6:.1f} flips/ns"
+                + (f"; {ms / ordered:.3f}x the ordered {ordered:.4f} ms"
+                   if path or field else "")
+                + f"), plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by "
+                f"{bound_by} (bytes {bytes_ms:.4f} ms; {ops:.2f} ops/site -> "
+                f"{ops * sites / rate * 1e3:.4f} ms"
+                + (f"; tensor cores {mma_ms:.4f} ms" if mma_ms else "")
+                + f"), {bound_ms / ms:.1%} of bound; "
+                + (f"bit1 {bit1_ms:.4f} ms ({ms / bit1_ms:.2f}x); "
+                   if bit1_ms else "")
+                + f"compiled code per thread {pipes}"
+                + "".join(f", {p} {t:.4f} ms" for p, t in pipe_ms.items())
+                + f", on {card['smi']}")
+        del planes, jplanes
+        torch.cuda.empty_cache()
+    return out, cases, max_err
+
+
 BIT1_KERNEL = {"source": "ising_tpu_torch/csrc/bit1_sweep.cu",
                "replaces": "ising_tpu/ops/pallas_bit1.py:265"}
 PACKED_KERNEL = {"source": "ising_tpu_torch/csrc/packed_sweep.cu",
                  "replaces": "ising_tpu/ops/pallas_packed.py:396"}
+DENSE_KERNEL = {"source": "ising_tpu_torch/csrc/dense_sweep.cu",
+                "replaces": "ising_tpu/ops/pallas_dense.py:145"}
+MXU_KERNEL = {"source": "ising_tpu_torch/csrc/mxu_sweep.cu",
+              "replaces": "ising_tpu/ops/mxu.py:71"}
 
 
 def kernel_entry(name, path, timing, launches, main_path, max_err, info,
@@ -973,6 +1286,38 @@ def kernel_entry(name, path, timing, launches, main_path, max_err, info,
     }
 
 
+def plane_kernel_entry(name, kernel, path, timing, launches, main_path,
+                       max_err, info):
+    """One entry of the kernels line for dense_sweep or mxu_sweep: the
+    timing of `path` at 16384^2 in the first main-path mode, with every
+    timed mode at both shapes under per_mode."""
+    t = timing[(kernel, PLANE_MAIN_MODES[0], 0.0, path, MAIN_SHAPE)]
+    src = DENSE_KERNEL if kernel == "dense" else MXU_KERNEL
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": src["source"],
+        "sources": [src["source"], "ising_tpu_torch/csrc/site_draws.cuh",
+                    "ising_tpu_torch/csrc/counter_rng.cuh"],
+        "replaces": src["replaces"],
+        "path": path or "ordered",
+        "launches": launches,
+        "main_path": {f"{k[0]}^2 {k[1]}" if isinstance(k, tuple) else k: v
+                      for k, v in main_path.items()},
+        "max_abs_err": max_err,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "held_against_plain": True,
+        "build_s": info.seconds,
+        "per_mode": {f"{s}^2 {m}" + (f" h={f}" if f else ""): v
+                     for (k, m, f, p, s), v in timing.items()
+                     if k == kernel and p == path},
+    }
+
+
 def _on_alarm(signum, frame):
     raise Failed(f"time budget of {BUDGET_S} s exceeded")
 
@@ -995,21 +1340,34 @@ def main() -> int:
         p_cases, p_err = phase_compare_packed(dev)
         say(f"[kernel] {p_cases} packed kernel-vs-plain cases equal, max abs "
             f"err {p_err}  [time {elapsed():.1f} s]")
+        d_cases, d_err = phase_compare_planes(dev, "dense")
+        m_cases, m_err = phase_compare_planes(dev, "mxu")
+        say(f"[kernel] {d_cases} dense and {m_cases} mxu kernel-vs-plain "
+            f"cases equal, max abs err {max(d_err, m_err)}  "
+            f"[time {elapsed():.1f} s]")
         phase_golden()
         say(f"[time] {elapsed():.1f} s")
         ordered, paths = phase_main_path(card)
         p_ordered, p_paths = phase_main_path(card, "packed")
         say(f"[time] {elapsed():.1f} s")
+        d_ordered, d_paths = phase_plane_main_path(card, "dense")
+        m_ordered, _ = phase_plane_main_path(card, "mxu")
+        say(f"[time] {elapsed():.1f} s")
         phase_xla_path(card)
         phase_packed_equality(card)
+        phase_plane_equality(card)
         say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, mix)
         cases, max_err = cases + full_cases, max(max_err, full_err)
         p_timing, full_cases, full_err = phase_timing_packed(card, mix, timing)
         p_cases, p_err = p_cases + full_cases, max(p_err, full_err)
-        say(f"[kernel] {cases} bit1 and {p_cases} packed kernel-vs-plain "
-            f"cases equal in all, max abs err {max(max_err, p_err)}  "
-            f"[time {elapsed():.1f} s]")
+        pl_timing, pl_cases, pl_err = phase_timing_planes(card, mix, timing)
+        d_cases += sum(1 for k in pl_timing if k[0] == "dense") * 2
+        m_cases += sum(1 for k in pl_timing if k[0] == "mxu") * 2
+        d_err, m_err = max(d_err, pl_err), max(m_err, pl_err)
+        say(f"[kernel] {cases} bit1, {p_cases} packed, {d_cases} dense and "
+            f"{m_cases} mxu kernel-vs-plain cases equal in all, max abs err "
+            f"{max(max_err, p_err, d_err, m_err)}  [time {elapsed():.1f} s]")
     except Failed as e:
         say(f"FAILED: {e}")
         return 1
@@ -1038,6 +1396,20 @@ def main() -> int:
             f"packed_sweep[{path}]", path, p_timing,
             sum(r["launches"] for r in runs.values()), runs, p_err, info,
             PACKED_KERNEL))
+    # dense_sweep (ordered and with J planes) and mxu_sweep: launches of
+    # their own main-path runs at 8192^2 and 16384^2
+    entries.append(plane_kernel_entry(
+        "dense_sweep", "dense", None, pl_timing,
+        sum(r["launches"] for r in d_ordered.values()), d_ordered, d_err,
+        info))
+    for path, runs in d_paths.items():
+        entries.append(plane_kernel_entry(
+            f"dense_sweep[{path}]", "dense", path, pl_timing,
+            sum(r["launches"] for r in runs.values()), runs, d_err, info))
+    entries.append(plane_kernel_entry(
+        "mxu_sweep", "mxu", None, pl_timing,
+        sum(r["launches"] for r in m_ordered.values()), m_ordered, m_err,
+        info))
     kernels = {"kernels": entries}
     say(card["smi"])
     say(json.dumps(kernels))

@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed for the disorder realization")
     p.add_argument("--field", type=float, default=0.0,
                    help="uniform external field h (bit1: bit-plane rng "
-                        "modes and hw; packed: u32 modes; xla: any mode)")
+                        "modes and hw; packed, dense: u32 modes; xla: any "
+                        "mode; mxu: none)")
     p.add_argument("--xsl", type=int, default=None,
                    help="X size of independent sub-lattice replicas")
     p.add_argument("--ysl", type=int, default=None,
@@ -72,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="correlation output (not yet ported)")
     p.add_argument("--backend", default="xla",
                    choices=("xla", "dense", "packed", "bit1", "mxu"),
-                   help="update backend (the port runs xla, bit1 and packed)")
+                   help="update backend")
     p.add_argument("--rng", default="threefry13",
                    choices=tuple(sorted(RNG_MODES)),
                    help="rng mode: counter modes (u32 or bit-plane ...b; "

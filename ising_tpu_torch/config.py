@@ -47,7 +47,7 @@ class SimConfig:
 
     seed: int = SEED_DEF
 
-    # Update backend; the port runs "xla", "bit1" and "packed"
+    # Update backend: "xla", "bit1", "packed", "dense" or "mxu"
     # (ops/registry.py).
     backend: str = "xla"
 

@@ -1,9 +1,9 @@
 """Where the main path's time goes on the card, from a torch.profiler trace.
 
     python3 -m ising_tpu_torch.device_trace [--size 16384] [--rng threefry13]
-        [--backend bit1|packed]
+        [--backend bit1|packed|dense|mxu]
 
-Runs the run loop the CLI runs (bit1 unless --backend packed, T = 1.5,
+Runs the run loop the CLI runs (bit1 unless --backend says otherwise, T = 1.5,
 -w 8 -n 64 -p 16 by default) with the profiler recording CPU and CUDA
 activity, and prints, for the span of the run loop that its flips/ns
 times (after the warm-up and the first measurement, which
@@ -13,7 +13,8 @@ times (after the warm-up and the first measurement, which
   of kernel, copy and set intervals), hence the device's idle share;
 - device time by kernel name;
 - the gaps between one sweep kernel (either of the two behind
-  bit1_sweep, or packed_sweep's) and the next kernel: a gap near zero
+  bit1_sweep, or packed_sweep's, dense_sweep's or mxu_sweep's) and the next
+  kernel: a gap near zero
   means the host enqueues launches faster than the card runs them.
 
 The last line is one JSON object with those numbers. With --device cpu it
@@ -35,7 +36,8 @@ from .config import SimConfig
 from .driver import TIMED_WINDOW as WINDOW
 from .driver import Simulation
 
-KERNELS = ("bit1_sweep_kernel", "bit1_planes_kernel", "packed_sweep_kernel")
+KERNELS = ("bit1_sweep_kernel", "bit1_planes_kernel", "packed_sweep_kernel",
+           "dense_sweep_kernel", "mxu_sweep_kernel")
 
 
 def is_kernel(name: str) -> bool:
@@ -127,7 +129,8 @@ def main(argv=None) -> int:
     p.add_argument("-w", "--nwarmup", type=int, default=8)
     p.add_argument("-n", "--nit", type=int, default=64)
     p.add_argument("-p", "--print", dest="print_freq", type=int, default=16)
-    p.add_argument("--backend", default="bit1", choices=("bit1", "packed"))
+    p.add_argument("--backend", default="bit1",
+                   choices=("bit1", "packed", "dense", "mxu"))
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     results = {}

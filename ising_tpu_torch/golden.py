@@ -4,21 +4,22 @@ Each case, keyed (rng mode, temperature), (rng mode, temperature, field)
 or, with quenched disorder or replicas, (rng mode, temperature, field,
 j_prob, xsl, ysl), runs a 64 x 16384 lattice (the full bench width, 32
 rows of words per color) from seed SEED_DEF for NSTEPS steps. A seventh
-entry names the one backend whose trajectory it is: hw draws differ by
-backend (bit1 takes 24 bit planes per word, packed one u32 per spin), and
-the counter modes do not, so ``backends(case)`` lists every backend of the
-port that runs a case. ``up``
+entry names the backend whose trajectory it is: hw draws differ by
+backend (bit1 takes 24 bit planes per word, packed and dense one u32 per
+spin), and the counter modes do not, so ``backends(case)`` lists every
+backend of the port that runs a case. ``up``
 holds the up-spin count before the first step and after each step;
 ``crc32`` is zlib.crc32 of the final black then white bit1 words (uint32,
 little-endian); a disordered case also holds the final ``energy_total``.
 
 The counter-mode values come from the JAX package's xla backend. The hw
 values come from its bit1 and packed backends with the Pallas kernels in
-interpret mode, where the kernels draw hw as salted Philox-10, the stream
-the port's hw is; on a TPU the hardware generator gives other values,
-which nothing here records. tests/test_torch_golden.py derives every case again
-and checks it is equal, and chip_smoke.py checks the port's CUDA kernels
-reproduce them on the card.
+interpret mode (its dense backend gives packed's hw case too), where the
+kernels draw hw as salted Philox-10, the stream the port's hw is; on a TPU
+the hardware generator gives other values, which nothing here records.
+tests/test_torch_golden.py derives every case again and checks it is
+equal, and chip_smoke.py checks the port's CUDA kernels reproduce them on
+the card.
 """
 
 from __future__ import annotations
@@ -91,17 +92,22 @@ GOLDEN = {
         "up": (524222, 523937, 524995, 525428, 525480), "crc32": 0x2D7467B0},
 }
 
-BACKENDS = ("bit1", "xla", "packed")
+BACKENDS = ("bit1", "xla", "packed", "dense")
 
 
 def backends(case) -> tuple:
-    """The port's backends that run `case`: the one it names, else those
-    whose config takes its mode and field. bit1 takes a field only in the
-    bit-plane modes and hw, packed draws u32 only, and xla's hw stream has
-    no counter contract."""
+    """The port's backends that run `case`: those whose config takes its
+    mode, field and replicas. bit1 takes a field only in the bit-plane
+    modes and hw, packed and dense draw u32 only, dense has no replicas,
+    and xla's hw stream has no counter contract. A case that names packed
+    (hw drawn as one salted Philox-10 u32 per spin) is dense's hw stream
+    too. mxu runs none: 64 rows are under its 128-row fence."""
     if len(case) == 7:
-        return (case[6],)
+        # dense shares packed's per-site u32 stream, not its replicas
+        dense = case[6] == "packed" and case[4] is None
+        return (case[6], "dense") if dense else (case[6],)
     rng, field = case[0], case[2] if len(case) > 2 else 0.0
+    replicas = len(case) > 4 and case[4] is not None
     planes = plane_bits(rng) > 0
     out = []
     if planes or rng == "hw" or not field:
@@ -110,6 +116,8 @@ def backends(case) -> tuple:
         out.append("xla")
     if not planes and rng != "hw":
         out.append("packed")
+        if not replicas:
+            out.append("dense")
     return tuple(out)
 
 

@@ -37,9 +37,8 @@ import torch
 
 from ..constants import BLACK, WHITE
 from ..models import ising
-from ..rng import (MASK, PHILOX_ROUNDS, TAG_SWEEP, counter_color_draws,
-                   key_from_seed, parse_rng_mode, plane_bits,
-                   threefry_stream_key)
+from ..rng import (MASK, TAG_SWEEP, counter_color_draws, key_from_seed,
+                   parse_rng_mode, plane_bits, threefry_stream_key)
 from . import kernel_lib
 
 SPW = 32  # spins per word
@@ -176,6 +175,14 @@ def accept_table(kbits: int, t4k: int, t8k: int, tvals10, always10: int):
     return (ctypes.c_uint32 * kernel_lib.TABLE_WORDS)(*words)
 
 
+def draw_mode(rng_mode: str, tag: int):
+    """(mode, tag) of the counter stream drawn under `tag`: hw is Philox-10
+    under the salted tag (the JAX package's off-TPU hw stream)."""
+    if parse_rng_mode(rng_mode)[0] == "hw":
+        return "philox", tag | HW_SALT
+    return rng_mode, tag
+
+
 def draw_planes(rng_mode: str, seed: int, H: int, W1: int, *, step,
                 tag: int, row0=0, device="cpu"):
     """The k = accept_bits(rng_mode) random bit-plane words of one (H, W1)
@@ -184,8 +191,7 @@ def draw_planes(rng_mode: str, seed: int, H: int, W1: int, *, step,
     ordinary counter layout (the port of pallas_packed._draw_plane_list;
     hw: salted Philox-10, pallas_bit1.py's off-TPU hw stream)."""
     k = accept_bits(rng_mode)
-    if parse_rng_mode(rng_mode)[0] == "hw":
-        rng_mode, tag = "philox", tag | HW_SALT
+    rng_mode, tag = draw_mode(rng_mode, tag)
     draws = counter_color_draws(rng_mode, seed, H, k * W1, step=step,
                                 tag=tag, row0=row0, row_stride=k * W1,
                                 device=device)
@@ -373,9 +379,11 @@ def _check_words(name, t, shape, device, fn: str = "bit1_sweep"):
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def _overlaps(a, b) -> bool:
+def overlaps(a, b) -> bool:
+    """Whether the storage of contiguous tensors a and b shares a byte."""
     a0, b0 = a.data_ptr(), b.data_ptr()
-    return a0 < b0 + 4 * b.numel() and b0 < a0 + 4 * a.numel()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
 
 
 def _cuda_stream(device) -> int:
@@ -383,6 +391,17 @@ def _cuda_stream(device) -> int:
 
 
 _FAMILY_CODE = {"philox": 0, "threefry": 1, "chacha": 2}
+
+
+def launch_args(rng_mode: str, seed: int, step, color: int):
+    """(tag, k0, k1, family code, rounds) of a sweep kernel's launch."""
+    mode, tag = draw_mode(rng_mode, TAG_SWEEP | color)
+    family, rounds = parse_rng_mode(mode)
+    if family == "threefry":
+        k0, k1 = threefry_stream_key(seed, step, tag)
+    else:
+        k0, k1 = key_from_seed(seed)
+    return tag, k0, k1, _FAMILY_CODE[family], rounds
 ACCEPT_METROPOLIS, ACCEPT_GREEDY, ACCEPT_FIELD = 0, 1, 2
 
 
@@ -450,17 +469,10 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, jplanes=None, *,
         return dst
     if device.type != "cuda":
         raise ValueError(f"bit1_sweep runs on cuda or cpu, not {device}")
-    if any(_overlaps(dst, t) for t in (src, src_up, src_dn, *(jplanes or ()))):
+    if any(overlaps(dst, t) for t in (src, src_up, src_dn, *(jplanes or ()))):
         raise ValueError("bit1_sweep updates dst in place: dst must not "
                          "overlap src, src_up, src_dn or a J plane")
-    family, rounds = parse_rng_mode(rng_mode)
-    tag = TAG_SWEEP | color
-    if family == "hw":
-        family, rounds, tag = "philox", PHILOX_ROUNDS, tag | HW_SALT
-    if family == "threefry":
-        k0, k1 = threefry_stream_key(seed, step, tag)
-    else:
-        k0, k1 = key_from_seed(seed)
+    tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
     ptrs = (dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
             src_dn.data_ptr(), H, W1, int(row0) & MASK, int(step) & MASK,
             tag, color)
@@ -475,14 +487,14 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, jplanes=None, *,
         else:
             accept = ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS
         code = lib.bit1_planes_launch(
-            *ptrs, k0, k1, _FAMILY_CODE[family], rounds, kbits, accept,
+            *ptrs, k0, k1, family, rounds, kbits, accept,
             accept_table(kbits, t4k, t8k, tvals10, always10), *geometry,
             _cuda_stream(device))
         kernel_lib.check(lib, code, "bit1_planes launch")
     else:
         code = lib.bit1_sweep_launch(
             *ptrs, int(thr[7]), int(thr[8]), int(thr[9]), k0, k1,
-            _FAMILY_CODE[family], rounds, int(bool(greedy)), *geometry,
+            family, rounds, int(bool(greedy)), *geometry,
             _cuda_stream(device))
         kernel_lib.check(lib, code, "bit1_sweep launch")
     bit1_sweep.launches += 1

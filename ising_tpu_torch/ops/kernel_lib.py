@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -65,6 +66,25 @@ SIGNATURES = {
          _c.c_uint32, _c.c_uint32,                            # k0 k1
          _c.c_int, _c.c_int, _c.c_int,                        # family rounds accept
          _c.c_void_p, _c.c_int, _c.c_int,                     # jword csl ysl
+         _c.c_void_p],                                        # stream
+        _c.c_int),
+    "dense_sweep_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # dst src up dn
+         _c.c_int, _c.c_int,                                  # H, C
+         _c.c_uint32, _c.c_uint32, _c.c_uint32, _c.c_int,     # row0 step tag color
+         _c.POINTER(_c.c_uint32),                             # thr10
+         _c.c_uint32, _c.c_uint32,                            # k0 k1
+         _c.c_int, _c.c_int,                                  # family rounds
+         _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # J planes
+         _c.c_void_p],                                        # stream
+        _c.c_int),
+    "mxu_sweep_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # dst src up dn
+         _c.c_int, _c.c_int, _c.c_int,                        # H, C, tq
+         _c.c_uint32, _c.c_uint32, _c.c_uint32, _c.c_int,     # row0 step tag color
+         _c.POINTER(_c.c_uint32),                             # thr10
+         _c.c_uint32, _c.c_uint32,                            # k0 k1
+         _c.c_int, _c.c_int,                                  # family rounds
          _c.c_void_p],                                        # stream
         _c.c_int),
     "ising_cuda_error_string": ([_c.c_int], _c.c_char_p),
@@ -173,6 +193,17 @@ def load():
             fn.restype = restype
         _loaded = (lib, info)
     return _loaded
+
+
+@functools.lru_cache(maxsize=16)
+def _table10(thr: tuple):
+    return (_c.c_uint32 * 10)(*thr)
+
+
+def table10(thr10):
+    """The (10,) u32 threshold table thr10[b*5 + n] as the C array the
+    launchers take (cached by value)."""
+    return _table10(tuple(int(x) for x in thr10))
 
 
 def check(lib, code: int, what: str):

@@ -26,21 +26,18 @@ kernel rows 3 and 4) is not ported: the backend refuses the variable.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import os
 
 import torch
 
 from ..config import not_ported
 from ..constants import BLACK, WHITE
-from ..rng import (MASK, PHILOX_ROUNDS, TAG_SWEEP, counter_color_draws,
-                   key_from_seed, parse_rng_mode, plane_bits,
-                   threefry_stream_key)
+from ..rng import (MASK, TAG_SWEEP, counter_color_draws, parse_rng_mode,
+                   plane_bits)
 from . import kernel_lib
-from .bit1 import (_FAMILY_CODE, ACCEPT_FIELD, ACCEPT_GREEDY,
-                   ACCEPT_METROPOLIS, HW_SALT, _check_replicas, _check_words,
-                   _cuda_stream, _off_column, _overlaps, _s, _u, unpack_rows)
+from .bit1 import (ACCEPT_FIELD, ACCEPT_GREEDY, ACCEPT_METROPOLIS,
+                   _check_replicas, _check_words, _cuda_stream, _off_column,
+                   _s, _u, draw_mode, launch_args, overlaps, unpack_rows)
 
 FIELDS = 8           # spins per word
 M1 = 0x11111111      # the spin bit of every field
@@ -119,11 +116,7 @@ def packed_sweep_reference(dst, src, src_up, src_dn, thr10, row0, step,
     mask = (m1 << 4) - m1
     e = (nsum & mask) | ((0x44444444 - nsum) & (mask ^ MASK))
     ge = {k: (e + (8 - k) * M1) & M8 for k in (1, 2, 3, 4)}
-    tag = TAG_SWEEP | color
-    if parse_rng_mode(rng_mode)[0] == "hw":
-        mode, tag = "philox", tag | HW_SALT
-    else:
-        mode = rng_mode
+    mode, tag = draw_mode(rng_mode, TAG_SWEEP | color)
     draws = counter_color_draws(mode, seed, H, FIELDS * W, step=step,
                                 tag=tag, row0=row0, device=dst.device)
     t = [int(x) for x in thr10]
@@ -161,11 +154,6 @@ def packed_sweep_reference(dst, src, src_up, src_dn, thr10, row0, step,
     return _s(me ^ flip)
 
 
-@functools.lru_cache(maxsize=16)
-def _thr_words(thr: tuple):
-    return (ctypes.c_uint32 * 10)(*thr)
-
-
 def packed_sweep(dst, src, src_up, src_dn, thr10, row0, step, jword=None, *,
                  color: int, seed: int, rng_mode: str, greedy: bool = False,
                  full_table: bool = False, csl: int | None = None,
@@ -188,7 +176,7 @@ def packed_sweep(dst, src, src_up, src_dn, thr10, row0, step, jword=None, *,
     _check_replicas("packed_sweep", H, W, "W", csl, ysl)
     if color not in (BLACK, WHITE):
         raise ValueError(f"packed_sweep: color must be 0 or 1, got {color!r}")
-    family, rounds = parse_rng_mode(rng_mode)
+    family = parse_rng_mode(rng_mode)[0]
     if plane_bits(rng_mode):
         raise ValueError(f"packed_sweep draws u32 per spin; {rng_mode!r} is "
                          "a bit-plane mode")
@@ -205,25 +193,18 @@ def packed_sweep(dst, src, src_up, src_dn, thr10, row0, step, jword=None, *,
         return dst
     if device.type != "cuda":
         raise ValueError(f"packed_sweep runs on cuda or cpu, not {device}")
-    if any(_overlaps(dst, t) for t in (src, src_up, src_dn)
+    if any(overlaps(dst, t) for t in (src, src_up, src_dn)
            + (() if jword is None else (jword,))):
         raise ValueError("packed_sweep updates dst in place: dst must not "
                          "overlap src, src_up, src_dn or the J word")
-    tag = TAG_SWEEP | color
-    if family == "hw":
-        family, rounds, tag = "philox", PHILOX_ROUNDS, tag | HW_SALT
-    if family == "threefry":
-        k0, k1 = threefry_stream_key(seed, step, tag)
-    else:
-        k0, k1 = key_from_seed(seed)
+    tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
     accept = (ACCEPT_FIELD if full_table else
               ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS)
     lib, _ = kernel_lib.load()
     code = lib.packed_sweep_launch(
         dst.data_ptr(), src.data_ptr(), src_up.data_ptr(), src_dn.data_ptr(),
         H, W, int(row0) & MASK, int(step) & MASK, tag, color,
-        _thr_words(tuple(int(x) for x in thr10)), k0, k1,
-        _FAMILY_CODE[family], rounds, accept,
+        kernel_lib.table10(thr10), k0, k1, family, rounds, accept,
         None if jword is None else jword.data_ptr(), csl or 0, ysl or 0,
         _cuda_stream(device))
     kernel_lib.check(lib, code, "packed_sweep launch")

@@ -1,16 +1,11 @@
-"""Backend registry of the port. The xla, bit1 and packed backends run
-here; the others raise NotImplementedError naming the ROADMAP.md queue-1
-item that ports them (see ising_tpu/ops/registry.py for the interface)."""
+"""Backend registry of the port: all five backends of the JAX package
+(see ising_tpu/ops/registry.py for the interface)."""
 
 from __future__ import annotations
 
-from ..config import not_ported
-
-_UNPORTED = {"dense": 9, "mxu": 9}
-
 
 def available_backends():
-    return ("xla", "bit1", "packed")
+    return ("xla", "bit1", "packed", "dense", "mxu")
 
 
 def get_backend(cfg):
@@ -23,7 +18,10 @@ def get_backend(cfg):
     if cfg.backend == "packed":
         from .packed import PackedBackend
         return PackedBackend(cfg)
-    if cfg.backend in _UNPORTED:
-        raise not_ported(f"the {cfg.backend!r} backend",
-                         _UNPORTED[cfg.backend])
+    if cfg.backend == "dense":
+        from .dense import DenseBackend
+        return DenseBackend(cfg)
+    if cfg.backend == "mxu":
+        from .mxu import MxuBackend
+        return MxuBackend(cfg)
     raise ValueError(f"unknown backend {cfg.backend!r}")

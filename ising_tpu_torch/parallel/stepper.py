@@ -4,7 +4,7 @@ The ndev == 1 branch of ``ising_tpu/parallel/sharded.py`` without fusion or
 collectives: each step updates black against white, then white against
 black, with the periodic wrap rows taken from the other plane. The loop
 runs on the host; each color phase is one kernel launch of the backend
-(bit1_sweep or packed_sweep; plain torch on xla).
+(bit1_sweep, packed_sweep, dense_sweep or mxu_sweep; plain torch on xla).
 """
 
 from __future__ import annotations

@@ -84,3 +84,16 @@ def test_trace_runs_packed_on_cpu(capsys):
     assert "[trace] 64^2 chacha8 on packed" in out
     assert device_trace.is_kernel(
         "void (anonymous namespace)::packed_sweep_kernel<2, 8, 0>(...)")
+
+
+@pytest.mark.parametrize("backend,size,kernel", [
+    ("dense", 64, "dense_sweep_kernel<1, 13>"),
+    ("mxu", 256, "mxu_sweep_kernel<0, 10>")])
+def test_trace_runs_dense_and_mxu_on_cpu(backend, size, kernel, capsys):
+    assert device_trace.main(["--size", str(size), "-w", "2", "-n", "4", "-p",
+                              "2", "--rng", "philox", "--backend", backend,
+                              "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"[trace] {size}^2 philox on {backend}" in out
+    assert device_trace.is_kernel(
+        f"void (anonymous namespace)::{kernel}(...)")

@@ -16,6 +16,8 @@ from ising_tpu_torch.driver import Simulation, exponential_print_steps, \
     reference_exp_times
 from ising_tpu_torch.ops import available_backends, get_backend
 from ising_tpu_torch.ops.bit1 import Bit1Backend
+from ising_tpu_torch.ops.dense import DenseBackend
+from ising_tpu_torch.ops.mxu import MxuBackend
 from ising_tpu_torch.ops.packed import PackedBackend
 
 
@@ -126,7 +128,7 @@ def test_cli_prints_jax_magnetization_lines(rng, capsys):
     ["-J", "0.1"], ["--backend", "dense"], ["--xsl", "32", "--ysl", "8"],
     ["--devs", "2"], ["-o"], ["-c"], ["--resume", "x.ck"],
     ["--checkpoint", "x.ck"], ["--algo", "sw"], ["--pt", "1.0,2.0"],
-    ["--profile", "tracedir"], ["--backend", "mxu", "-x", "256"],
+    ["--profile", "tracedir"], ["--backend", "mxu", "-x", "256", "-y", "128"],
     ["-J", "0.5", "--j-seed", "3", "--rng", "hw"],
     ["--backend", "packed"],
 ])
@@ -135,15 +137,16 @@ def test_cli_unported_flags_exit_1(extra, capsys):
     -J and --xsl/--ysl (item 4) run now: -J takes effect, as the JAX
     package's CLI shows with the same flags, and a replica geometry that
     bit1's words cannot tile (xsl/2 = 16 against W1 = 1) exits 1 with the
-    JAX package's wording. The packed backend (item 8) runs now, and
-    prints the JAX package's magnetization lines."""
+    JAX package's wording. The packed backend (item 8) and the dense and
+    mxu backends (item 9) run now, and print the JAX package's
+    magnetization lines."""
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
     code = cli.main(argv + extra)
     out, err = capsys.readouterr()
-    if extra == ["--backend", "packed"]:
+    if extra[0] == "--backend":
         assert code == 0
-        assert "\tbackend: packed (rng: threefry13)" in out
+        assert f"\tbackend: {extra[1]} (rng: threefry13)" in out
         assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
         want = _mag_lines(capsys.readouterr().out)
         assert cli.main(argv + extra + ["-p", "1"]) == 0
@@ -164,21 +167,19 @@ def test_cli_unported_flags_exit_1(extra, capsys):
         assert "not yet ported (ROADMAP item" in err
 
 
-def test_cli_default_backend_is_not_ported(capsys):
-    """The CLI's default backend, xla, is ported now: no --backend runs it;
-    so is packed. The backends still to port, dense and mxu, exit 1 with
-    their ROADMAP item."""
+def test_cli_runs_every_backend(capsys):
+    """The CLI's default backend, xla, runs with no --backend; packed,
+    dense and mxu (at mxu's 128-row fence) run as asked. None is refused
+    as not ported."""
     assert cli.main(["-x", "64", "-y", "8", "-n", "2", "--device",
                      "cpu"]) == 0
     assert "backend: xla (rng: threefry13)" in capsys.readouterr().out
-    assert cli.main(["-x", "64", "-y", "8", "-n", "2", "--device", "cpu",
-                     "--backend", "packed", "--rng", "philox"]) == 0
-    assert "backend: packed (rng: philox)" in capsys.readouterr().out
-    for backend in ("dense", "mxu"):
-        assert cli.main(["-x", "256", "-y", "8", "--device", "cpu",
-                         "--backend", backend]) == 1
-        assert f"'{backend}' backend is not yet ported (ROADMAP item 9)" \
-            in capsys.readouterr().err
+    for backend, rows in (("packed", "8"), ("dense", "8"), ("mxu", "128")):
+        assert cli.main(["-x", "256", "-y", rows, "-n", "2", "--device",
+                         "cpu", "--backend", backend, "--rng", "philox"]) == 0
+        out, err = capsys.readouterr()
+        assert f"backend: {backend} (rng: philox)" in out
+        assert "not yet ported" not in err
 
 
 def test_registry_and_config_fences():
@@ -186,9 +187,10 @@ def test_registry_and_config_fences():
     assert isinstance(get_backend(SimConfig(device="cpu")), XlaBackend)
     assert isinstance(get_backend(SimConfig(backend="packed", ncols=64)),
                       PackedBackend)
-    for backend in ("dense", "mxu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            get_backend(SimConfig(backend=backend, ncols=256))
+    assert isinstance(get_backend(SimConfig(backend="dense", ncols=64)),
+                      DenseBackend)
+    assert isinstance(get_backend(SimConfig(backend="mxu", ncols=256)),
+                      MxuBackend)
     assert isinstance(get_backend(SimConfig(backend="bit1", ncols=64)),
                       Bit1Backend)
     for kw, item in ((dict(ndev=2), 7), (dict(dump_lattice=True), 6),
@@ -219,7 +221,7 @@ def test_registry_and_config_fences():
         SimConfig(ncols=48, rng="chacha6")
     for rng in ("chacha6b", "hw", "chacha8", "philox"):
         SimConfig(backend="xla", ncols=64, rng=rng, field=0.1)
-    assert available_backends() == ("xla", "bit1", "packed")
+    assert available_backends() == ("xla", "bit1", "packed", "dense", "mxu")
 
 
 def test_cuda_requested_without_card_raises(monkeypatch):

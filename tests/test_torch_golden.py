@@ -8,7 +8,8 @@ bit1 backend, with the Pallas kernel in interpret mode, derives hw (the
 off-TPU hw stream) and the bit-plane cases (its xla backend computes the
 same bit-plane trajectories, checked once below, but takes up to a minute
 to compile one of them on the CPU); its packed backend, also in interpret
-mode, derives the case that names packed (hw drawn per spin).
+mode, derives the case that names packed (hw drawn per spin), and its dense
+backend every case that dense runs.
 """
 
 import numpy as np
@@ -91,16 +92,47 @@ def test_port_packed_reproduces_golden_on_cpu(case):
                                   backend="packed") == golden.GOLDEN[case]
 
 
+@pytest.mark.parametrize("case", _cases_of("dense"))
+def test_port_dense_reproduces_golden_on_cpu(case):
+    assert golden.port_trajectory(*case[:6], device="cpu",
+                                  backend="dense") == golden.GOLDEN[case]
+
+
+@pytest.mark.parametrize("case", _cases_of("dense"))
+def test_dense_golden_comes_from_jax_dense(case):
+    """The JAX package's dense backend (its Pallas kernel in interpret
+    mode) gives every case golden.backends lists for dense: the u32
+    counter modes, the u32 field, -J, and packed's hw case."""
+    assert _jax_trajectory(*case[:6], backend="dense") == golden.GOLDEN[case]
+
+
 def test_golden_cases_cover_packed():
-    """Every u32 counter case runs on packed too; hw has a packed case of
-    its own (one salted Philox-10 u32 per spin, not bit1's 24 planes)."""
+    """Every u32 counter case runs on packed too, and on dense where it has
+    no replicas; hw has a packed case of its own (one salted Philox-10 u32
+    per spin, not bit1's 24 planes), which dense draws too."""
     u32 = [c for c in golden.GOLDEN if c[0] != "hw" and not plane_bits(c[0])]
     assert len(u32) == 10 and all("packed" in golden.backends(c) for c in u32)
+    assert [c for c in u32 if "dense" not in golden.backends(c)] == [
+        c for c in u32 if len(c) > 4 and c[4] is not None]
     assert golden.backends(("hw", 1.5)) == ("bit1",)
     hw = ("hw", 1.5, 0.0, None, None, None, "packed")
-    assert golden.backends(hw) == ("packed",)
+    assert golden.backends(hw) == ("packed", "dense")
     assert golden.GOLDEN[hw] != golden.GOLDEN[("hw", 1.5)]
-    assert golden.backends(("philox", 1.5, 0.1)) == ("xla", "packed")
+    assert golden.backends(("philox", 1.5, 0.1)) == ("xla", "packed",
+                                                     "dense")
+    assert len(_cases_of("dense")) == 9
+    assert not _cases_of("mxu")
+
+
+@pytest.mark.parametrize("case, want", [
+    (("hw", 1.5, 0.0, None, None, None, "packed"), ("packed", "dense")),
+    (("hw", 1.5, 0.0, None, None, None, "bit1"), ("bit1",)),
+    (("threefry13", 1.5, 0.0, None, 128, None, "packed"), ("packed",)),
+])
+def test_backends_of_a_case_that_names_one(case, want):
+    """A case that names its backend runs there, and on dense only where it
+    is packed's per-site u32 stream without replicas."""
+    assert golden.backends(case) == want
 
 
 def test_golden_cases_cover_both_families_and_accepts():

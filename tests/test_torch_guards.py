@@ -99,6 +99,9 @@ class FakeCudaWords:
     def numel(self):
         return self.shape[0] * self.shape[1]
 
+    def element_size(self):
+        return 4
+
 
 class FakeLib:
     def __init__(self, code=0):

@@ -1,15 +1,19 @@
-"""The CUDA sources of the bit1 and packed sweeps, compiled for the CPU and
-run through the real wrappers.
+"""The CUDA sources of the bit1, packed and dense sweeps, compiled for the
+CPU and run through the real wrappers.
 
 There is no nvcc here, so csrc/*.cu are compiled with the host C++
 compiler over a small header that stands in for the CUDA runtime: one
-thread at a time runs the kernel body, in grid order. That checks the
+thread at a time runs the kernel body, in grid order (so shared memory
+that thread 0 fills before a barrier is filled before the block's other
+threads read it). That checks the
 kernels' arithmetic (draw layouts of every rng mode, counters with carry,
 neighbours, the u32, bit-serial and 10-class field accepts, the
 quenched-disorder links as J planes and as the split link store, the
 replica wraps; in the packed kernel ChaCha's pair of words, the 4-bit
-rotation at the row's ends, the J word and the replica edges) against their
-plain torch version before any card sees it.
+rotation at the row's ends, the J word and the replica edges; in the dense
+kernel the per-call sites, the 10-entry select and the J planes) against
+their plain torch version before any card sees it. mxu_sweep.cu is left
+out (NOT_EMULATED).
 The card itself checks the compiled kernels in chip_smoke.py.
 """
 
@@ -24,8 +28,8 @@ import numpy as np
 import pytest
 
 from ising_tpu_torch.models import ising
-from ising_tpu_torch.ops import bit1, kernel_lib, packed
-from ising_tpu_torch.rng import PORTED_MODES, plane_bits
+from ising_tpu_torch.ops import bit1, dense, kernel_lib, packed
+from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
 
 import torch
 
@@ -37,6 +41,8 @@ CUDA_SHIM = r"""
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __shared__ static
+inline void __syncthreads() {}
 struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
@@ -45,26 +51,34 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
   s &= 31; uint64_t v = ((uint64_t)hi << 32) | lo; return (uint32_t)((v << s) >> 32); }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-inline dim3 blockIdx, threadIdx, blockDim;
+inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 template <class F, class... A>
-void emulate_launch(dim3 grid, unsigned block, F f, A... a) {
-  blockDim = dim3(block);
-  for (unsigned b = 0; b < grid.x; ++b) {
-    blockIdx = dim3(b);
-    for (unsigned t = 0; t < block; ++t) { threadIdx = dim3(t); f(a...); }
-  }
+void emulate_launch(dim3 grid, dim3 block, F f, A... a) {
+  blockDim = block;
+  gridDim = grid;
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned b = 0; b < grid.x; ++b) {
+      blockIdx = dim3(b, by);
+      for (unsigned ty = 0; ty < block.y; ++ty)
+        for (unsigned t = 0; t < block.x; ++t) { threadIdx = dim3(t, ty); f(a...); }
+    }
 }
 """
 
 # kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
 EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
-                         "packed_sweep.cu": 1}
+                         "packed_sweep.cu": 1, "dense_sweep.cu": 2}
+# Sources that one thread at a time cannot run: mxu_sweep.cu's warp-wide
+# wmma products and its __syncthreads between the staging, the products and
+# the accept. chip_smoke.py holds that kernel against its plain version on
+# the card.
+NOT_EMULATED = {"mxu_sweep.cu": "mxu_sweep_launch"}
 
 
 @pytest.fixture(scope="module")
@@ -76,9 +90,12 @@ def emulated_lib(tmp_path_factory):
     (d / "cuda_runtime.h").write_text(CUDA_SHIM)
     sources = []
     for cu in kernel_lib._sources():
+        if cu.name in NOT_EMULATED:
+            continue
         src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ", cu.read_text())
         # the greedy and the plain instantiation; the planes kernel's field;
-        # the packed kernel's one templated launch
+        # the packed kernel's one templated launch; the dense kernel's words
+        # of four sites and of one
         assert n == EMULATED_LAUNCH_SITES[cu.name]
         sources.append(d / (cu.stem + ".cpp"))
         sources[-1].write_text(src)
@@ -89,6 +106,8 @@ def emulated_lib(tmp_path_factory):
                    timeout=300)
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in kernel_lib.SIGNATURES.items():
+        if name in NOT_EMULATED.values():
+            continue
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = restype
     return lib
@@ -111,6 +130,9 @@ class HostWords:
 
     def numel(self):
         return self.a.size
+
+    def element_size(self):
+        return self.a.itemsize
 
 
 def _torch(a):
@@ -357,3 +379,109 @@ def test_packed_launcher_checks_its_arguments(emulated_lib, args, ok):
     assert emulated_lib.packed_sweep_launch(
         p, p, p, p, 4, 3, 0, 0, 0, 0, thr, 0, 0, 2, 8, 0, None, 0, 0,
         None) != 0
+
+
+class HostPlane(HostWords):
+    """A numpy uint8 plane that the wrapper takes for a CUDA tensor."""
+
+    def __init__(self, a):
+        self.a = np.ascontiguousarray(a, np.uint8)
+        self.shape = self.a.shape
+        self.device = torch.device("cuda", 0)
+        self.dtype = torch.uint8
+
+
+def _bits(gen, shape):
+    return gen.integers(0, 2, shape, dtype=np.uint8)
+
+
+# The dense kernel: the u32 modes and hw, T > 0, the greedy quench and the
+# full table (h != 0, also at T <= 0; not hw, whose field config refuses), on
+# random bit planes, both colors, row offsets whose counters carry into the
+# high word and rows that wrap mod 2^32. (path, (H, C)): H = 1 (both edge rows
+# from src_up / src_dn), C = 16 (one ChaCha call per row), C = 20 and 36
+# (not multiples of 16: Philox and Threefry only), C = 48 (three ChaCha
+# calls), a wide row; J planes. The kernel takes four sites per word where
+# G = C/S is a multiple of 4 (Philox at C = 16, 48, 1056; Threefry at 48,
+# 64, 1056; ChaCha at 64 and 128) and one elsewhere (C = 36: Philox and
+# Threefry, C = 1056: ChaCha).
+DENSE_GEOMETRIES = [
+    ("ordered", (1, 16)), ("ordered", (2, 20)), ("ordered", (6, 48)),
+    ("ordered", (4, 36)), ("ordered", (3, 1056)), ("ordered", (3, 64)),
+    ("jplanes", (5, 32)), ("jplanes", (2, 1056)), ("jplanes", (2, 128)),
+    ("jplanes", (3, 36)),
+]
+
+
+@pytest.mark.parametrize("geometry", DENSE_GEOMETRIES,
+                         ids=[f"{g[0]}-{g[1][0]}x{g[1][1]}"
+                              for g in DENSE_GEOMETRIES])
+def test_dense_kernel_source_matches_plain_version(geometry, emulated_lib,
+                                                   monkeypatch):
+    monkeypatch.setattr(kernel_lib, "load", lambda: (emulated_lib, None))
+    monkeypatch.setattr(dense, "_cuda_stream", lambda device: None)
+    path, (H, C) = geometry
+    gen = np.random.default_rng(200 + DENSE_GEOMETRIES.index(geometry))
+    for i, (mode, (temp, field)) in enumerate(itertools.product(
+            PACKED_MODES, PACKED_ACCEPTS)):
+        family = parse_rng_mode(mode)[0]
+        if C % dense.SITES_PER_CALL.get(family, 4) or (field and mode == "hw"):
+            continue
+        color = i % 2
+        row0 = (0, (1 << 29) - 4, (1 << 32) - 2)[i % 3]
+        dst, src = _bits(gen, (H, C)), _bits(gen, (H, C))
+        up, dn = _bits(gen, (1, C)), _bits(gen, (1, C))
+        jp = [_bits(gen, (H, C)) for _ in range(4)] if path == "jplanes" \
+            else None
+        kw = dict(color=color, seed=int(gen.integers(0, 1 << 63)),
+                  rng_mode=mode)
+        thr = ising.threshold_table(temp, field)
+        step = int(gen.integers(0, 1 << 32))
+        t = lambda a: torch.from_numpy(a.copy())
+        want = dense.dense_sweep_reference(
+            t(dst), t(src), t(up), t(dn), thr, row0, step,
+            None if jp is None else [t(p) for p in jp], **kw)
+        d = HostPlane(dst)
+        dense.dense_sweep(d, HostPlane(src), HostPlane(up), HostPlane(dn),
+                          thr, row0, step,
+                          None if jp is None else [HostPlane(p) for p in jp],
+                          **kw)
+        np.testing.assert_array_equal(
+            d.a, want.numpy(),
+            err_msg=f"{geometry} {mode} T={temp} h={field} color={color} "
+                    f"row0={row0}")
+
+
+def test_dense_geometries_cover_the_edges():
+    shapes = [g[1] for g in DENSE_GEOMETRIES]
+    assert any(h == 1 for h, _ in shapes)
+    assert {c % 16 == 0 for _, c in shapes} == {True, False}
+    assert any(c == 16 for _, c in shapes)
+    assert {g[0] for g in DENSE_GEOMETRIES} == {"ordered", "jplanes"}
+    # every family on both the four-site and the one-site word, with and
+    # without J planes
+    for path in ("ordered", "jplanes"):
+        for S in dense.SITES_PER_CALL.values():
+            gs = {(c // S) % 4 == 0 for p, (_, c) in DENSE_GEOMETRIES
+                  if p == path and c % S == 0}
+            assert gs == {True, False}
+
+
+@pytest.mark.parametrize("args,ok", [
+    ((0, 10, 16, 0), True),
+    ((2, 4, 16, 4), True),         # ChaCha-4 with four J planes
+    ((1, 13, 18, 0), True),        # Threefry: C % 2
+    ((0, 9, 16, 0), False),        # no Philox-9
+    ((2, 8, 24, 0), False),        # ChaCha: C % 16
+    ((0, 10, 18, 0), False),       # Philox: C % 4
+    ((1, 20, 16, 2), False),       # two of the four J planes
+])
+def test_dense_launcher_checks_its_arguments(emulated_lib, args, ok):
+    family, rounds, C, links = args
+    buf = np.zeros((2, C), np.uint8)
+    p = buf.ctypes.data
+    thr = (ctypes.c_uint32 * 10)()
+    jp = [p] * links + [None] * (4 - links)
+    code = emulated_lib.dense_sweep_launch(
+        p, p, p, p, 2, C, 0, 0, 0, 0, thr, 0, 0, family, rounds, *jp, None)
+    assert (code == 0) == ok

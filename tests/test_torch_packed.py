@@ -238,6 +238,9 @@ class _CudaWords:
     def numel(self):
         return self.shape[0] * self.shape[1]
 
+    def element_size(self):
+        return 4
+
 
 def test_wrapper_refuses_overlap_before_a_launch(monkeypatch):
     """dst is updated in place: a dst that overlaps src or the J word is
