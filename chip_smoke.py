@@ -26,11 +26,18 @@ Phases, each printed as it ends:
                columns (H = 14 and 7, counters that carry, rows that wrap)
                in the u32 modes and hw, at T > 0, T = 0, h = 0.3 (not hw)
                and with J planes; mxu_sweep at 16384^2, 128 x 256 and
-               256 x 768 at T > 0 and T = 0;
+               256 x 768 at T > 0 and T = 0; then the cluster labeler,
+               label_pass, one pass from the site ids and from in-cluster
+               labels against local_pass_reference (its changed flag
+               too), and whole labelings against label_clusters, at
+               4096^2, 1024^2 and 200 x 328 (tiles that do not divide it)
+               and in replicas of 128^2, 16^2 and 32 x 64, with bonds
+               open at p = 0, 0.585 and 1;
   4. golden    the port's Simulation on the card reproduces the JAX
                package's trajectories recorded in ising_tpu_torch/golden.py,
                the disordered ones with their energy, on every backend of
-               the port that runs each case (golden.backends);
+               the port that runs each case (golden.backends), and the
+               Swendsen-Wang ones (golden.SW_GOLDEN);
   5. main path the CLI's Simulation at 16384^2 (bench.py's shape) in
                threefry13, philox and chacha6b, three runs each; with -J 0.1
                (the split link store) in threefry13 and chacha6b, three runs
@@ -53,7 +60,13 @@ Phases, each printed as it ends:
                reading its kernel's launch count; at 2048^2 mxu's, dense's,
                bit1's and xla's lattices equal in threefry13 and philox,
                dense's and bit1's lattices and energy with -J 0.1, mxu's,
-               dense's and packed's in hw;
+               dense's and packed's in hw. Then --algo sw, the README's
+               command at 4096^2 and T = Tc (three runs), with --xsl 128
+               --ysl 128 and with --field 0.1, and 4 updates at 16384^2,
+               each reading label_pass's launch count (it must equal the
+               passes the run counted), the passes per update and the
+               flag reads; at 256^2 the card's lattice after 8 updates
+               equals the CPU's;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
@@ -66,7 +79,13 @@ Phases, each printed as it ends:
                paths in threefry13, philox and chacha8, beside bit1's time
                in the same mode and path; then dense_sweep (ordered, with
                J planes, with the field in philox) and mxu_sweep in every
-               u32 mode and hw at 16384^2 and 8192^2 the same way.
+               u32 mode and hw at 16384^2 and 8192^2 the same way; then
+               at 4096^2 and 16384^2, on bonds drawn at Tc from the main
+               path's lattice, a labeling (ms, passes, ms a pass, against
+               its 6 B a site bytes bound and the plain label_clusters)
+               and the other parts of an update (bonds, coins and flip,
+               the ghost), and at 4096^2 the labeling by passes per flag
+               read and by tile.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -91,8 +110,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ising_tpu_torch import cli, golden, observables
-from ising_tpu_torch.driver import Simulation
+from ising_tpu_torch import cli, cluster, golden, observables
+from ising_tpu_torch.constants import TCRIT
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
 from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
@@ -186,6 +205,32 @@ PLANE_PATH_BYTES = {None: 3, "jplanes": 7}
 BF16_FLOPS_PER_S = 989e12   # H100 SXM tensor cores, bf16, dense
 SWEEPS = {"bit1": bit1.bit1_sweep, "packed": packed.packed_sweep,
           "dense": dense.dense_sweep, "mxu": mxu.mxu_sweep}
+# Every launch counter: set to 0 before each main-path run.
+COUNTERS = (*SWEEPS.values(), cluster.label_pass)
+
+# Swendsen-Wang (--algo sw) and its cluster labeler (kernel row 7): the
+# README's command at 4096^2 and T = Tc (README.md:62), three runs, then
+# in replica mode and with the field, one run each; a few updates at
+# 16384^2; at 256^2 the card's lattice against the CPU's. The labeler's
+# kernel-vs-plain cases: (Y, X, ysl, xsl) with bonds open at LABEL_PROBS,
+# a shape whose tiles do not divide it (200 x 328), and the replica
+# geometries 128 x 128 (one replica a tile), 16 x 16 and 32 x 64.
+SW_SHAPE, SW_ITERS, SW_PRINT = 4096, 64, 8
+SW_FLAGS = ["--algo", "sw", "-a", "1.0"]
+SW_RUNS = (("full lattice", [], 3), ("replicas", REPLICA_FLAGS, 1),
+           ("field", ["--field", "0.1"], 1))
+SW_SCALE_SHAPE, SW_SCALE_ITERS = 16384, 4
+SW_EQUALITY_SHAPE, SW_EQUALITY_ITERS = 256, 8
+LABEL_CASES = ((SW_SHAPE, SW_SHAPE, None, None), (1024, 1024, None, None),
+               (200, 328, None, None), (SW_SHAPE, SW_SHAPE, 128, 128),
+               (1024, 1024, 16, 16), (1024, 1024, 32, 64))
+LABEL_PROBS = (0.0, 0.585, 1.0)
+# A labeling reads the two bond planes and writes the labels: 6 B a site.
+LABEL_BYTES_PER_SITE = 6
+LABEL_READS = (1, 2, 4, 8)         # passes per flag read, timed at 4096^2
+LABEL_TILES = ((64, 128), (128, 128), (32, 128))
+LABEL_KERNEL = {"source": "ising_tpu_torch/csrc/cluster_label.cu",
+                "replaces": "ising_tpu/cluster.py:168"}
 
 T_START = time.perf_counter()
 
@@ -725,10 +770,11 @@ def phase_golden():
 
 
 def cli_simulation(argv):
-    """A Simulation from CLI flags, built as cli.main builds it."""
+    """A Simulation (SwendsenWang for --algo sw) from CLI flags, built as
+    cli.main builds it."""
     args = cli.build_parser().parse_args(argv)
     require(cli.unported_flag(args) is None, f"unported flag in {argv}")
-    return Simulation(cli.config_from_args(args))
+    return cli.build_simulation(args)
 
 
 def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
@@ -739,7 +785,7 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
     every kernel are set to 0 just before each run loop and read just
     after: the backend's own must be 2 per step, the others 0."""
     sweep = SWEEPS[backend]
-    others = [f for b, f in SWEEPS.items() if b != backend]
+    others = [f for f in COUNTERS if f is not sweep]
     name = sweep.__name__
     launches, rates, setups, peaks = 0, [], [], []
     for _ in range(runs):
@@ -753,7 +799,7 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
         torch.cuda.synchronize()
         setups.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
-        for f in SWEEPS.values():
+        for f in COUNTERS:
             f.launches = 0
         result = sim.run()
         n = sweep.launches
@@ -841,7 +887,7 @@ def phase_plane_equality(card):
                 for be in backends}
         rates = {}
         for be, sim in sims.items():
-            for f in SWEEPS.values():
+            for f in COUNTERS:
                 f.launches = 0
             rates[be] = sim.run()["flips_ns"]
             if be in SWEEPS:
@@ -1318,6 +1364,290 @@ def plane_kernel_entry(name, kernel, path, timing, launches, main_path,
     }
 
 
+def random_bonds(gen, Y, X, p, device):
+    return tuple(torch.from_numpy(gen.random((Y, X)) < p).to(device)
+                 for _ in range(2))
+
+
+def one_pass(lab, o_r, o_d, tile, geo):
+    """label_pass into a new plane: (labels, changed flag)."""
+    out = torch.empty(o_r.shape, dtype=torch.int32, device=o_r.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=o_r.device)
+    cluster.label_pass(lab, o_r, o_d, out, flag, tile=tile, **geo)
+    return out, flag
+
+
+def phase_compare_labels(dev):
+    """The labeler against its plain versions, bit for bit: one pass from
+    the site ids and from random in-cluster labels (each site's own id or
+    its cluster's least) against local_pass_reference, the changed flag
+    included, and a whole labeling against label_clusters; every case of
+    LABEL_CASES at every bond probability of LABEL_PROBS, at the tile
+    pick_tile gives it. Returns (cases, max abs err)."""
+    gen = np.random.default_rng(2026)
+    cases, max_err = 0, 0
+    for Y, X, ysl, xsl in LABEL_CASES:
+        geo = dict(ysl=ysl, xsl=xsl)
+        tile = cluster.pick_tile(Y, X, **geo)
+        passes = []
+        for p in LABEL_PROBS:
+            o_r, o_d = random_bonds(gen, Y, X, p, dev)
+            want = cluster.label_clusters(o_r, o_d, **geo)
+            ids = cluster.site_ids(Y, X, device=dev, **geo).to(torch.int32)
+            pick = torch.from_numpy(gen.random((Y, X)) < 0.5).to(dev)
+            for lab in (None, torch.where(pick, want, ids)):
+                out, flag = one_pass(lab, o_r, o_d, tile, geo)
+                ref = cluster.local_pass_reference(lab, o_r, o_d, tile=tile,
+                                                   **geo)
+                torch.cuda.synchronize()
+                err = int((out.to(torch.int64) - ref.to(torch.int64))
+                          .abs().max())
+                max_err = max(max_err, err)
+                went_down = not torch.equal(ref, ids if lab is None else lab)
+                require(torch.equal(out, ref)
+                        and bool(flag.item()) == went_down,
+                        f"label_pass != plain at {Y}x{X} replicas {ysl}x{xsl}"
+                        f" tile {tile} p={p} "
+                        f"{'ids' if lab is None else 'in-cluster labels'}; "
+                        f"flag {flag.item()}, plain changed {went_down}")
+                cases += 1
+            got, stats = cluster.label_clusters_tiled(o_r, o_d,
+                                                      return_stats=True, **geo)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"label_clusters_tiled != label_clusters at {Y}x{X} "
+                    f"replicas {ysl}x{xsl} p={p}")
+            cases += 1
+            passes.append(stats["passes"])
+        say(f"[label] {Y}x{X} replicas {ysl}x{xsl}, tile {tile}: one pass "
+            f"from the ids and from in-cluster labels equal to the plain "
+            f"pass, labelings equal to label_clusters at p = "
+            f"{', '.join(map(str, LABEL_PROBS))} (passes {passes})")
+    return cases, max_err
+
+
+def phase_sw_golden():
+    for case, want in golden.SW_GOLDEN.items():
+        got = golden.port_sw_trajectory(*case, device="cuda")
+        require(got == want, f"SW golden {case}: got {got}, want {want}")
+        say(f"[golden] SW {golden.SW_NROWS}x{golden.SW_NCOLS} {case}: up "
+            f"counts {got['up']} and crc32 {got['crc32']:08X} match the JAX "
+            "package")
+
+
+def pass_summary(counts):
+    """(median, min, max) passes per update from a Counter of them."""
+    flat = sorted(counts.elements())
+    return flat[len(flat) // 2], flat[0], flat[-1]
+
+
+def sw_runs(card, what, extra, runs, shape=SW_SHAPE, iters=SW_ITERS,
+            prints=SW_PRINT, e_max=-1.2):
+    """`runs` CLI runs of --algo sw at shape^2, T = Tc, with the flags
+    `extra`: set-up timed, peak memory read, every launch count set to 0
+    just before the run loop and read after it: label_pass's must equal
+    the passes the run counted (and be > 0), the sweeps' 0. E/N must lie
+    in (-2.2, e_max)."""
+    rates, launches = [], 0
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sim = cli_simulation(SW_FLAGS + ["-x", str(shape), "-y", str(shape),
+                                         "-n", str(iters), "-p", str(prints)]
+                             + extra)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        require(isinstance(sim, cluster.SwendsenWang), "not a SwendsenWang")
+        for f in COUNTERS:
+            f.launches = 0
+        result = sim.run()
+        n = cluster.label_pass.launches
+        passes = sum(k * v for k, v in sim.pass_counts.items())
+        require(result["steps"] == iters,
+                f"ran {result['steps']} of {iters} updates")
+        require(n > 0 and n == passes,
+                f"label_pass launched {n} times, the run counted {passes}")
+        require(not any(f.launches for f in SWEEPS.values()),
+                "a Metropolis kernel launched on the SW path")
+        e_n = sim.energy()
+        m = result["magnetization"]
+        require(math.isfinite(e_n) and -2.2 < e_n < e_max and 0 <= m <= 1,
+                f"E/N = {e_n}, |m| = {m} after the SW {what} run")
+        if sim.cfg.xsl is not None:
+            rm = sim.replica_magnetizations()
+            count = (shape // sim.cfg.xsl) * (shape // sim.cfg.ysl)
+            require(rm.shape == (count,) and np.all((rm >= 0) & (rm <= 1)),
+                    f"replica |m| of shape {rm.shape}")
+            say(f"[sw] {count} replica |m|: mean {rm.mean():.6f}, range "
+                f"{rm.min():.6f}-{rm.max():.6f}")
+        med, lo, hi = pass_summary(sim.pass_counts)
+        updates = sum(sim.pass_counts.values())
+        launches += n
+        rates.append(result["flips_ns"])
+        say(f"[sw] {shape}^2 {what}: label_pass launches {n} over {updates} "
+            f"updates, passes per update median {med} (range {lo}-{hi}), "
+            f"flag reads per update {sim.flag_reads / updates:.2f}; E/N "
+            f"{e_n:.6f}, |m| {m:.6f}, {result['flips_ns']:.4f} flips/ns; "
+            f"set-up {setup:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on "
+            f"{card['smi']}")
+        last = sim
+        del sim
+        torch.cuda.empty_cache()
+    median = sorted(rates)[len(rates) // 2]
+    say(f"[sw] {shape}^2 {what}: {median:.4f} flips/ns median of {runs} "
+        f"runs (range {min(rates):.4f}-{max(rates):.4f})")
+    return {"launches": launches, "flips_ns": median, "flips_ns_runs": rates,
+            "passes_per_update": pass_summary(last.pass_counts),
+            "full": last.full}
+
+
+def phase_sw_main(card):
+    """The README's --algo sw runs (SW_RUNS), the 16384^2 run, and at
+    256^2 the card's lattice, passes and flag reads after
+    SW_EQUALITY_ITERS updates against the CPU's (the plain path)."""
+    out = {what: sw_runs(card, what, extra, runs)
+           for what, extra, runs in SW_RUNS}
+    # 4 updates from the random start: E/N about -1.16 (256^2, CPU)
+    out["scale"] = sw_runs(card, "scale", [], 1, SW_SCALE_SHAPE,
+                           SW_SCALE_ITERS, SW_SCALE_ITERS, -0.9)
+    flags = SW_FLAGS + ["-x", str(SW_EQUALITY_SHAPE), "-y",
+                        str(SW_EQUALITY_SHAPE)]
+    for extra in ([], ["--field", "0.1"], ["--xsl", "64", "--ysl", "32"]):
+        sims = [cli_simulation(flags + extra + dev)
+                for dev in ([], ["--device", "cpu"])]
+        for sim in sims:
+            sim.advance(SW_EQUALITY_ITERS)
+        require(torch.equal(sims[0].full.cpu(), sims[1].full)
+                and sims[0].pass_counts == sims[1].pass_counts
+                and sims[0].flag_reads == sims[1].flag_reads,
+                f"SW at {SW_EQUALITY_SHAPE}^2 {' '.join(extra)}: the card's "
+                "run differs from the CPU's")
+        say(f"[sw] {SW_EQUALITY_SHAPE}^2 {' '.join(extra)}: lattice after "
+            f"{SW_EQUALITY_ITERS} updates, passes "
+            f"{dict(sims[0].pass_counts)} and flag reads equal to the CPU's")
+    return out
+
+
+def event_ms(fn, n: int = 1) -> float:
+    """ms per call of fn() over n calls (time_launches), after one warm-up
+    call."""
+    fn()
+    return time_launches(lambda _: fn(), n)
+
+
+def phase_sw_timing(card, states):
+    """At 4096^2 and 16384^2, from the lattice the main path left at Tc:
+    the bonds of one update at Tc, then the labeling by the kernel (ms,
+    passes, ms per pass) against the bound and the plain label_clusters
+    (bit for bit, and timed), and the other parts of an update: bonds,
+    coins and flip, the ghost. At 4096^2 also the labeling at other
+    passes per flag read and other tiles. Returns {shape: timing}."""
+    out = {}
+    seed, step = 12345, 1000
+    thr = cluster.bond_threshold(TCRIT)
+    thr_ghost = cluster.bond_threshold(TCRIT, 0.1)
+    for shape, full in states.items():
+        Y = X = shape
+        o_r, o_d, _ = cluster.draw_bonds(full, thr, seed, step)
+        labels, stats = cluster.label_clusters_tiled(o_r, o_d,
+                                                     return_stats=True)
+        t0 = time.perf_counter()
+        want = cluster.label_clusters(o_r, o_d)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(torch.equal(labels, want),
+                f"label_clusters_tiled != label_clusters at {shape}^2, Tc")
+        runs = sorted(event_ms(lambda: cluster.label_clusters_tiled(o_r, o_d))
+                      for _ in range(TIMED_REPEATS))
+        ms = runs[len(runs) // 2]
+        tile = cluster.pick_tile(Y, X)
+        out_plane, flag = one_pass(labels, o_r, o_d, tile, {})
+        pass_ms = event_ms(lambda: one_pass(labels, o_r, o_d, tile, {}), 20)
+        ref = cluster.local_pass_reference(labels, o_r, o_d, tile=tile)
+        torch.cuda.synchronize()
+        require(torch.equal(out_plane, ref) and not flag.item(),
+                f"a pass at the fixpoint changed labels at {shape}^2")
+        bound_ms = LABEL_BYTES_PER_SITE * Y * X / HBM_BYTES_PER_S * 1e3
+        bonds_ms = event_ms(lambda: cluster.draw_bonds(full, thr, seed, step))
+        field_bonds_ms = event_ms(lambda: cluster.draw_bonds(
+            full, thr, seed, step, field=0.1, thr_ghost=thr_ghost))
+        _, _, ghost = cluster.draw_bonds(full, thr, seed, step, field=0.1,
+                                         thr_ghost=thr_ghost)
+        flip_ms = event_ms(lambda: cluster.flip_clusters(full, labels, seed,
+                                                         step))
+        ghost_flip_ms = event_ms(lambda: cluster.flip_clusters(
+            full, labels, seed, step, ghost))
+        density = float((o_r.sum() + o_d.sum()) / (2 * Y * X))
+        t = {"ms": ms, "runs": runs, "passes": stats["passes"],
+             "reads": stats["reads"], "ms_per_pass": pass_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bond_density": density, "bonds_ms": bonds_ms,
+             "bonds_field_ms": field_bonds_ms, "flip_ms": flip_ms,
+             "flip_field_ms": ghost_flip_ms, "tile": tile}
+        say(f"[sw-timing] {shape}^2 at Tc (bond density {density:.4f}): "
+            f"labeling {ms:.4f} ms (median of {TIMED_REPEATS}, range "
+            f"{runs[0]:.4f}-{runs[-1]:.4f}), {stats['passes']} passes of "
+            f"tile {tile}, {stats['reads']} flag reads, {pass_ms:.4f} ms a "
+            f"pass; bound {bound_ms:.4f} ms (bytes, "
+            f"{LABEL_BYTES_PER_SITE} B a site), {bound_ms / ms:.2%} of it; "
+            f"plain label_clusters {plain_ms:.1f} ms; per update: bonds "
+            f"{bonds_ms:.3f} ms ({field_bonds_ms:.3f} with the ghost), "
+            f"labeling {ms:.3f}, coins and flip {flip_ms:.3f} "
+            f"({ghost_flip_ms:.3f} with the ghost) on {card['smi']}")
+        if shape == SW_SHAPE:
+            t["per_read"] = {}
+            for k in LABEL_READS:
+                t["per_read"][k] = event_ms(
+                    lambda: cluster.label_clusters_tiled(
+                        o_r, o_d, passes_per_read=k), 3)
+            t["per_tile"] = {}
+            for tl in LABEL_TILES:
+                got, st = cluster.label_clusters_tiled(o_r, o_d, tile=tl,
+                                                       return_stats=True)
+                require(torch.equal(got, want), f"tile {tl} != plain")
+                t["per_tile"][f"{tl[0]}x{tl[1]}"] = (event_ms(
+                    lambda: cluster.label_clusters_tiled(o_r, o_d, tile=tl),
+                    3), st["passes"])
+            say(f"[sw-timing] {shape}^2 labeling ms by passes per flag read "
+                + ", ".join(f"{k}: {v:.4f}" for k, v in t["per_read"].items())
+                + "; by tile " + ", ".join(
+                    f"{tl}: {v[0]:.4f} ms, {v[1]} passes"
+                    for tl, v in t["per_tile"].items()))
+        out[shape] = t
+        del o_r, o_d, labels, want, ghost, out_plane, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def label_entry(sw_main, timing, cases, max_err, info):
+    """The kernels line's entry of the labeler: launches of the --algo sw
+    main-path runs, timing of a labeling at 4096^2 at Tc."""
+    t = timing[SW_SHAPE]
+    return {
+        "name": "label_clusters",
+        "route": "cuda",
+        "source": LABEL_KERNEL["source"],
+        "sources": [LABEL_KERNEL["source"]],
+        "replaces": LABEL_KERNEL["replaces"],
+        "path": "--algo sw",
+        "launches": sum(r["launches"] for r in sw_main.values()),
+        "main_path": {k: {kk: v for kk, v in r.items() if kk != "full"}
+                      for k, r in sw_main.items()},
+        "max_abs_err": max_err,
+        "compared_cases": cases,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "held_against_plain": True,
+        "build_s": info.seconds,
+        "per_shape": {f"{s}^2": tt for s, tt in timing.items()},
+    }
+
+
 def _on_alarm(signum, frame):
     raise Failed(f"time budget of {BUDGET_S} s exceeded")
 
@@ -1345,7 +1675,11 @@ def main() -> int:
         say(f"[kernel] {d_cases} dense and {m_cases} mxu kernel-vs-plain "
             f"cases equal, max abs err {max(d_err, m_err)}  "
             f"[time {elapsed():.1f} s]")
+        l_cases, l_err = phase_compare_labels(dev)
+        say(f"[kernel] {l_cases} label_pass and labeling cases equal to the "
+            f"plain versions, max abs err {l_err}  [time {elapsed():.1f} s]")
         phase_golden()
+        phase_sw_golden()
         say(f"[time] {elapsed():.1f} s")
         ordered, paths = phase_main_path(card)
         p_ordered, p_paths = phase_main_path(card, "packed")
@@ -1356,6 +1690,8 @@ def main() -> int:
         phase_xla_path(card)
         phase_packed_equality(card)
         phase_plane_equality(card)
+        say(f"[time] {elapsed():.1f} s")
+        sw_main = phase_sw_main(card)
         say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, mix)
         cases, max_err = cases + full_cases, max(max_err, full_err)
@@ -1368,6 +1704,10 @@ def main() -> int:
         say(f"[kernel] {cases} bit1, {p_cases} packed, {d_cases} dense and "
             f"{m_cases} mxu kernel-vs-plain cases equal in all, max abs err "
             f"{max(max_err, p_err, d_err, m_err)}  [time {elapsed():.1f} s]")
+        sw_timing = phase_sw_timing(card, {
+            SW_SHAPE: sw_main["full lattice"]["full"],
+            SW_SCALE_SHAPE: sw_main["scale"]["full"]})
+        say(f"[time] {elapsed():.1f} s")
     except Failed as e:
         say(f"FAILED: {e}")
         return 1
@@ -1410,6 +1750,7 @@ def main() -> int:
         "mxu_sweep", "mxu", None, pl_timing,
         sum(r["launches"] for r in m_ordered.values()), m_ordered, m_err,
         info))
+    entries.append(label_entry(sw_main, sw_timing, l_cases, l_err, info))
     kernels = {"kernels": entries}
     say(card["smi"])
     say(json.dumps(kernels))

@@ -2,9 +2,10 @@
 --device. Runs on the card unless --device cpu is given:
 
     python -m ising_tpu_torch --backend bit1 -y 2048 -x 2048 -n 128 -a 0.66 -p 16
+    python -m ising_tpu_torch --algo sw -x 4096 -y 4096 -n 64 -a 1.0 -p 8
 
 Without --backend it runs the xla backend (plain torch), as the JAX
-package's CLI does.
+package's CLI does; --algo sw runs Swendsen-Wang cluster updates on it.
 
 Flags of features the port does not run yet exit 1 with the ROADMAP.md
 queue-1 item that ports them.
@@ -80,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "chacha6b is the fast tier) or hw")
     p.add_argument("--algo", default="metropolis",
                    choices=("metropolis", "sw"),
-                   help="update algorithm (sw is not yet ported)")
+                   help="update algorithm: checkerboard Metropolis, or "
+                        "Swendsen-Wang cluster updates (sw; backend xla)")
     p.add_argument("--pt", default=None, metavar="T1,T2,...",
                    help="parallel tempering (not yet ported)")
     p.add_argument("--sweeps-per-swap", type=int, default=8,
@@ -106,7 +108,6 @@ def unported_flag(args):
         ("-c/--corr", args.corr, 6),
         ("--resume", args.resume is not None, 6),
         ("--checkpoint", args.checkpoint is not None, 6),
-        ("--algo sw", args.algo == "sw", 10),
         ("--pt", args.pt is not None, 11),
         ("--profile", args.profile is not None, 12),
     )
@@ -136,23 +137,39 @@ def config_from_args(args) -> SimConfig:
         dump_lattice=args.out, corr_out=args.corr, device=args.device)
 
 
+def build_simulation(args):
+    """The run that cli.main drives: SwendsenWang for --algo sw, else
+    Simulation, from config_from_args(args)."""
+    cfg = config_from_args(args)
+    if args.algo == "sw":
+        from .cluster import SwendsenWang
+        return SwendsenWang(cfg)
+    from .driver import Simulation
+    return Simulation(cfg)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.pt is None and args.algo == "sw" and (args.resume
+                                                  or args.checkpoint):
+        print("ERROR: --algo sw does not support --resume/--checkpoint",
+              file=sys.stderr)
+        return 1
     unported = unported_flag(args)
     if unported is not None:
         flag, item = unported
         print(f"ERROR: {flag} is not yet ported (ROADMAP item {item})",
               file=sys.stderr)
         return 1
-    from .driver import Simulation
     try:
-        cfg = config_from_args(args)
-        sim = Simulation(cfg)
+        sim = build_simulation(args)
     except (ValueError, NotImplementedError) as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
+    cfg = sim.cfg
 
-    print("ising-tpu-torch run:")
+    print(f"ising-tpu-torch run"
+          f"{' (Swendsen-Wang)' if args.algo == 'sw' else ''}:")
     print(f"\tlattice: {cfg.nrows} x {cfg.ncols} "
           f"({cfg.nspins / 1e6:.1f} M spins)")
     print(f"\ttemperature: {sim.temp:f} ({sim.temp / TCRIT:f} * T_crit)")

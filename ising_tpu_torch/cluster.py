@@ -1,0 +1,539 @@
+"""Swendsen-Wang cluster updates (--algo sw), with the cluster labeler's
+pass as a hand-written CUDA kernel.
+
+The port of ``ising_tpu/cluster.py``, on one device. Each update
+  * opens the bond between two aligned neighbours with p = 1 - exp(-2/T):
+    a raw Philox-10 draw on the TAG_CLUSTER streams, compared unsigned
+    against bond_threshold's u32 (the port keeps u32 draws in int64);
+  * labels the Fortuin-Kasteleyn clusters: each site gets the minimum
+    site id of its connected component under the open bonds, periodic in
+    both axes, or within its replica in replica mode;
+  * flips every cluster by the coin of its label (one Threefry-13 call of
+    the id), except, under a uniform field, the clusters bonded to the
+    ghost spin.
+So trajectories are bit-identical to the JAX package's for a seed.
+
+Site ids. In replica mode (xsl, ysl) the id of site (y, x) is
+rep * ysl * xsl + (y % ysl) * xsl + (x % xsl), rep = (y // ysl) * (X // xsl)
++ x // xsl: the JAX package labels each replica in its batch layout and
+adds rep * ysl * xsl. With one replica of (Y, X) this is y * X + x, so one
+convention serves both paths. Within a replica, ids grow with the flat
+position, so the component's minimum position carries its minimum id; but
+an id is not a position, and nothing here gathers by id.
+
+The labeler (the port of ``label_clusters_tiled`` and its Pallas kernel
+``_local_pass_kernel``, kernel row 7): passes over tiles of the lattice.
+One pass reads labels A, pulls across the open bonds that leave a tile
+(the tile edges and the periodic or replica wraps), then takes the minimum
+over each component of the bonds inside the tile, and writes labels B. The
+passes ping-pong A and B until one changes nothing. The host reads the
+changed flags once every `passes_per_read` passes: the minimum is
+monotone, so passes after the fixpoint change nothing. Where every tile
+holds whole replicas (or the whole lattice), every bond lies inside a tile
+and one pass is the labeling.
+
+``label_pass`` launches csrc/cluster_label.cu on CUDA tensors and runs
+``local_pass_reference`` on CPU tensors. ``label_clusters`` and
+``label_clusters_tiled_reference`` are the plain labelers beside it.
+Bonds, coins, the ghost and the flip stay plain torch on every device,
+as the JAX package computes them outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from . import observables
+from .config import SimConfig, not_ported, resolve_device
+from .lattice import compact_to_full, full_to_compact, init_bits
+from .ops import kernel_lib
+from .ops.bit1 import _cuda_stream, overlaps
+from .rng import (MASK, TAG_CLUSTER, color_draws, threefry2x32,
+                  threefry_stream_key)
+
+# The kernel's tile: labels and union-find parents of each site in shared
+# memory, 8 B a site. MAX_TILE_SITES (128 KB) takes one 128 x 128 replica;
+# tiles of the full lattice, and of grouped small replicas, hold at most
+# TILE_SITES (64 KB: three blocks on an SM).
+MAX_TILE_SITES = 16384
+TILE_SITES = 8192
+TILE_COLS = 128
+PASSES_PER_READ = 4
+# Row slabs of the int64 draw and coin planes (8 B a site each).
+SLAB_SITES = 1 << 24
+NO_LABEL = 0x7FFFFFFF
+
+
+def bond_threshold(temp: float, coupling: float = 1.0) -> int:
+    """uint32 open-bond threshold: open <=> draw <= thr,
+    p = 1 - exp(-2*coupling/T) (coupling = J for spin-spin bonds, |h| for
+    the ghost bonds of a uniform field). T <= 0 gives p = 1. Host float64,
+    as the JAX package computes it."""
+    p = 1.0 if temp <= 0 else 1.0 - math.exp(-2.0 * coupling / temp)
+    return int(np.rint(min(p, 1.0) * 4294967295.0))
+
+
+def _sizes(shape, ysl, xsl):
+    """(Y, X, ysl, xsl) with the full lattice as one replica."""
+    Y, X = shape
+    return Y, X, ysl or Y, xsl or X
+
+
+def next_site(a, axis: int, sl: int):
+    """a at each site's periodic next neighbour along `axis` within
+    replicas of `sl` sites along it (the axis length: the full lattice)."""
+    Y, X = a.shape
+    if axis == 1:
+        return a.reshape(Y, X // sl, sl).roll(-1, dims=2).reshape(Y, X)
+    return a.reshape(Y // sl, sl, X).roll(-1, dims=1).reshape(Y, X)
+
+
+def aligned_pairs(full, *, ysl=None, xsl=None):
+    """(right, down) bool planes: the site and its next neighbour along
+    the row / the column are aligned, the only pairs a bond may join."""
+    _, _, ysl, xsl = _sizes(full.shape, ysl, xsl)
+    return full == next_site(full, 1, xsl), full == next_site(full, 0, ysl)
+
+
+def open_bonds(full, draws_r, draws_d, thr: int, *, ysl=None, xsl=None):
+    """(open_r, open_d) bool planes: bond (y,x)-(y,x+1) / (y,x)-(y+1,x),
+    the neighbours wrapped within the replica, is open. Draws are int64
+    holding u32; the compare is unsigned."""
+    right, down = aligned_pairs(full, ysl=ysl, xsl=xsl)
+    return right & (draws_r <= thr), down & (draws_d <= thr)
+
+
+def site_ids(Y: int, X: int, *, ysl=None, xsl=None, device="cpu"):
+    """int64 (Y, X) plane of the site ids (see the module docstring)."""
+    _, _, ysl, xsl = _sizes((Y, X), ysl, xsl)
+    y = torch.arange(Y, device=device)[:, None]
+    x = torch.arange(X, device=device)[None, :]
+    rep = (y // ysl) * (X // xsl) + x // xsl
+    return rep * (ysl * xsl) + (y % ysl) * xsl + x % xsl
+
+
+def _bond_edges(open_r, open_d, ysl, xsl):
+    """(u, v): the int64 flat positions of the two ends of every open
+    bond."""
+    Y, X = open_r.shape
+    pos = torch.arange(Y * X, device=open_r.device).reshape(Y, X)
+    u = torch.cat([pos[open_r], pos[open_d]])
+    v = torch.cat([next_site(pos, 1, xsl)[open_r],
+                   next_site(pos, 0, ysl)[open_d]])
+    return u, v
+
+
+def _min_positions(n: int, u, v):
+    """The minimum flat position in each of n sites' component under the
+    undirected edges u-v: hook each edge's larger representative under the
+    smaller, then jump pointers to their roots, until no edge joins two
+    representatives. Every representative is a site of the component no
+    larger than the site, so the fixpoint is the minimum."""
+    comp = torch.arange(n, device=u.device)
+    while u.numel():
+        cu, cv = comp[u], comp[v]
+        differ = cu != cv
+        if not bool(differ.any()):
+            break
+        cu, cv = cu[differ], cv[differ]
+        comp.scatter_reduce_(0, torch.maximum(cu, cv), torch.minimum(cu, cv),
+                             "amin")
+        while True:
+            jumped = comp[comp]
+            if torch.equal(jumped, comp):
+                break
+            comp = jumped
+    return comp
+
+
+def label_clusters(open_r, open_d, *, ysl=None, xsl=None):
+    """int32 (Y, X) cluster labels: the minimum site id of each component
+    under the open bonds (plain torch, any device)."""
+    Y, X, ysl, xsl = _sizes(open_r.shape, ysl, xsl)
+    u, v = _bond_edges(open_r, open_d, ysl, xsl)
+    comp = _min_positions(Y * X, u, v)
+    ids = site_ids(Y, X, ysl=ysl, xsl=xsl, device=open_r.device).reshape(-1)
+    return ids[comp].reshape(Y, X).to(torch.int32)
+
+
+def _tile_of(Y: int, X: int, tile, device):
+    ty, tx = tile
+    y = torch.arange(Y, device=device)[:, None] // ty
+    x = torch.arange(X, device=device)[None, :] // tx
+    return (y * ((X + tx - 1) // tx) + x).reshape(-1)
+
+
+def local_pass_reference(lab, open_r, open_d, *, tile, ysl=None, xsl=None):
+    """One pass of the tiled labeler in plain torch: the new int32 (Y, X)
+    labels. lab: int32 (Y, X) labels, or None for the site ids. tile:
+    (ty, tx); tiles start at multiples of it, and the last row and column
+    of tiles may be cut short. Each site takes the minimum of its label and
+    of the labels across its open bonds that leave its tile; then every
+    component of the bonds inside a tile takes the minimum of those."""
+    Y, X, ysl, xsl = _sizes(open_r.shape, ysl, xsl)
+    dev = open_r.device
+    if lab is None:
+        lab = site_ids(Y, X, ysl=ysl, xsl=xsl, device=dev)
+    flat = lab.reshape(-1).to(torch.int64)
+    u, v = _bond_edges(open_r, open_d, ysl, xsl)
+    tiles = _tile_of(Y, X, tile, dev)
+    cross = tiles[u] != tiles[v]
+    stepped = flat.clone()
+    uc, vc = u[cross], v[cross]
+    stepped.scatter_reduce_(0, uc, flat[vc], "amin")
+    stepped.scatter_reduce_(0, vc, flat[uc], "amin")
+    comp = _min_positions(Y * X, u[~cross], v[~cross])
+    least = torch.full_like(stepped, NO_LABEL).scatter_reduce_(
+        0, comp, stepped, "amin")
+    return least[comp].reshape(Y, X).to(torch.int32)
+
+
+def whole_replica_tiles(shape, tile, *, ysl=None, xsl=None) -> bool:
+    """Whether every tile holds whole replicas (or the whole lattice), so
+    that every bond lies inside one tile and one pass is the labeling."""
+    _, _, ysl, xsl = _sizes(shape, ysl, xsl)
+    return tile[0] % ysl == 0 and tile[1] % xsl == 0
+
+
+def label_clusters_tiled_reference(open_r, open_d, *, tile, ysl=None,
+                                   xsl=None):
+    """(labels, passes): local_pass_reference from the ids until a pass
+    changes nothing (that pass counted), or one pass where the tiles hold
+    whole replicas."""
+    lab = local_pass_reference(None, open_r, open_d, tile=tile, ysl=ysl,
+                               xsl=xsl)
+    passes = 1
+    if whole_replica_tiles(open_r.shape, tile, ysl=ysl, xsl=xsl):
+        return lab, passes
+    while True:
+        new = local_pass_reference(lab, open_r, open_d, tile=tile, ysl=ysl,
+                                   xsl=xsl)
+        passes += 1
+        if torch.equal(new, lab):
+            return new, passes
+        lab = new
+
+
+def _divisors(n: int):
+    return [d for d in range(1, n + 1) if n % d == 0]
+
+
+def pick_tile(Y: int, X: int, *, ysl=None, xsl=None):
+    """(ty, tx) of the labeler's tiles. The full lattice, where it exceeds
+    MAX_TILE_SITES, is cut into TILE_COLS-wide tiles of TILE_SITES sites,
+    short at its edges. A replica of at most MAX_TILE_SITES sites is never
+    cut: small ones are grouped up to TILE_SITES a tile (at most TILE_COLS
+    wide), a larger one is a tile. Larger replicas are cut into tiles that
+    divide them."""
+    Y, X, ysl, xsl = _sizes((Y, X), ysl, xsl)
+    size = ysl * xsl
+    if (ysl, xsl) == (Y, X) and size > MAX_TILE_SITES:
+        tx = min(X, TILE_COLS)
+        return min(Y, TILE_SITES // tx), tx
+    if size <= MAX_TILE_SITES:
+        cap = max(TILE_SITES, size)
+        m = max(d for d in _divisors(X // xsl)
+                if d * size <= cap and d * xsl <= max(TILE_COLS, xsl))
+        n = max(d for d in _divisors(Y // ysl) if d * m * size <= cap)
+        return n * ysl, m * xsl
+    tx = max(d for d in _divisors(xsl) if d <= TILE_COLS)
+    return max(d for d in _divisors(ysl) if d * tx <= TILE_SITES), tx
+
+
+def _check_pass(lab_in, open_r, open_d, lab_out, changed, tile, ysl, xsl):
+    """The wrapper's checks (device, dtype, shape, contiguity, aliasing,
+    geometry); returns (Y, X, ysl, xsl)."""
+    Y, X, ysl, xsl = _sizes(tuple(open_r.shape), ysl, xsl)
+    if Y * X >= 2 ** 31:
+        raise ValueError("labels are int32 site ids: needs nrows * ncols "
+                         "< 2^31")
+    if Y % ysl or X % xsl:
+        raise ValueError(f"label_pass: replicas of {ysl} x {xsl} do not "
+                         f"tile {Y} x {X}")
+    ty, tx = tile
+    if not (0 < ty <= Y and 0 < tx <= X and ty * tx <= MAX_TILE_SITES):
+        raise ValueError(f"label_pass: tile {tile} must fit the lattice "
+                         f"and hold at most {MAX_TILE_SITES} sites")
+    planes = (("open_r", open_r, torch.bool, (Y, X)),
+              ("open_d", open_d, torch.bool, (Y, X)),
+              ("lab_out", lab_out, torch.int32, (Y, X)),
+              ("changed", changed, torch.int32, (1,)))
+    if lab_in is not None:
+        planes += (("lab_in", lab_in, torch.int32, (Y, X)),)
+    for name, t, dtype, shape in planes:
+        if t.device != open_r.device:
+            raise ValueError(f"label_pass: {name} is on {t.device}, open_r "
+                             f"on {open_r.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"label_pass: {name} must be {dtype}, got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"label_pass: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"label_pass: {name} must be contiguous")
+    if any(overlaps(lab_out, t) for t in (lab_in, open_r, open_d, changed)
+           if t is not None):
+        raise ValueError("label_pass writes lab_out: it must not overlap "
+                         "lab_in, the bonds or the flag")
+    return Y, X, ysl, xsl
+
+
+def label_pass(lab_in, open_r, open_d, lab_out, changed, *, tile, ysl=None,
+               xsl=None):
+    """One pass of the tiled labeler into lab_out; returns lab_out.
+
+    lab_in: int32 (Y, X) labels, or None for the site ids; open_r, open_d:
+    bool (Y, X) bond planes; changed: an int32 (1,) flag, set to 1 if any
+    label of lab_out differs from its input (left alone otherwise). On
+    CUDA tensors this launches csrc/cluster_label.cu; a launch that fails
+    raises. On CPU tensors it runs local_pass_reference. Counts launches in
+    label_pass.launches.
+    """
+    Y, X, ysl, xsl = _check_pass(lab_in, open_r, open_d, lab_out, changed,
+                                 tile, ysl, xsl)
+    device = open_r.device
+    if device.type == "cpu":
+        new = local_pass_reference(lab_in, open_r, open_d, tile=tile,
+                                   ysl=ysl, xsl=xsl)
+        old = (site_ids(Y, X, ysl=ysl, xsl=xsl) if lab_in is None
+               else lab_in)
+        if not torch.equal(new.to(torch.int64), old.to(torch.int64)):
+            changed.fill_(1)
+        lab_out.copy_(new)
+        return lab_out
+    if device.type != "cuda":
+        raise ValueError(f"label_pass runs on cuda or cpu, not {device}")
+    lib, _ = kernel_lib.load()
+    code = lib.cluster_label_launch(
+        None if lab_in is None else lab_in.data_ptr(), open_r.data_ptr(),
+        open_d.data_ptr(), lab_out.data_ptr(), changed.data_ptr(), Y, X,
+        ysl, xsl, tile[0], tile[1], _cuda_stream(device))
+    kernel_lib.check(lib, code, "label_pass launch")
+    label_pass.launches += 1
+    return lab_out
+
+
+label_pass.launches = 0
+
+
+def label_clusters_tiled(open_r, open_d, *, ysl=None, xsl=None, tile=None,
+                         passes_per_read: int = PASSES_PER_READ,
+                         return_stats: bool = False):
+    """The labels of label_clusters, by label_pass: a first pass from the
+    ids, then batches of `passes_per_read` passes, the flag of each pass in
+    its own slot, until the last pass of a batch changed nothing (one host
+    read per batch). With whole replicas in every tile, one pass.
+    return_stats adds {"passes": launches, "reads": flag reads}."""
+    Y, X, ysl, xsl = _sizes(open_r.shape, ysl, xsl)
+    if tile is None:
+        tile = pick_tile(Y, X, ysl=ysl, xsl=xsl)
+    kw = dict(tile=tile, ysl=ysl, xsl=xsl)
+    a = torch.empty((Y, X), dtype=torch.int32, device=open_r.device)
+    b = torch.empty_like(a)
+    flags = torch.zeros(passes_per_read, dtype=torch.int32,
+                        device=open_r.device)
+    label_pass(None, open_r, open_d, a, flags[:1], **kw)
+    passes, reads = 1, 0
+    if not whole_replica_tiles((Y, X), tile, ysl=ysl, xsl=xsl):
+        while True:
+            flags.zero_()
+            for j in range(passes_per_read):
+                label_pass(a, open_r, open_d, b, flags[j:j + 1], **kw)
+                a, b = b, a
+            passes += passes_per_read
+            reads += 1
+            if not int(flags[-1]):
+                break
+    stats = {"passes": passes, "reads": reads}
+    return (a, stats) if return_stats else a
+
+
+def cluster_coins(labels, seed: int, step):
+    """uint8 flip mask: bit 31 of Threefry-13 of the label under the
+    per-(step, TAG_CLUSTER|2) stream key; a cluster's sites share it."""
+    k0, k1 = threefry_stream_key(seed, step, TAG_CLUSTER | 2)
+    x0, _ = threefry2x32(labels.to(torch.int64) & MASK, 0, k0, k1, 13)
+    return (x0 >> 31).to(torch.uint8)
+
+
+def ghost_bonded_clusters(labels, ghost):
+    """uint8 plane: 1 where the site's cluster holds any ghost-bonded
+    site. One scatter onto the labels' slots, one gather back."""
+    held = torch.zeros(labels.numel(), dtype=torch.bool, device=labels.device)
+    held[labels[ghost].to(torch.int64)] = True
+    return held[labels].to(torch.uint8)
+
+
+def _slabs(Y: int, X: int):
+    R = max(1, SLAB_SITES // X)
+    return [(r, min(Y, r + R)) for r in range(0, Y, R)]
+
+
+def draw_bonds(full, thr: int, seed: int, step, *, field: float = 0.0,
+               thr_ghost: int | None = None, ysl=None, xsl=None):
+    """(open_r, open_d, ghost) bool planes of one update: the open bonds,
+    and under a field the sites bonded to the ghost spin (aligned with
+    sign(field) and their TAG_CLUSTER|3 draw at most thr_ghost; None
+    without a field). The draws are made in row slabs of SLAB_SITES."""
+    Y, X, ysl, xsl = _sizes(full.shape, ysl, xsl)
+    open_r, open_d = aligned_pairs(full, ysl=ysl, xsl=xsl)
+    ghost = (full == (1 if field > 0 else 0)) if field else None
+    for r0, r1 in _slabs(Y, X):
+        kw = dict(step=step, row0=r0, row_stride=X, device=full.device)
+        open_r[r0:r1] &= color_draws(seed, r1 - r0, X, tag=TAG_CLUSTER | 0,
+                                     **kw) <= thr
+        open_d[r0:r1] &= color_draws(seed, r1 - r0, X, tag=TAG_CLUSTER | 1,
+                                     **kw) <= thr
+        if ghost is not None:
+            ghost[r0:r1] &= color_draws(seed, r1 - r0, X,
+                                        tag=TAG_CLUSTER | 3, **kw) <= thr_ghost
+    return open_r, open_d, ghost
+
+
+def flip_clusters(full, labels, seed: int, step, ghost=None):
+    """The new lattice: every cluster flipped by its coin, but for those
+    holding a ghost-bonded site. Coins in row slabs of SLAB_SITES."""
+    held = None if ghost is None else ghost_bonded_clusters(labels, ghost)
+    new = full.clone()
+    for r0, r1 in _slabs(*full.shape):
+        flip = cluster_coins(labels[r0:r1], seed, step)
+        if held is not None:
+            flip &= 1 - held[r0:r1]
+        new[r0:r1] ^= flip
+    return new
+
+
+def sw_step(full, thr: int, seed: int, step, *, field: float = 0.0,
+            thr_ghost: int | None = None, ysl=None, xsl=None,
+            return_stats: bool = False):
+    """One Swendsen-Wang update of the (Y, X) uint8 lattice; returns the
+    new lattice (and the labeling's stats with return_stats).
+
+    ysl, xsl: sub-lattice replicas (the JAX package's sw_step_replica):
+    bonds wrap within each replica and labels are replica ids. A uniform
+    field enters by the ghost spin (draw_bonds); only its sign is read.
+    """
+    with torch.profiler.record_function("sw_step.bonds"):
+        open_r, open_d, ghost = draw_bonds(full, thr, seed, step, field=field,
+                                           thr_ghost=thr_ghost, ysl=ysl,
+                                           xsl=xsl)
+    with torch.profiler.record_function("sw_step.label"):
+        labels, stats = label_clusters_tiled(open_r, open_d, ysl=ysl,
+                                             xsl=xsl, return_stats=True)
+    with torch.profiler.record_function("sw_step.flip"):
+        new = flip_clusters(full, labels, seed, step, ghost)
+    return (new, stats) if return_stats else new
+
+
+class SwendsenWang:
+    """Cluster-update driver with Simulation's SimConfig surface and
+    seed/init contract (the same initial lattice for the same seed). Step
+    counts mean SW updates. state: compact (black, white) uint8 planes,
+    numpy or torch (a JAX SwendsenWang's bits()), with step0 the update
+    it has reached."""
+
+    def __init__(self, cfg: SimConfig, *, state=None, step0: int = 0):
+        # The JAX package's fences and wording (cluster.py:483-496).
+        if cfg.backend != "xla":
+            raise ValueError("cluster updates operate on decoded planes; "
+                             "use backend='xla'")
+        if cfg.j_prob is not None:
+            raise ValueError("Swendsen-Wang needs a ferromagnetic "
+                             "Hamiltonian (frustrated +-J has no FK "
+                             "cluster representation)")
+        if cfg.xsl is not None and cfg.ndev > 1:
+            raise ValueError("replica cluster updates are single-device "
+                             "(the replica batch transpose has no "
+                             "sharded path yet); drop --devs or xsl/ysl")
+        if cfg.nrows * cfg.ncols >= 2 ** 31:
+            raise ValueError("labels are int32 site ids: needs "
+                             "nrows * ncols < 2^31")
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.temp = cfg.temperature
+        self.step = int(step0)
+        if state is None:
+            state = init_bits(cfg.seed, cfg.nrows, cfg.ncols,
+                              device=self.device)
+        self.full = compact_to_full(*(
+            (p if torch.is_tensor(p) else torch.from_numpy(np.array(p)))
+            .to(self.device, torch.uint8) for p in state))
+        # Labeling passes per update (count of updates by passes) and the
+        # flag reads, summed.
+        self.pass_counts = collections.Counter()
+        self.flag_reads = 0
+        self._set_thresholds()
+
+    def _set_thresholds(self):
+        self._thr = bond_threshold(self.temp)
+        self._thr_ghost = bond_threshold(self.temp, abs(self.cfg.field))
+
+    def set_temperature(self, temp: float):
+        self.temp = float(temp)
+        self._set_thresholds()
+
+    def set_field(self, field: float):
+        """Change h mid-run; SimConfig's validation runs through
+        dataclasses.replace. Each update reads the sign anew."""
+        if float(field) == self.cfg.field:
+            return
+        self.cfg = dataclasses.replace(self.cfg, field=float(field))
+        self._set_thresholds()
+
+    def advance(self, nsteps: int):
+        for _ in range(nsteps):
+            self.full, stats = sw_step(
+                self.full, self._thr, self.cfg.seed, self.step,
+                field=self.cfg.field, thr_ghost=self._thr_ghost,
+                ysl=self.cfg.ysl, xsl=self.cfg.xsl, return_stats=True)
+            self.pass_counts[stats["passes"]] += 1
+            self.flag_reads += stats["reads"]
+            self.step += 1
+
+    def block(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, log=print):
+        """The measurement loop (schedules, early exit, ramp, flips/ns
+        report) over SW updates: the CLI's --algo sw."""
+        from .driver import run_loop
+        return run_loop(self, log=log)
+
+    def bits(self):
+        """Compact (black, white) uint8 planes of the current state."""
+        return full_to_compact(self.full)
+
+    def replica_magnetizations(self):
+        """|m| per sub-lattice replica (flattened); replica mode only."""
+        if self.cfg.xsl is None:
+            raise ValueError("replica_magnetizations needs replica mode "
+                             "(cfg.xsl/ysl)")
+        return observables.replica_magnetizations(
+            *self.bits(), xsl=self.cfg.xsl, ysl=self.cfg.ysl)
+
+    def fourier_partials(self):
+        raise not_ported("SwendsenWang.fourier_partials", 15)
+
+    def measure(self):
+        n_up, n_dn = observables.count_spins(*self.bits())
+        out = {"step": self.step, "magnetization":
+               abs(n_up - n_dn) / (n_up + n_dn), "up": n_up, "down": n_dn}
+        if self.cfg.field:
+            out["m_signed"] = (n_up - n_dn) / (n_up + n_dn)
+        return out
+
+    def energy(self) -> float:
+        b, w = self.bits()
+        e = observables.energy_per_spin(b, w)
+        h = self.cfg.field
+        if h:
+            n_up, n_dn = observables.count_spins(b, w)
+            e -= h * (n_up - n_dn) / self.cfg.nspins
+        return e

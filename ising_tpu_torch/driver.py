@@ -318,8 +318,9 @@ def run_loop(self, log=print):
     flips = cfg.nspins * done
     flips_ns = flips / (elapsed * 1e9) if elapsed > 0 else 0.0
     # Effective lattice traffic: per color phase read src + read dst +
-    # write dst.
-    bw = flips_ns * 3.0 * self.backend.bytes_per_spin
+    # write dst. SwendsenWang has no backend: one byte per spin.
+    bps = getattr(getattr(self, "backend", None), "bytes_per_spin", 1.0)
+    bw = flips_ns * 3.0 * bps
     log(f"Kernel execution time for {done} update steps: "
         f"{elapsed * 1e3:E} ms, {flips_ns:.2f} flips/ns "
         f"(BW: {bw:.2f} GB/s)")

@@ -17,6 +17,11 @@ values come from its bit1 and packed backends with the Pallas kernels in
 interpret mode (its dense backend gives packed's hw case too), where the
 kernels draw hw as salted Philox-10, the stream the port's hw is; on a TPU
 the hardware generator gives other values, which nothing here records.
+SW_GOLDEN holds Swendsen-Wang trajectories (--algo sw), keyed (temperature,
+field, xsl, ysl): a 256 x 1024 lattice from seed SEED_DEF at T = Tc, with
+h = 0.1, and in 64 x 64 replicas, NSTEPS updates each, recorded from the
+JAX package's SwendsenWang on the CPU, with the same "up" and "crc32".
+
 tests/test_torch_golden.py derives every case again and checks it is
 equal, and chip_smoke.py checks the port's CUDA kernels reproduce them on
 the card.
@@ -28,7 +33,7 @@ import zlib
 
 import numpy as np
 
-from .constants import SEED_DEF
+from .constants import SEED_DEF, TCRIT
 from .rng import plane_bits
 
 NROWS, NCOLS, NSTEPS = 64, 16384, 4
@@ -92,6 +97,17 @@ GOLDEN = {
         "up": (524222, 523937, 524995, 525428, 525480), "crc32": 0x2D7467B0},
 }
 
+SW_NROWS, SW_NCOLS = 256, 1024
+
+SW_GOLDEN = {
+    (TCRIT, 0.0, None, None): {
+        "up": (130911, 129738, 131668, 132010, 132099), "crc32": 0x9C7F9F24},
+    (TCRIT, 0.1, None, None): {
+        "up": (130911, 150699, 177161, 199651, 214852), "crc32": 0xFC693F40},
+    (TCRIT, 0.0, 64, 64): {
+        "up": (130911, 130574, 130160, 128070, 127755), "crc32": 0x6E54B1D6},
+}
+
 BACKENDS = ("bit1", "xla", "packed", "dense")
 
 
@@ -135,18 +151,35 @@ def port_trajectory(rng: str, temp: float, field: float = 0.0,
     on `device` (port_trajectory(*case) runs a case's named backend)."""
     from .config import SimConfig
     from .driver import Simulation
-    from .interop import to_numpy_words
-    from .ops.bit1 import pack_bits1
     sim = Simulation(SimConfig(nrows=NROWS, ncols=NCOLS, temp=temp,
                                field=field, seed=SEED, backend=backend,
                                rng=rng, j_prob=j_prob, xsl=xsl, ysl=ysl,
                                device=str(device)))
+    out = _trajectory(sim)
+    if j_prob is not None:
+        out["energy_total"] = sim.energy_total()
+    return out
+
+
+def _trajectory(sim) -> dict:
+    """{"up", "crc32"} of NSTEPS steps of sim (Simulation or
+    SwendsenWang)."""
+    from .interop import to_numpy_words
+    from .ops.bit1 import pack_bits1
     ups = [sim.measure()["up"]]
     for _ in range(NSTEPS):
         sim.advance(1)
         ups.append(sim.measure()["up"])
     words = (pack_bits1(p) for p in sim.bits())
-    out = {"up": tuple(ups), "crc32": words_crc32(*to_numpy_words(*words))}
-    if j_prob is not None:
-        out["energy_total"] = sim.energy_total()
-    return out
+    return {"up": tuple(ups), "crc32": words_crc32(*to_numpy_words(*words))}
+
+
+def port_sw_trajectory(temp: float, field: float = 0.0,
+                       xsl: int | None = None, ysl: int | None = None, *,
+                       device="cuda") -> dict:
+    """The port's {"up", "crc32"} for one SW_GOLDEN case on `device`."""
+    from .cluster import SwendsenWang
+    from .config import SimConfig
+    return _trajectory(SwendsenWang(SimConfig(
+        nrows=SW_NROWS, ncols=SW_NCOLS, temp=temp, field=field, xsl=xsl,
+        ysl=ysl, seed=SEED, device=str(device))))

@@ -23,6 +23,12 @@ def row_up_counts(black, white):
             + white.sum(dim=1, dtype=torch.int64))
 
 
+def count_spins(black, white):
+    """(n_up, n_down) of two uint8 bit planes, as exact Python ints."""
+    ups = int(row_up_counts(black, white).sum())
+    return ups, black.numel() + white.numel() - ups
+
+
 def _row_block(Y: int, row_chunk: int) -> int:
     """The slab height: row_chunk or less, even, dividing Y."""
     R = min(Y, row_chunk)
@@ -78,6 +84,13 @@ def energy_row_sums(black, white, v=None, h=None, row_chunk: int = 8192):
     return energy_rows_via(
         lambda r, n: (_rows_wrap(black, r, n), _rows_wrap(white, r, n)),
         black.shape[0], links, row_chunk=row_chunk)
+
+
+def energy_per_spin(black, white) -> float:
+    """Internal energy per spin, E/N = -(1/N) sum_<ij> s_i s_j, of two
+    uint8 bit planes."""
+    rows = int(energy_row_sums(black, white).sum())
+    return -float(rows) / (black.numel() + white.numel())
 
 
 def popcount32(words, mask: int = MASK):

@@ -87,6 +87,13 @@ SIGNATURES = {
          _c.c_int, _c.c_int,                                  # family rounds
          _c.c_void_p],                                        # stream
         _c.c_int),
+    "cluster_label_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # lab_in r d out
+         _c.c_void_p,                                         # changed
+         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # Y X ysl xsl
+         _c.c_int, _c.c_int,                                  # ty tx
+         _c.c_void_p],                                        # stream
+        _c.c_int),
     "ising_cuda_error_string": ([_c.c_int], _c.c_char_p),
 }
 

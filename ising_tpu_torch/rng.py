@@ -43,6 +43,7 @@ THREEFRY_ROUNDS = 20
 TAG_SWEEP = 0x000
 TAG_INIT = 0x100
 TAG_HAMILT = 0x200  # quenched disorder links (models/ising.py)
+TAG_CLUSTER = 0x300  # Swendsen-Wang bonds, coins and ghost (cluster.py)
 
 # rng-mode string -> (family, rounds, plane_bits), the JAX package's table.
 RNG_MODES = {

@@ -97,3 +97,35 @@ def test_trace_runs_dense_and_mxu_on_cpu(backend, size, kernel, capsys):
     assert f"[trace] {size}^2 philox on {backend}" in out
     assert device_trace.is_kernel(
         f"void (anonymous namespace)::{kernel}(...)")
+
+
+def test_summarize_times_the_parts_of_an_sw_update():
+    """Each sw_step range's device mirror: its span, and the device time
+    of the kernels inside it."""
+    k = "(anonymous namespace)::cluster_label_kernel(int const*, ...)"
+    events = [
+        _ev(device_trace.WINDOW, 100.0, 300.0, DeviceType.CPU),
+        _ev("sw_step.bonds", 110.0, 140.0, DeviceType.CUDA),
+        _ev("elementwise", 110.0, 120.0, DeviceType.CUDA),
+        _ev("elementwise", 125.0, 140.0, DeviceType.CUDA),
+        _ev("sw_step.label", 150.0, 200.0, DeviceType.CUDA),
+        _ev(k, 150.0, 160.0, DeviceType.CUDA),
+        _ev(k, 190.0, 200.0, DeviceType.CUDA),
+        _ev("sw_step.flip", 210.0, 230.0, DeviceType.CUDA),
+        _ev("elementwise", 210.0, 230.0, DeviceType.CUDA),
+    ]
+    out = device_trace.summarize(events)
+    assert out["spans"] == {
+        "sw_step.bonds": {"span_us": 30.0, "busy_us": 25.0},
+        "sw_step.label": {"span_us": 50.0, "busy_us": 20.0},
+        "sw_step.flip": {"span_us": 20.0, "busy_us": 20.0}}
+    assert out["kernel_launches"] == 2
+    assert out["gap_after_kernel_us"]["n"] == 2
+
+
+def test_trace_runs_sw_on_cpu(capsys):
+    assert device_trace.main(["--algo", "sw", "--size", "32", "-n", "2",
+                              "-p", "1", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[trace] 32^2 Swendsen-Wang" in out
+    assert '"sw": {' in out.splitlines()[-1]

@@ -127,7 +127,8 @@ def test_cli_prints_jax_magnetization_lines(rng, capsys):
 @pytest.mark.parametrize("extra", [
     ["-J", "0.1"], ["--backend", "dense"], ["--xsl", "32", "--ysl", "8"],
     ["--devs", "2"], ["-o"], ["-c"], ["--resume", "x.ck"],
-    ["--checkpoint", "x.ck"], ["--algo", "sw"], ["--pt", "1.0,2.0"],
+    ["--checkpoint", "x.ck"], ["--algo", "sw"], ["--algo", "sw", "--backend",
+                                                 "xla"], ["--pt", "1.0,2.0"],
     ["--profile", "tracedir"], ["--backend", "mxu", "-x", "256", "-y", "128"],
     ["-J", "0.5", "--j-seed", "3", "--rng", "hw"],
     ["--backend", "packed"],
@@ -139,7 +140,8 @@ def test_cli_unported_flags_exit_1(extra, capsys):
     bit1's words cannot tile (xsl/2 = 16 against W1 = 1) exits 1 with the
     JAX package's wording. The packed backend (item 8) and the dense and
     mxu backends (item 9) run now, and print the JAX package's
-    magnetization lines."""
+    magnetization lines. --algo sw (item 10) runs on xla, with the JAX
+    package's lines, and exits 1 on bit1 with the JAX package's wording."""
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
     code = cli.main(argv + extra)
@@ -162,6 +164,18 @@ def test_cli_unported_flags_exit_1(extra, capsys):
     elif "--xsl" in extra:
         assert code == 1
         assert "xsl/2 (16) to divide ncols/64 (1)" in err
+    elif extra[:2] == ["--algo", "sw"] and "xla" in extra:
+        assert code == 0
+        assert out.startswith("ising-tpu-torch run (Swendsen-Wang):")
+        assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
+        want = _mag_lines(capsys.readouterr().out)
+        assert cli.main(argv + extra + ["-p", "1"]) == 0
+        assert _mag_lines(capsys.readouterr().out) == want
+        assert len(want) == 3
+    elif extra[:2] == ["--algo", "sw"]:
+        assert code == 1
+        assert "cluster updates operate on decoded planes; use " \
+            "backend='xla'" in err
     else:
         assert code == 1
         assert "not yet ported (ROADMAP item" in err

@@ -166,3 +166,28 @@ def test_golden_cases_cover_disorder_and_replicas():
         assert ("energy_total" in want) == (case[3] is not None)
         if case[4] is not None:
             assert (golden.NCOLS // 64) % (case[4] // 2) == 0
+
+
+def _jax_sw_trajectory(temp, field, xsl, ysl):
+    from ising_tpu.cluster import SwendsenWang as JaxSwendsenWang
+    sw = JaxSwendsenWang(JaxConfig(nrows=golden.SW_NROWS,
+                                   ncols=golden.SW_NCOLS, temp=temp,
+                                   field=field, xsl=xsl, ysl=ysl,
+                                   seed=golden.SEED, backend="xla"))
+    ups = [sw.measure()["up"]]
+    for _ in range(golden.NSTEPS):
+        sw.advance(1)
+        ups.append(sw.measure()["up"])
+    b, w = (_words(np.asarray(x)) for x in sw.bits())
+    return {"up": tuple(ups), "crc32": golden.words_crc32(b, w)}
+
+
+@pytest.mark.parametrize("case", list(golden.SW_GOLDEN))
+def test_sw_golden_constants_come_from_jax(case):
+    assert _jax_sw_trajectory(*case) == golden.SW_GOLDEN[case]
+
+
+@pytest.mark.parametrize("case", list(golden.SW_GOLDEN))
+def test_port_reproduces_sw_golden_on_cpu(case):
+    assert golden.port_sw_trajectory(*case, device="cpu") == \
+        golden.SW_GOLDEN[case]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from ising_tpu_torch import cluster
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, kernel_lib
 
@@ -113,6 +114,10 @@ class FakeLib:
 
     def bit1_planes_launch(self, *args):
         self.calls.append(("planes",) + args)
+        return self.code
+
+    def cluster_label_launch(self, *args):
+        self.calls.append(("cluster",) + args)
         return self.code
 
     def ising_cuda_error_string(self, code):
@@ -405,3 +410,78 @@ def test_wrapper_refuses_bad_geometry(fake_card):
     with pytest.raises(ValueError, match="J plane"):
         bit1.bit1_sweep(dst, src, up, dn, thr, 0, 1, links, **kw)
     assert fake_card.calls == []
+
+
+class FakeCudaPlane(FakeCudaWords):
+    """A CUDA tensor of another dtype, for label_pass's checks."""
+
+    def __init__(self, shape, ptr, dtype):
+        super().__init__(shape, ptr)
+        self.dtype = dtype
+
+    def numel(self):
+        return int(np.prod(self.shape))
+
+    def element_size(self):
+        return 1 if self.dtype == torch.bool else 4
+
+
+def _fake_label_args(Y=8, X=16):
+    o_r = FakeCudaPlane((Y, X), 1 << 20, torch.bool)
+    o_d = FakeCudaPlane((Y, X), 2 << 20, torch.bool)
+    lab_in = FakeCudaPlane((Y, X), 3 << 20, torch.int32)
+    out = FakeCudaPlane((Y, X), 4 << 20, torch.int32)
+    flag = FakeCudaPlane((1,), 5 << 20, torch.int32)
+    return lab_in, o_r, o_d, out, flag
+
+
+@pytest.fixture
+def fake_label_card(monkeypatch, fake_card):
+    def plain_is_not_for_cuda(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(cluster, "local_pass_reference", plain_is_not_for_cuda)
+    monkeypatch.setattr(cluster, "_cuda_stream", lambda device: 1234)
+    return fake_card
+
+
+def test_label_pass_launches_kernel_on_cuda_tensor(fake_label_card):
+    lab_in, o_r, o_d, out, flag = _fake_label_args()
+    before = cluster.label_pass.launches
+    for lab, ptr in ((lab_in, lab_in.ptr), (None, None)):
+        assert cluster.label_pass(lab, o_r, o_d, out, flag, tile=(4, 16),
+                                  ysl=4, xsl=8) is out
+        args = fake_label_card.calls.pop()
+        assert args == ("cluster", ptr, o_r.ptr, o_d.ptr, out.ptr, flag.ptr,
+                        8, 16, 4, 8, 4, 16, 1234)
+    assert cluster.label_pass.launches == before + 2
+
+
+def test_label_pass_raises_on_failed_launch(fake_label_card):
+    fake_label_card.code = 700
+    before = cluster.label_pass.launches
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        cluster.label_pass(*_fake_label_args(), tile=(8, 16))
+    assert cluster.label_pass.launches == before
+
+
+def test_label_pass_raises_when_kernel_cannot_build(monkeypatch):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(cluster, "local_pass_reference",
+                        lambda *a, **k: pytest.fail("fell back to plain"))
+    monkeypatch.setattr(cluster, "_cuda_stream", lambda device: 0)
+    monkeypatch.setattr(kernel_lib, "load", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cluster.label_pass(*_fake_label_args(), tile=(8, 16))
+
+
+def test_label_pass_refuses_aliasing_and_bad_tiles(fake_label_card):
+    lab_in, o_r, o_d, out, flag = _fake_label_args()
+    for args, kw, msg in (
+            ((out, o_r, o_d, out, flag), dict(tile=(8, 16)), "overlap"),
+            ((lab_in, o_r, o_d, out, flag), dict(tile=(16, 16)), "tile"),
+            ((lab_in, o_r, o_d, out, flag), dict(tile=(8, 16), xsl=3),
+             "replicas")):
+        with pytest.raises(ValueError, match=msg):
+            cluster.label_pass(*args, **kw)
+    assert fake_label_card.calls == []

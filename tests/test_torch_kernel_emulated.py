@@ -12,8 +12,8 @@ quenched-disorder links as J planes and as the split link store, the
 replica wraps; in the packed kernel ChaCha's pair of words, the 4-bit
 rotation at the row's ends, the J word and the replica edges; in the dense
 kernel the per-call sites, the 10-entry select and the J planes) against
-their plain torch version before any card sees it. mxu_sweep.cu is left
-out (NOT_EMULATED).
+their plain torch version before any card sees it. mxu_sweep.cu and
+cluster_label.cu are left out (NOT_EMULATED).
 The card itself checks the compiled kernels in chip_smoke.py.
 """
 
@@ -76,9 +76,12 @@ EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
                          "packed_sweep.cu": 1, "dense_sweep.cu": 2}
 # Sources that one thread at a time cannot run: mxu_sweep.cu's warp-wide
 # wmma products and its __syncthreads between the staging, the products and
-# the accept. chip_smoke.py holds that kernel against its plain version on
-# the card.
-NOT_EMULATED = {"mxu_sweep.cu": "mxu_sweep_launch"}
+# the accept; cluster_label.cu's block-wide barriers between its phases (a
+# thread's union-find reads what the others wrote before the barrier), its
+# warp votes and its shared-memory atomics. chip_smoke.py holds those
+# kernels against their plain versions on the card.
+NOT_EMULATED = {"mxu_sweep.cu": "mxu_sweep_launch",
+                "cluster_label.cu": "cluster_label_launch"}
 
 
 @pytest.fixture(scope="module")
