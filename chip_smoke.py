@@ -21,7 +21,13 @@ Phases, each printed as it ends:
                half of them), at the 16384 width and at 1056 (W = 66, not
                a multiple of 32), in the u32 modes and hw, at T > 0, T = 0
                and with the full field table (h = 0.3, not hw), on the
-               ordered, J-word, replica and replica + J paths; then
+               ordered, J-word, replica and replica + J paths; then the
+               fused step, packed_fused_step and packed_fused_step_manual,
+               against the plain fused step and two packed_sweep launches,
+               both planes, at the 16384 width (384 rows) and at 1056
+               columns with H = 14, 6 and 2 (bands of 1 and 3 rows, bands
+               that wrap onto themselves), row0 0 and near 2^32, in the
+               u32 modes and hw at T > 0, T = 0 and h = 0.3 (not hw); then
                dense_sweep on random bit planes at 16384^2 and at 1056
                columns (H = 14 and 7, counters that carry, rows that wrap)
                in the u32 modes and hw, at T > 0, T = 0, h = 0.3 (not hw)
@@ -51,9 +57,15 @@ Phases, each printed as it ends:
                the same CLI at 16384^2: three runs each in threefry13,
                philox, chacha8 and hw, with -J 0.1 and with --xsl 128
                --ysl 128 in threefry13, one run with both, each reading
-               packed_sweep's launch count; and at 2048^2 packed's lattice
+               packed_sweep's launch count; the same CLI under
+               ISING_TPU_FUSED=1 and =2, three runs each in threefry13,
+               philox, chacha8 and hw, one with --field 0.1 and one with
+               -t 0, each reading the fused kernel's count (one a step)
+               and packed_sweep's (0), and -J 0.1 under =1, where the JAX
+               rule takes the two-call path; at 2048^2 packed's lattice
                and energy against bit1's and xla's, in threefry13 and in
-               chacha8 with -J 0.1 --xsl 64 --ysl 64. Then dense and mxu
+               chacha8 with -J 0.1 --xsl 64 --ysl 64, and under =1 and =2
+               against the two-call path's and bit1's. Then dense and mxu
                through the CLI at 8192^2 (bench.py:49-50) and 16384^2 in
                threefry13, philox, chacha8 and hw, three runs each, and
                dense with -J 0.1 (its set-up and peak memory timed), each
@@ -77,7 +89,10 @@ Phases, each printed as it ends:
                mix; then packed_sweep in every u32 mode and hw, with the
                field in philox, and on the J-word, replica and replica + J
                paths in threefry13, philox and chacha8, beside bit1's time
-               in the same mode and path; then dense_sweep (ordered, with
+               in the same mode and path; then both fused kernels per step
+               in every u32 mode and hw, at their default band and at 64
+               rows, beside two packed_sweep launches a step, the plain
+               step and the bound; then dense_sweep (ordered, with
                J planes, with the field in philox) and mxu_sweep in every
                u32 mode and hw at 16384^2 and 8192^2 the same way; then
                at 4096^2 and 16384^2, on bonds drawn at Tc from the main
@@ -96,9 +111,11 @@ before printing anything of the kind. It imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import faulthandler
 import json
 import math
+import os
 import re
 import shutil
 import signal
@@ -110,7 +127,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ising_tpu_torch import cli, cluster, golden, observables
+from ising_tpu_torch import SimConfig, cli, cluster, device_trace, golden
+from ising_tpu_torch import observables
 from ising_tpu_torch.constants import TCRIT
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
@@ -205,8 +223,32 @@ PLANE_PATH_BYTES = {None: 3, "jplanes": 7}
 BF16_FLOPS_PER_S = 989e12   # H100 SXM tensor cores, bf16, dense
 SWEEPS = {"bit1": bit1.bit1_sweep, "packed": packed.packed_sweep,
           "dense": dense.dense_sweep, "mxu": mxu.mxu_sweep}
+# The fused packed step (kernel rows 3 and 4): one launch a step under
+# ISING_TPU_FUSED=1 (packed_fused_step) and =2 (packed_fused_step_manual).
+FUSED = {"1": packed.packed_fused_step, "2": packed.packed_fused_step_manual}
 # Every launch counter: set to 0 before each main-path run.
-COUNTERS = (*SWEEPS.values(), cluster.label_pass)
+COUNTERS = (*SWEEPS.values(), *FUSED.values(), cluster.label_pass)
+# The wrapper that device_trace.step_launches names for a path.
+STEP_WRAPPERS = {f.__name__: f for f in (*SWEEPS.values(), *FUSED.values())}
+# Kernel-vs-plain shapes of the fused step, (Y, X, row0, band rows): W =
+# 1024 at a few hundred rows; W = 66 (W/2 odd: ChaCha's pairs) with H = 14,
+# 6 and 2, fewer rows than CTAs, bands of 1 and 3 rows and bands that wrap
+# onto themselves; row0 0 and near 2^32 (counters that carry and wrap).
+FUSED_COMPARE_SHAPES = ((384, 16384, 0, None), (384, 16384, (1 << 32) - 100, 1),
+                        (14, 1056, (1 << 32) - 8, None), (14, 1056, 3, 3),
+                        (6, 1056, 0, 1), (2, 1056, (1 << 32) - 1, None),
+                        (2, 1056, 5, 1))
+# =2 at four 16-row blocks of the goldens' 64 rows (=1 takes the JAX step's
+# own block height: fusable there in Philox and ChaCha only)
+FUSED_GOLDEN_BY = "16"
+# Main-path runs under each variable: (what, flags, modes, runs, E/N below)
+FUSED_MAIN_RUNS = (("ordered", [], PACKED_MAIN_MODES, MAIN_REPEATS, -1.5),
+                   ("field", ["--field", "0.1"], ("threefry13",), 1, -1.5),
+                   ("T = 0", ["-t", "0"], ("threefry13",), 1, -1.0))
+FUSED_EQUALITY_MODES = ("threefry13", "philox")
+FUSED_TIMED_BAND = 64   # a band height timed beside the default one
+FUSED_KERNEL = {"1": "ising_tpu/ops/pallas_packed.py:453",
+                "2": "ising_tpu/ops/pallas_packed.py:531"}
 
 # Swendsen-Wang (--algo sw) and its cluster labeler (kernel row 7): the
 # README's command at 4096^2 and T = Tc (README.md:62), three runs, then
@@ -460,11 +502,14 @@ def sass_mix(lib_path: str):
     """{(kernel, template arguments): Counter(pipe -> SASS instructions)}
     of each kernel instantiation, from cuobjdump: for bit1_sweep (family,
     rounds, greedy), for bit1_planes (family, rounds, kbits, accept), for
-    packed_sweep (family, rounds, accept), for dense_sweep (family, rounds,
-    sites per word), for mxu_sweep (family, rounds); "tensor" counts HMMA. The kernels are fully unrolled
-    and branch-free apart from their edge and path selects, so this is
-    close to the instructions one thread (one word; a pair of words in the
-    packed ChaCha kernel) issues. None without cuobjdump."""
+    packed_sweep (family, rounds, accept), for packed_fused (family,
+    rounds, accept, cp.async), for dense_sweep (family, rounds, sites per
+    word), for mxu_sweep (family, rounds); "tensor" counts HMMA. The sweep
+    kernels are fully unrolled and branch-free apart from their edge and
+    path selects, so this is close to the instructions one thread (one
+    word; a pair of words in the packed ChaCha kernel) issues; the fused
+    kernel's count is static, its loop bodies (a black and a white word's
+    update, the row copies) once each. None without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(kernel_lib.find_nvcc()).parent / "cuobjdump")
     try:
@@ -473,8 +518,8 @@ def sass_mix(lib_path: str):
         return None
     mix, key = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*(bit1_\w+?|packed_sweep|dense_sweep|"
-                      r"mxu_sweep)_kernelI"
+        m = re.search(r"Function : \S*(bit1_\w+?|packed_sweep|packed_fused|"
+                      r"dense_sweep|mxu_sweep)_kernelI"
                       r"((?:L[ib]\d+E)+)", line)
         if m:
             key = (m[1], tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2])))
@@ -783,10 +828,9 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
     `backend`, each from a new Simulation whose set-up (disorder included)
     is timed and whose peak device memory is read; the launch counts of
     every kernel are set to 0 just before each run loop and read just
-    after: the backend's own must be 2 per step, the others 0."""
-    sweep = SWEEPS[backend]
-    others = [f for f in COUNTERS if f is not sweep]
-    name = sweep.__name__
+    after: the kernel the path launches (device_trace.step_launches: two
+    sweeps a step, or one fused step under ISING_TPU_FUSED) must show its
+    launches a step, the others 0."""
     launches, rates, setups, peaks = 0, [], [], []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -799,11 +843,14 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
         torch.cuda.synchronize()
         setups.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated())
+        name, per_step = device_trace.step_launches(sim.cfg)
+        kernel = STEP_WRAPPERS[name]
+        others = [f for f in COUNTERS if f is not kernel]
         for f in COUNTERS:
             f.launches = 0
         result = sim.run()
-        n = sweep.launches
-        want = 2 * (MAIN_WARMUP + MAIN_ITERS)
+        n = kernel.launches
+        want = per_step * (MAIN_WARMUP + MAIN_ITERS)
         require(result["steps"] == MAIN_ITERS,
                 f"ran {result['steps']} of {MAIN_ITERS} steps")
         require(n == want, f"{name} launched {n} times, expected {want}")
@@ -826,8 +873,8 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
         rates.append(result["flips_ns"])
         say(f"[main] {shape}^2 {backend} {what} {mode}: {name} "
             f"launches {n} "
-            f"(= 2 x {MAIN_WARMUP + MAIN_ITERS} steps), E/N {e_n:.6f}, "
-            f"{result['flips_ns']:.2f} flips/ns; set-up "
+            f"(= {per_step} x {MAIN_WARMUP + MAIN_ITERS} steps), E/N "
+            f"{e_n:.6f}, {result['flips_ns']:.2f} flips/ns; set-up "
             f"{setups[-1]:.3f} s, peak device memory "
             f"{peaks[-1] / 2**30:.3f} GiB on {card['smi']}")
         del sim
@@ -836,8 +883,8 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
     say(f"[main] {shape}^2 {backend} {what} {mode}: {median:.2f} "
         f"flips/ns median of {runs} runs (range {min(rates):.2f}-"
         f"{max(rates):.2f})")
-    return {"launches": launches, "e_n": e_n, "flips_ns": median,
-            "flips_ns_runs": rates, "setup_s": setups,
+    return {"kernel": name, "launches": launches, "e_n": e_n,
+            "flips_ns": median, "flips_ns_runs": rates, "setup_s": setups,
             "peak_bytes": max(peaks)}
 
 
@@ -1294,6 +1341,300 @@ def phase_timing_planes(card, mix, bit1_timing):
     return out, cases, max_err
 
 
+@contextlib.contextmanager
+def fused_env(fused, block_rows=None):
+    """ISING_TPU_FUSED and ISING_TPU_FUSED_BY as given (None: unset) for
+    the block, then as they were."""
+    names = ("ISING_TPU_FUSED", "ISING_TPU_FUSED_BY")
+    saved = {k: os.environ.get(k) for k in names}
+    try:
+        for k, v in zip(names, (fused, block_rows)):
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def two_calls(black, white, thr, row0, step, **kw):
+    """(black', white') of two packed_sweep kernel launches, on copies."""
+    b, w = black.clone(), white.clone()
+    packed.packed_sweep(b, w, w[-1:], w[:1], thr, row0, step, color=0, **kw)
+    packed.packed_sweep(w, b, b[-1:], b[:1], thr, row0, step, color=1, **kw)
+    return b, w
+
+
+def fused_against(what, got, want):
+    """Both planes of a fused step against `want`, bit for bit; returns the
+    max abs err of the words."""
+    err = 0
+    for g, r, color in zip(got, want, ("black", "white")):
+        err = max(err, int((g.to(torch.int64) - r.to(torch.int64))
+                           .abs().max()))
+        require(torch.equal(g, r), f"{what}: {color} differs")
+    return err
+
+
+def phase_compare_fused(dev):
+    """Both fused kernels against the plain fused step and two packed_sweep
+    launches, bit for bit, both planes, at every shape of
+    FUSED_COMPARE_SHAPES, in every u32 mode and hw, at T > 0, T = 0 and
+    h = 0.3 (not hw), on random words (bit 31 set in half of them); the
+    inputs must come back unchanged. Returns (cases, max abs err)."""
+    gen = np.random.default_rng(2028)
+    cases, max_err = 0, 0
+    for Y, X, row0, band in FUSED_COMPARE_SHAPES:
+        H, W = Y, X // 16
+        for mode in PACKED_MODES:
+            for temp, field in packed_accepts(mode):
+                thr = ising.threshold_table(temp, field)
+                b, w = (random_words(gen, (H, W), dev) for _ in range(2))
+                b0, w0 = b.clone(), w.clone()
+                kw = dict(seed=int(gen.integers(0, 1 << 62)), rng_mode=mode,
+                          greedy=temp <= 0, full_table=field != 0)
+                step = int(gen.integers(0, 1 << 32))
+                what = (f"{Y}x{X} row0={row0} band={band} {mode} T={temp} "
+                        f"h={field}")
+                ref = packed.packed_fused_step_reference(b, w, thr, row0,
+                                                         step, **kw)
+                fused_against(f"two packed_sweep launches != plain at {what}",
+                              two_calls(b, w, thr, row0, step, **kw), ref)
+                for fn in FUSED.values():
+                    got = fn(b, w, thr, row0, step, band_rows=band, **kw)
+                    torch.cuda.synchronize()
+                    max_err = max(max_err, fused_against(
+                        f"{fn.__name__} != plain at {what}", got, ref))
+                    require(torch.equal(b, b0) and torch.equal(w, w0),
+                            f"{fn.__name__} changed its inputs at {what}")
+                    cases += 1
+        say(f"[kernel] fused {Y}x{X} row0={row0} band {band or 'default'}: "
+            f"both kernels, the {len(PACKED_MODES)} u32 modes and hw, T in "
+            "(1.5, 0) and h = 0.3, both planes equal to the plain step and "
+            "to two packed_sweep launches")
+    return cases, max_err
+
+
+def fused_golden_cases():
+    """The packed golden cases a fused step may take: no -J, no replicas."""
+    return [case for case in golden.GOLDEN
+            if "packed" in golden.backends(case)
+            and not (len(case) > 3 and (case[3] is not None
+                                        or case[4] is not None))]
+
+
+def phase_fused_golden():
+    """Each such golden case under ISING_TPU_FUSED=1 and =2 (=2 with
+    ISING_TPU_FUSED_BY=16): where fusable takes it, one fused launch a
+    step and no packed_sweep; else the two-call path. Either way the JAX
+    package's trajectory."""
+    for var, fn in FUSED.items():
+        with fused_env(var, FUSED_GOLDEN_BY if var == "2" else None):
+            for case in fused_golden_cases():
+                field = case[2] if len(case) > 2 else 0.0
+                fusable = packed.PackedBackend(SimConfig(
+                    nrows=golden.NROWS, ncols=golden.NCOLS, rng=case[0],
+                    temp=case[1], field=field, backend="packed")).fusable(
+                        golden.NROWS)
+                for f in COUNTERS:
+                    f.launches = 0
+                got = golden.port_trajectory(*case[:6], device="cuda",
+                                             backend="packed")
+                want = golden.GOLDEN[case]
+                require(got == want, f"golden {case} under ISING_TPU_FUSED="
+                        f"{var}: got {got}, want {want}")
+                counts = (fn.launches, packed.packed_sweep.launches)
+                require(counts == ((golden.NSTEPS, 0) if fusable
+                                   else (0, 2 * golden.NSTEPS)),
+                        f"golden {case} under ISING_TPU_FUSED={var}: "
+                        f"{fn.__name__} and packed_sweep launched {counts}")
+                say(f"[golden] ISING_TPU_FUSED={var} {case}: "
+                    + (f"{fn.__name__} once a step" if fusable else
+                       "not fusable (fewer than 3 row blocks), two "
+                       "packed_sweep launches a step")
+                    + f", up counts and crc32 {got['crc32']:08X} match")
+
+
+def phase_fused_main_path(card):
+    """The CLI at 16384^2 under ISING_TPU_FUSED=1 and =2: FUSED_MAIN_RUNS,
+    each run reading the fused counter (one a step) and packed_sweep's
+    (0); then -J 0.1 under =1, where fusable is false, as in the JAX
+    package: packed_sweep twice a step, the fused counters at 0. Returns
+    {(variable, what, mode): result}."""
+    out = {}
+    for var, fn in FUSED.items():
+        with fused_env(var):
+            for what, extra, modes, runs, e_max in FUSED_MAIN_RUNS:
+                for mode in modes:
+                    r = main_runs(card, mode, extra, runs, e_max,
+                                  f"ISING_TPU_FUSED={var} {what}", "packed")
+                    require(r["kernel"] == fn.__name__,
+                            f"ISING_TPU_FUSED={var} {what} {mode} launched "
+                            f"{r['kernel']}")
+                    out[(var, what, mode)] = r
+    with fused_env("1"):
+        r = main_runs(card, "threefry13", J_FLAGS, 1, -1.2,
+                      f"ISING_TPU_FUSED=1 jword ({' '.join(J_FLAGS)})",
+                      "packed")
+    require(r["kernel"] == "packed_sweep",
+            f"-J 0.1 under ISING_TPU_FUSED=1 launched {r['kernel']}")
+    out[("1", "jword", "threefry13")] = r
+    return out
+
+
+def phase_fused_equality(card):
+    """At 2048^2 after the CLI's flags, the lattice and energy_total under
+    ISING_TPU_FUSED=1 and =2 equal the two-call packed path's and bit1's,
+    in FUSED_EQUALITY_MODES."""
+    for mode in FUSED_EQUALITY_MODES:
+        flags = ["-x", str(EQUALITY_SHAPE), "-y", str(EQUALITY_SHAPE), "-n",
+                 str(EQUALITY_ITERS), "-p", "4", "-t", "1.5", "--rng", mode,
+                 "--backend"]
+        refs = {be: cli_simulation(flags + [be]) for be in ("packed", "bit1")}
+        for sim in refs.values():
+            sim.run()
+        energy = refs["packed"].energy_total()
+        require(energy == refs["bit1"].energy_total(),
+                f"packed and bit1 energy_total differ at {mode}")
+        for var, fn in FUSED.items():
+            with fused_env(var):
+                sim = cli_simulation(flags + ["packed"])
+                for f in COUNTERS:
+                    f.launches = 0
+                result = sim.run()
+            counts = (fn.launches, packed.packed_sweep.launches)
+            require(counts == (EQUALITY_ITERS, 0),
+                    f"ISING_TPU_FUSED={var} at {EQUALITY_SHAPE}^2 {mode}: "
+                    f"{fn.__name__} and packed_sweep launched {counts}")
+            for be, ref in refs.items():
+                for a, b in zip(sim.bits(), ref.bits()):
+                    require(torch.equal(a, b),
+                            f"ISING_TPU_FUSED={var} != {be} at "
+                            f"{EQUALITY_SHAPE}^2 {mode}")
+            require(sim.energy_total() == energy,
+                    f"ISING_TPU_FUSED={var} energy_total "
+                    f"{sim.energy_total()}, two calls {energy}")
+            say(f"[fused] {EQUALITY_SHAPE}^2 {mode} ISING_TPU_FUSED={var}: "
+                f"lattice after {EQUALITY_ITERS} steps equal to the two-call "
+                f"packed path's and bit1's, energy_total {energy}, "
+                f"{counts[0]} {fn.__name__} launches, "
+                f"{result['flips_ns']:.2f} flips/ns on {card['smi']}")
+
+
+def median_ms(fn, n=TIMED_LAUNCHES):
+    """(median ms of TIMED_REPEATS x n calls fn(i), sorted runs)."""
+    time_launches(fn, 10)
+    runs = sorted(time_launches(fn, n) for _ in range(TIMED_REPEATS))
+    return runs[len(runs) // 2], runs
+
+
+def phase_timing_fused(card, mix):
+    """Per step at 16384^2 (W = 1024), T = 1.5, on random words, in every
+    u32 mode and hw: both fused kernels against the plain step (both
+    planes, bit for bit), then each timed at its default band and at
+    FUSED_TIMED_BAND rows, beside two packed_sweep launches a step in the
+    same mode, the plain step, the bound (4 planes; twice a half-sweep's
+    operations) and the pipe mix of the compiled kernel. Returns ({mode:
+    {variable: timing}}, cases, max abs err)."""
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(10)
+    H, W = MAIN_SHAPE, MAIN_SHAPE // 16
+    b, w = (random_words(gen, (H, W), dev) for _ in range(2))
+    words = H * W
+    rate = card["sms"] * INT_OPS_PER_SM_CLOCK * card["clock_hz"]
+    bytes_ms = 4 * words * 4 / HBM_BYTES_PER_S * 1e3
+    out, cases, max_err = {}, 0, 0
+    for mode in PACKED_MODES:
+        thr = ising.threshold_table(1.5)
+        kw = dict(seed=golden.SEED, rng_mode=mode)
+        ref = packed.packed_fused_step_reference(b, w, thr, 0, 1, **kw)
+        d, s = b.clone(), w.clone()
+
+        def two(i):
+            packed.packed_sweep(d, s, s[-1:], s[:1], thr, 0, i, color=0, **kw)
+            packed.packed_sweep(s, d, d[-1:], d[:1], thr, 0, i, color=1, **kw)
+
+        two_ms, two_runs = median_ms(two)
+        plain_ms = time_launches(lambda i: packed.packed_fused_step_reference(
+            b, w, thr, 0, i, **kw), PLAIN_LAUNCHES)
+        ops = 2 * packed_ops_per_word(mode, packed.ACCEPT_METROPOLIS)
+        ops_ms = ops * words / rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+        family, rounds = parse_rng_mode(mode)
+        if family == "hw":
+            family, rounds = "philox", 10
+        out[mode] = {}
+        for var, fn in FUSED.items():
+            max_err = max(max_err, fused_against(
+                f"{fn.__name__} != plain at {MAIN_SHAPE}^2 {mode}",
+                fn(b, w, thr, 0, 1, **kw), ref))
+            cases += 1
+            timed = {band: median_ms(lambda i, band=band: fn(
+                b, w, thr, 0, i, band_rows=band, **kw))
+                for band in (None, FUSED_TIMED_BAND)}
+            (ms, runs), (other_ms, _) = timed[None], timed[FUSED_TIMED_BAND]
+            band = packed.fused_band_rows(H, W, mode, manual=var == "2")
+            pipes = dict((mix or {}).get(("packed_fused", (
+                bit1._FAMILY_CODE[family], rounds, packed.ACCEPT_METROPOLIS,
+                int(var == "2"))), {}))
+            out[mode][var] = {
+                "ms": ms, "ms_runs": runs, "band_rows": band,
+                "other_band_rows": FUSED_TIMED_BAND, "other_band_ms": other_ms,
+                "two_sweeps_ms": two_ms, "two_sweeps_runs": two_runs,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes_ms": bytes_ms,
+                "ops_per_word": ops, "ops_ms": ops_ms, "sass_static": pipes}
+            say(f"[timing] {MAIN_SHAPE}^2 {fn.__name__} {mode}, one step: "
+                f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
+                f"(range {runs[0]:.4f}-{runs[-1]:.4f}; "
+                f"{2 * words * packed.FIELDS / ms / 1e6:.1f} flips/ns) at "
+                f"its default band of {band} rows, {other_ms:.4f} ms at "
+                f"{FUSED_TIMED_BAND} rows; two packed_sweep launches "
+                f"{two_ms:.4f} ms ({ms / two_ms:.3f}x); plain {plain_ms:.2f} "
+                f"ms; bound {bound_ms:.4f} ms by {bound_by} (bytes "
+                f"{bytes_ms:.4f} ms; {ops:.1f} integer ops/word -> "
+                f"{ops_ms:.4f} ms), {bound_ms / ms:.1%} of bound; compiled "
+                f"code (static) {pipes}, on {card['smi']}")
+    return out, cases, max_err
+
+
+def fused_entry(var, main_path, timing, cases, max_err, info):
+    """The kernels line's entry of one fused kernel: launches of its own
+    main-path runs, its per-step timing in threefry13 (every mode under
+    per_mode)."""
+    fn = FUSED[var]
+    t = timing["threefry13"][var]
+    runs = {f"{what} {mode}": r for (v, what, mode), r in main_path.items()
+            if v == var and r["kernel"] == fn.__name__}
+    return {
+        "name": fn.__name__,
+        "route": "cuda",
+        "source": "ising_tpu_torch/csrc/packed_fused.cu",
+        "sources": [f"ising_tpu_torch/csrc/{n}" for n in (
+            "packed_fused.cu", "packed_word.cuh", "counter_rng.cuh")],
+        "replaces": FUSED_KERNEL[var],
+        "path": f"ISING_TPU_FUSED={var}",
+        "launches": sum(r["launches"] for r in runs.values()),
+        "main_path": runs,
+        "max_abs_err": max_err,
+        "compared_cases": cases,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "held_against_plain": True,
+        "build_s": info.seconds,
+        "per_mode": {m: v[var] for m, v in timing.items()},
+    }
+
+
 BIT1_KERNEL = {"source": "ising_tpu_torch/csrc/bit1_sweep.cu",
                "replaces": "ising_tpu/ops/pallas_bit1.py:265"}
 PACKED_KERNEL = {"source": "ising_tpu_torch/csrc/packed_sweep.cu",
@@ -1670,6 +2011,9 @@ def main() -> int:
         p_cases, p_err = phase_compare_packed(dev)
         say(f"[kernel] {p_cases} packed kernel-vs-plain cases equal, max abs "
             f"err {p_err}  [time {elapsed():.1f} s]")
+        f_cases, f_err = phase_compare_fused(dev)
+        say(f"[kernel] {f_cases} fused kernel-vs-plain cases equal, max abs "
+            f"err {f_err}  [time {elapsed():.1f} s]")
         d_cases, d_err = phase_compare_planes(dev, "dense")
         m_cases, m_err = phase_compare_planes(dev, "mxu")
         say(f"[kernel] {d_cases} dense and {m_cases} mxu kernel-vs-plain "
@@ -1679,16 +2023,19 @@ def main() -> int:
         say(f"[kernel] {l_cases} label_pass and labeling cases equal to the "
             f"plain versions, max abs err {l_err}  [time {elapsed():.1f} s]")
         phase_golden()
+        phase_fused_golden()
         phase_sw_golden()
         say(f"[time] {elapsed():.1f} s")
         ordered, paths = phase_main_path(card)
         p_ordered, p_paths = phase_main_path(card, "packed")
+        f_main = phase_fused_main_path(card)
         say(f"[time] {elapsed():.1f} s")
         d_ordered, d_paths = phase_plane_main_path(card, "dense")
         m_ordered, _ = phase_plane_main_path(card, "mxu")
         say(f"[time] {elapsed():.1f} s")
         phase_xla_path(card)
         phase_packed_equality(card)
+        phase_fused_equality(card)
         phase_plane_equality(card)
         say(f"[time] {elapsed():.1f} s")
         sw_main = phase_sw_main(card)
@@ -1697,13 +2044,16 @@ def main() -> int:
         cases, max_err = cases + full_cases, max(max_err, full_err)
         p_timing, full_cases, full_err = phase_timing_packed(card, mix, timing)
         p_cases, p_err = p_cases + full_cases, max(p_err, full_err)
+        f_timing, full_cases, full_err = phase_timing_fused(card, mix)
+        f_cases, f_err = f_cases + full_cases, max(f_err, full_err)
         pl_timing, pl_cases, pl_err = phase_timing_planes(card, mix, timing)
         d_cases += sum(1 for k in pl_timing if k[0] == "dense") * 2
         m_cases += sum(1 for k in pl_timing if k[0] == "mxu") * 2
         d_err, m_err = max(d_err, pl_err), max(m_err, pl_err)
-        say(f"[kernel] {cases} bit1, {p_cases} packed, {d_cases} dense and "
-            f"{m_cases} mxu kernel-vs-plain cases equal in all, max abs err "
-            f"{max(max_err, p_err, d_err, m_err)}  [time {elapsed():.1f} s]")
+        say(f"[kernel] {cases} bit1, {p_cases} packed, {f_cases} fused, "
+            f"{d_cases} dense and {m_cases} mxu kernel-vs-plain cases equal "
+            f"in all, max abs err {max(max_err, p_err, f_err, d_err, m_err)}"
+            f"  [time {elapsed():.1f} s]")
         sw_timing = phase_sw_timing(card, {
             SW_SHAPE: sw_main["full lattice"]["full"],
             SW_SCALE_SHAPE: sw_main["scale"]["full"]})
@@ -1736,6 +2086,9 @@ def main() -> int:
             f"packed_sweep[{path}]", path, p_timing,
             sum(r["launches"] for r in runs.values()), runs, p_err, info,
             PACKED_KERNEL))
+    # the fused step's two kernels: launches of their own main-path runs
+    entries += [fused_entry(var, f_main, f_timing, f_cases, f_err, info)
+                for var in FUSED]
     # dense_sweep (ordered and with J planes) and mxu_sweep: launches of
     # their own main-path runs at 8192^2 and 16384^2
     entries.append(plane_kernel_entry(

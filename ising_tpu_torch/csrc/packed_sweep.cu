@@ -6,23 +6,8 @@
 // the greedy T <= 0 quench and the 10-entry external-field table, the J word
 // of quenched +-J disorder and the sub-lattice replica wraps.
 //
-// Layout: a color plane is (H, W) 32-bit words, W = C/8 for C compact
-// columns; field z (bits 4z..4z+3) of word (y, j) holds the spin at compact
-// column c = z*W + j in its low bit. The four neighbour words are added as
-// whole words, so each field sums its count n = 0..4 without a carry; the
-// mirrored count e = b ? n : 4 - n classifies all eight fields at once
-// (ge_k = e + (8 - k)*0x11111111, bit 3 of each field), and a field flips
-// where its u32 draw is at or below its class's threshold (unsigned).
-//
-// Draws follow rng.color_draws' contract for a C-wide row: the draw of
-// column c is output slot c / nq of counter q = c mod nq, counter
-// q64 = gy*nq + q. For field z of word j (c = z*W + j):
-//   Philox   (nq = 2W): counter j gives fields 0, 2, 4, 6, counter W + j
-//            fields 1, 3, 5, 7: two calls per word;
-//   Threefry (nq = 4W): counter r*W + j gives fields r and r + 4: four calls;
-//   ChaCha   (nq = W/2): the block at q = j mod W/2 gives field z of word j
-//            in slot 2z + (j >= W/2), so one block serves words q and
-//            q + W/2, and one thread owns that pair of words.
+// Layout, accept and draws: packed_word.cuh, shared with the fused
+// both-colors step (packed_fused.cu).
 //
 // One thread per word (per pair in ChaCha), no shared memory: a thread reads
 // its own dst word(s) and the src words around them and writes dst in place.
@@ -43,25 +28,11 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a (ops/kernel_lib.py). The
 // C entry point returns cudaGetLastError() after the launch.
 
-#include "counter_rng.cuh"
+#include "packed_word.cuh"
 
 namespace {
 
 using namespace ising;
-
-constexpr uint32_t M1 = 0x11111111u;  // the spin bit of every field
-constexpr uint32_t M8 = 0x88888888u;  // bit 3 of every field
-
-constexpr int ACCEPT_METROPOLIS = 0;
-constexpr int ACCEPT_GREEDY = 1;
-constexpr int ACCEPT_FIELD = 2;
-
-// The (10,) u32 threshold table thr10[b*5 + n] of models/ising.py, by value.
-// Read at constant indices only: a runtime index would move the struct into
-// local memory.
-struct Thresholds {
-  uint32_t t[10];
-};
 
 // Where a word's neighbours come from, the same for every thread of a
 // launch: jword, the J word of quenched disorder (nullptr for none; the flags
@@ -73,22 +44,14 @@ struct PackedGeometry {
   int csl, ysl;
 };
 
-struct Word {
-  int64_t idx;
-  uint32_t me, up, dn, same, off;
-};
-
 // The word (y, j) and the src words around it (pallas_packed.py:202-235,
-// :413-441). The off-column neighbour of column z*W + j is lane j - 1 or
-// j + 1 of the same field; at the row's first / last lane it is the last /
-// first word with every field moved one group (a 4-bit rotation). A site
-// looks right where it sits on an odd full-lattice column: black on odd
-// rows, white on even rows. Replicas: at lane j % csl == 0 the left
-// neighbour is lane j + csl - 1, at j % csl == csl - 1 the right one lane
-// j - csl + 1 (no rotation: csl divides W, so the wrap stays inside the
-// field group); row y % ysl == 0 takes row y + ysl - 1 as up, row
-// y % ysl == ysl - 1 row y - ysl + 1 as down, and src_up / src_dn are not
-// read. The J word's flags are XORed into the four neighbours.
+// :413-441): the periodic off-column word is packed_word.cuh's off_word.
+// Replicas: at lane j % csl == 0 the left neighbour is lane j + csl - 1, at
+// j % csl == csl - 1 the right one lane j - csl + 1 (no rotation: csl
+// divides W, so the wrap stays inside the field group); row y % ysl == 0
+// takes row y + ysl - 1 as up, row y % ysl == ysl - 1 row y - ysl + 1 as
+// down, and src_up / src_dn are not read. The J word's flags are XORed into
+// the four neighbours.
 __device__ __forceinline__ Word load_word(const uint32_t* __restrict__ dst,
                                           const uint32_t* __restrict__ src,
                                           const uint32_t* __restrict__ src_up,
@@ -98,10 +61,10 @@ __device__ __forceinline__ Word load_word(const uint32_t* __restrict__ dst,
   Word w;
   const int64_t w64 = W;
   const uint32_t* row = src + y * w64;
-  w.idx = y * w64 + j;
-  w.me = dst[w.idx];
+  const int64_t idx = y * w64 + j;
+  w.me = dst[idx];
   w.same = row[j];
-  const bool look_right = (color == 0) == static_cast<bool>(y & 1);
+  const bool right = looks_right(color, y);
   if (g.ysl) {
     const int r = y % g.ysl;
     w.up = row[r == 0 ? (g.ysl - 1) * w64 + j : j - w64];
@@ -112,14 +75,13 @@ __device__ __forceinline__ Word load_word(const uint32_t* __restrict__ dst,
   }
   if (g.csl) {
     const int l = j % g.csl;
-    w.off = look_right ? row[l == g.csl - 1 ? j - g.csl + 1 : j + 1]
-                       : row[l == 0 ? j + g.csl - 1 : j - 1];
+    w.off = right ? row[l == g.csl - 1 ? j - g.csl + 1 : j + 1]
+                  : row[l == 0 ? j + g.csl - 1 : j - 1];
   } else {
-    w.off = look_right ? (j == W - 1 ? rotl(row[0], 28) : row[j + 1])
-                       : (j == 0 ? rotl(row[W - 1], 4) : row[j - 1]);
+    w.off = off_word(row, j, W, right);
   }
   if (g.jword != nullptr) {
-    const uint32_t jw = g.jword[w.idx];
+    const uint32_t jw = g.jword[idx];
     w.up ^= jw & M1;
     w.dn ^= (jw >> 1) & M1;
     w.same ^= (jw >> 2) & M1;
@@ -127,62 +89,6 @@ __device__ __forceinline__ Word load_word(const uint32_t* __restrict__ dst,
   }
   return w;
 }
-
-// The accept of one word (pallas_packed.py:_accept_and_flip), fed one draw
-// per field, then asked for the flip word. The class words ge_k hold, in
-// bit 4z+3, whether field z's mirrored count e is at least k.
-//   ACCEPT_METROPOLIS (T > 0): e <= 2 flips; e == 3 on d <= thr[8], e == 4 on
-//     d <= thr[9];
-//   ACCEPT_GREEDY (T <= 0): e < 2 flips; e == 2 on thr[7], and as above;
-//   ACCEPT_FIELD: own bit 1 takes thr[5 + e], own bit 0 thr[4 - e].
-template <int ACCEPT>
-struct Acceptor {
-  uint32_t me, ge1, ge2, ge3, ge4;
-  uint32_t p0 = 0, p4 = 0, p8 = 0, flips = 0;
-
-  __device__ __forceinline__ explicit Acceptor(const Word& w) : me(w.me) {
-    const uint32_t nsum = w.up + w.dn + w.same + w.off;
-    const uint32_t m1 = me & M1;
-    const uint32_t mask = (m1 << 4) - m1;
-    const uint32_t e = (nsum & mask) | ((0x44444444u - nsum) & ~mask);
-    ge1 = (e + 0x77777777u) & M8;
-    ge2 = (e + 0x66666666u) & M8;
-    ge3 = (e + 0x55555555u) & M8;
-    ge4 = (e + 0x44444444u) & M8;
-  }
-
-  __device__ __forceinline__ void take(uint32_t d, int z, const Thresholds& thr) {
-    const int b = 4 * z;
-    if constexpr (ACCEPT == ACCEPT_FIELD) {
-      const bool i4 = (ge4 >> (b + 3)) & 1, i3 = (ge3 >> (b + 3)) & 1;
-      const bool i2 = (ge2 >> (b + 3)) & 1, i1 = (ge1 >> (b + 3)) & 1;
-      const uint32_t t_up = i4 ? thr.t[9] : i3 ? thr.t[8] : i2 ? thr.t[7]
-                          : i1 ? thr.t[6] : thr.t[5];
-      const uint32_t t_dn = i4 ? thr.t[0] : i3 ? thr.t[1] : i2 ? thr.t[2]
-                          : i1 ? thr.t[3] : thr.t[4];
-      const uint32_t t = ((me >> b) & 1) ? t_up : t_dn;
-      flips |= static_cast<uint32_t>(d <= t) << b;
-    } else {
-      p4 |= static_cast<uint32_t>(d <= thr.t[8]) << b;
-      p8 |= static_cast<uint32_t>(d <= thr.t[9]) << b;
-      if constexpr (ACCEPT == ACCEPT_GREEDY) {
-        p0 |= static_cast<uint32_t>(d <= thr.t[7]) << b;
-      }
-    }
-  }
-
-  __device__ __forceinline__ uint32_t flip() const {
-    if constexpr (ACCEPT == ACCEPT_FIELD) return flips;
-    const uint32_t g3 = ge3 >> 3, g4 = ge4 >> 3;
-    if constexpr (ACCEPT == ACCEPT_GREEDY) {
-      const uint32_t g2 = ge2 >> 3;
-      return (M1 & ~g2) |
-             (g2 & ((g4 & p8) | (~g4 & g3 & p4) | (~g4 & ~g3 & p0)));
-    } else {
-      return (M1 & ~g3) | (g3 & ~g4 & p4) | (g4 & p8);
-    }
-  }
-};
 
 template <int FAMILY, int R, int ACCEPT>
 __global__ void __launch_bounds__(256)
@@ -198,45 +104,13 @@ packed_sweep_kernel(uint32_t* __restrict__ dst, const uint32_t* __restrict__ src
   if (t >= static_cast<int64_t>(H) * wt) return;
   const int y = static_cast<int>(t / wt);
   const int q = static_cast<int>(t - static_cast<int64_t>(y) * wt);
-  const uint32_t gy = row0 + static_cast<uint32_t>(y);
-  const uint32_t w = static_cast<uint32_t>(W);
-  const Word a = load_word(dst, src, src_up, src_dn, H, W, color, geo, y, q);
-  Acceptor<ACCEPT> acc_a(a);
-  if constexpr (FAMILY == FAMILY_CHACHA) {
-    const Word b = load_word(dst, src, src_up, src_dn, H, W, color, geo, y, q + wt);
-    Acceptor<ACCEPT> acc_b(b);
-    const uint64_t c = counter(gy, w / 2, static_cast<uint32_t>(q));
-    uint32_t o[16];
-    chacha<R>(static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32), step,
-              tag, k0, k1, o);
-#pragma unroll
-    for (int z = 0; z < 8; ++z) {
-      acc_a.take(o[2 * z], z, thr);
-      acc_b.take(o[2 * z + 1], z, thr);
-    }
-    dst[b.idx] = b.me ^ acc_b.flip();
-  } else if constexpr (FAMILY == FAMILY_PHILOX) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint64_t c = counter(gy, 2u * w, h * w + static_cast<uint32_t>(q));
-      const uint4 o = philox<R>(static_cast<uint32_t>(c),
-                                static_cast<uint32_t>(c >> 32), step, tag, k0, k1);
-      acc_a.take(o.x, h, thr);
-      acc_a.take(o.y, 2 + h, thr);
-      acc_a.take(o.z, 4 + h, thr);
-      acc_a.take(o.w, 6 + h, thr);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const uint64_t c = counter(gy, 4u * w, r * w + static_cast<uint32_t>(q));
-      const uint2 o = threefry<R>(static_cast<uint32_t>(c),
-                                  static_cast<uint32_t>(c >> 32), k0, k1);
-      acc_a.take(o.x, r, thr);
-      acc_a.take(o.y, r + 4, thr);
-    }
-  }
-  dst[a.idx] = a.me ^ acc_a.flip();
+  const int64_t base = static_cast<int64_t>(y) * W;
+  update_words<FAMILY, R, ACCEPT>(
+      [&](int j) {
+        return load_word(dst, src, src_up, src_dn, H, W, color, geo, y, j);
+      },
+      [&](int j, uint32_t word) { dst[base + j] = word; },
+      row0 + static_cast<uint32_t>(y), W, q, Stream{step, tag, k0, k1}, thr);
 }
 
 template <int FAMILY, int R, int ACCEPT>

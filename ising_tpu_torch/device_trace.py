@@ -15,9 +15,12 @@ flips/ns times (after the warm-up and the first measurement, which
   of kernel, copy and set intervals), hence the device's idle share;
 - device time by kernel name;
 - the gaps between one sweep kernel (either of the two behind
-  bit1_sweep, or packed_sweep's, dense_sweep's, mxu_sweep's or the cluster
-  labeler's) and the next kernel: a gap near zero
-  means the host enqueues launches faster than the card runs them;
+  bit1_sweep, or packed_sweep's, the fused packed step's, dense_sweep's,
+  mxu_sweep's or the cluster labeler's) and the next kernel: a gap near
+  zero means the host enqueues launches faster than the card runs them;
+- the kernel launches in the span, against those the path makes: two a
+  step, one under ISING_TPU_FUSED=1|2 on packed where the fused step
+  applies (packed_fused_step, or packed_fused_step_manual under =2);
 - for --algo sw, each part of an update (sw_step's ranges: the bonds, the
   labeling, the coins and flip): the device time of its kernels and the
   span from its first kernel to its last.
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import time
 
@@ -42,9 +46,11 @@ from .config import SimConfig
 from .constants import TCRIT
 from .driver import TIMED_WINDOW as WINDOW
 from .driver import Simulation
+from .ops import get_backend
 
 KERNELS = ("bit1_sweep_kernel", "bit1_planes_kernel", "packed_sweep_kernel",
-           "dense_sweep_kernel", "mxu_sweep_kernel", "cluster_label_kernel")
+           "packed_fused_kernel", "dense_sweep_kernel", "mxu_sweep_kernel",
+           "cluster_label_kernel")
 SW_SPANS = ("sw_step.bonds", "sw_step.label", "sw_step.flip")
 
 
@@ -123,6 +129,18 @@ def summarize(events):
     }
 
 
+def step_launches(cfg: SimConfig):
+    """(wrapper, launches a step) of cfg's Metropolis path: the fused
+    packed step, once a step, where the backend's fusable says so (the
+    stepper's rule), else two of the backend's sweep."""
+    backend = get_backend(cfg)
+    if getattr(backend, "fusable", None) and backend.fusable(cfg.nrows):
+        manual = os.environ.get("ISING_TPU_FUSED") == "2"
+        return ("packed_fused_step_manual" if manual
+                else "packed_fused_step"), 1
+    return f"{cfg.backend}_sweep", 2
+
+
 def trace(cfg: SimConfig, make=Simulation):
     """Run cfg's run loop (of make(cfg): Simulation or SwendsenWang)
     without, then under the profiler; the first run's flips/ns is what the
@@ -172,6 +190,10 @@ def main(argv=None) -> int:
                         nwarmup=warmup, niters=args.nit, print_freq=prints,
                         device=args.device)
         t0 = time.perf_counter()
+        expected = ""
+        if not sw:
+            kernel, per_step = step_launches(cfg)
+            expected = f" (of {per_step * cfg.niters} {kernel} launches)"
         out, lines = trace(cfg, SwendsenWang if sw else Simulation)
         for line in lines:
             print(line)
@@ -181,7 +203,7 @@ def main(argv=None) -> int:
               f"{out['wall_us']:.1f} us, device busy "
               f"{out['device_busy_us']:.1f} us, idle share "
               f"{out['idle_share']:.4f}; {out['kernel_launches']} kernel "
-              f"launches{'' if sw else f' (of {2 * cfg.niters})'}, gap "
+              f"launches{expected}, gap "
               "after each: median "
               f"{gaps['median']} us, p90 "
               f"{gaps['p90']} us, max {gaps['max']} us "

@@ -68,6 +68,23 @@ SIGNATURES = {
          _c.c_void_p, _c.c_int, _c.c_int,                     # jword csl ysl
          _c.c_void_p],                                        # stream
         _c.c_int),
+    # packed_fused_step_launch and packed_fused_step_manual_launch
+    **{name: (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # b w b' w'
+         _c.c_int, _c.c_int,                                  # H, W
+         _c.c_uint32, _c.c_uint32,                            # row0 step
+         _c.POINTER(_c.c_uint32),                             # thr10
+         _c.c_uint32, _c.c_uint32, _c.c_uint32,               # black: tag k0 k1
+         _c.c_uint32, _c.c_uint32, _c.c_uint32,               # white: tag k0 k1
+         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # family rounds accept band
+         _c.c_void_p],                                        # stream
+        _c.c_int)
+       for name in ("packed_fused_step_launch",
+                    "packed_fused_step_manual_launch")},
+    "packed_fused_step_band": (
+        [_c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,   # H W family rounds accept
+         _c.c_int, _c.POINTER(_c.c_int)],                     # manual, band out
+        _c.c_int),
     "dense_sweep_launch": (
         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # dst src up dn
          _c.c_int, _c.c_int,                                  # H, C

@@ -20,17 +20,22 @@ plain torch, on CPU tensors. The plain version works on int64 copies of
 the words (values in [0, 2^32)), because torch's int32 right shift is
 arithmetic and its uint32 lacks shifts and compares on the CPU.
 
-The JAX package's fused both-colors step (``ISING_TPU_FUSED=1|2``, TPU
-kernel rows 3 and 4) is not ported: the backend refuses the variable.
+The fused both-colors step (``ISING_TPU_FUSED=1|2``, the TPU kernels
+``_fused_kernel`` and ``_fused_manual_kernel``): ``packed_fused_step`` and
+``packed_fused_step_manual`` launch the two entry points of
+``csrc/packed_fused.cu`` on CUDA tensors, one launch a step, out of place,
+and run ``packed_fused_step_reference`` (two plain half-sweeps) on CPU
+tensors. ``PackedBackend.fusable`` takes the JAX package's decision
+(pallas_packed.py:974-989), with its block-row helpers copied here.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
 
-from ..config import not_ported
 from ..constants import BLACK, WHITE
 from ..rng import (MASK, TAG_SWEEP, counter_color_draws, parse_rng_mode,
                    plane_bits)
@@ -42,7 +47,6 @@ from .bit1 import (ACCEPT_FIELD, ACCEPT_GREEDY, ACCEPT_METROPOLIS,
 FIELDS = 8           # spins per word
 M1 = 0x11111111      # the spin bit of every field
 M8 = 0x88888888      # bit 3 of every field
-FUSED_ITEM = 16      # ROADMAP item of the fused packed step (rows 3, 4)
 
 
 def pack_bits(bits):
@@ -76,6 +80,12 @@ def pack_jplanes(jplanes):
     in int64: field 7's off flag is bit 31."""
     out = sum(_u(pack_bits(p)) << k for k, p in enumerate(jplanes))
     return _s(out)
+
+
+def _accept(greedy: bool, full_table: bool) -> int:
+    """The kernels' accept variant: the field's table covers T <= 0."""
+    return (ACCEPT_FIELD if full_table else
+            ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS)
 
 
 def packed_sweep_reference(dst, src, src_up, src_dn, thr10, row0, step,
@@ -198,8 +208,7 @@ def packed_sweep(dst, src, src_up, src_dn, thr10, row0, step, jword=None, *,
         raise ValueError("packed_sweep updates dst in place: dst must not "
                          "overlap src, src_up, src_dn or the J word")
     tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
-    accept = (ACCEPT_FIELD if full_table else
-              ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS)
+    accept = _accept(greedy, full_table)
     lib, _ = kernel_lib.load()
     code = lib.packed_sweep_launch(
         dst.data_ptr(), src.data_ptr(), src_up.data_ptr(), src_dn.data_ptr(),
@@ -213,6 +222,135 @@ def packed_sweep(dst, src, src_up, src_dn, thr10, row0, step, jword=None, *,
 
 
 packed_sweep.launches = 0
+
+
+def packed_fused_step_reference(black, white, thr10, row0, step, *,
+                                seed: int, rng_mode: str,
+                                greedy: bool = False,
+                                full_table: bool = False):
+    """One whole step in plain torch: (black', white') as two half-sweeps,
+    black against white with the periodic wrap rows, then white against
+    black'. New tensors; the inputs are not modified."""
+    kw = dict(seed=seed, rng_mode=rng_mode, greedy=greedy,
+              full_table=full_table)
+    nb = packed_sweep_reference(black, white, white[-1:], white[:1], thr10,
+                                row0, step, color=BLACK, **kw)
+    nw = packed_sweep_reference(white, nb, nb[-1:], nb[:1], thr10, row0,
+                                step, color=WHITE, **kw)
+    return nb, nw
+
+
+def _fused_step(fn, black, white, thr10, row0, step, *, seed, rng_mode,
+                greedy, full_table, band_rows):
+    """packed_fused_step and packed_fused_step_manual: fn is the wrapper,
+    whose name is its C entry point's and whose counter is bumped."""
+    name = fn.__name__
+    H, W = tuple(black.shape)
+    device = black.device
+    for arg, t in (("black", black), ("white", white)):
+        _check_words(arg, t, (H, W), device, name)
+    if plane_bits(rng_mode):
+        raise ValueError(f"{name} draws u32 per spin; {rng_mode!r} is a "
+                         "bit-plane mode")
+    if parse_rng_mode(rng_mode)[0] == "chacha" and W % 2:
+        raise ValueError(f"{name}: chacha needs an even W, got {W}")
+    if len(thr10) != 10:
+        raise ValueError(f"{name}: thr10 has {len(thr10)} entries, "
+                         "expected 10")
+    if band_rows is not None and band_rows < 1:
+        raise ValueError(f"{name}: band_rows must be positive, got "
+                         f"{band_rows}")
+    if device.type == "cpu":
+        return packed_fused_step_reference(
+            black, white, thr10, row0, step, seed=seed, rng_mode=rng_mode,
+            greedy=greedy, full_table=full_table)
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    if overlaps(black, white):
+        # the two-call path it equals updates black in place before white
+        # reads it
+        raise ValueError(f"{name}: black and white must not overlap")
+    new_black, new_white = torch.empty_like(black), torch.empty_like(white)
+    tag_b, kb0, kb1, family, rounds = launch_args(rng_mode, seed, step, BLACK)
+    tag_w, kw0, kw1, _, _ = launch_args(rng_mode, seed, step, WHITE)
+    accept = _accept(greedy, full_table)
+    lib, _ = kernel_lib.load()
+    code = getattr(lib, name + "_launch")(
+        black.data_ptr(), white.data_ptr(), new_black.data_ptr(),
+        new_white.data_ptr(), H, W, int(row0) & MASK, int(step) & MASK,
+        kernel_lib.table10(thr10), tag_b, kb0, kb1, tag_w, kw0, kw1, family,
+        rounds, accept, band_rows or 0, _cuda_stream(device))
+    kernel_lib.check(lib, code, f"{name} launch")
+    fn.launches += 1
+    return new_black, new_white
+
+
+def packed_fused_step(black, white, thr10, row0, step, *, seed: int,
+                      rng_mode: str, greedy: bool = False,
+                      full_table: bool = False, band_rows: int | None = None):
+    """One whole step, both colors: returns new (black', white') planes.
+
+    On CUDA tensors this launches csrc/packed_fused.cu's
+    packed_fused_step_launch (rows reach shared memory by plain loads);
+    a launch that fails raises. On CPU tensors it runs
+    packed_fused_step_reference. band_rows: the rows a CTA owns (None: one
+    wave of CTAs); the result does not depend on it. Counts launches in
+    packed_fused_step.launches.
+    """
+    return _fused_step(packed_fused_step, black, white, thr10, row0, step,
+                       seed=seed, rng_mode=rng_mode, greedy=greedy,
+                       full_table=full_table, band_rows=band_rows)
+
+
+def packed_fused_step_manual(black, white, thr10, row0, step, *, seed: int,
+                             rng_mode: str, greedy: bool = False,
+                             full_table: bool = False,
+                             band_rows: int | None = None):
+    """As packed_fused_step, through packed_fused_step_manual_launch: rows
+    reach shared memory by cp.async, a few rows ahead of the compute.
+    Counts launches in packed_fused_step_manual.launches."""
+    return _fused_step(packed_fused_step_manual, black, white, thr10, row0,
+                       step, seed=seed, rng_mode=rng_mode, greedy=greedy,
+                       full_table=full_table, band_rows=band_rows)
+
+
+packed_fused_step.launches = 0
+packed_fused_step_manual.launches = 0
+
+
+def fused_band_rows(H: int, W: int, rng_mode: str, *, manual: bool,
+                    greedy: bool = False, full_table: bool = False) -> int:
+    """The band height (rows a CTA owns) that a fused launch with
+    band_rows=None takes for an (H, W) plane on the current CUDA device:
+    one wave of CTAs, from the kernel's occupancy."""
+    _, _, _, family, rounds = launch_args(rng_mode, 0, 0, BLACK)
+    accept = _accept(greedy, full_table)
+    lib, _ = kernel_lib.load()
+    band = ctypes.c_int(0)
+    code = lib.packed_fused_step_band(H, W, family, rounds, accept,
+                                      int(manual), ctypes.byref(band))
+    kernel_lib.check(lib, code, "packed_fused_step_band")
+    return band.value
+
+
+def _pick_block_rows(nrows: int, target: int = 256) -> int:
+    """The JAX package's row-block height (pallas_dense.py:48-55): the
+    largest multiple-of-8 divisor of nrows up to target, else nrows."""
+    best = nrows
+    for by in range(8, min(nrows, target) + 1, 8):
+        if nrows % by == 0:
+            best = by
+    return best
+
+
+def _block_rows_for(nrows: int, width_words: int, rng_mode: str) -> int:
+    """The JAX package's block height for a per-row width of width_words
+    32-bit words (pallas_dense.py:58-72): tighter in Philox and ChaCha."""
+    if parse_rng_mode(rng_mode)[0] in ("philox", "chacha"):
+        target = max(8, min(256, (1 << 16) // max(1, width_words)))
+    else:
+        target = max(8, min(512, (1 << 21) // max(1, width_words)))
+    return _pick_block_rows(nrows, target)
 
 
 class PackedBackend:
@@ -242,13 +380,6 @@ class PackedBackend:
             if cfg.ysl % 8:
                 raise ValueError("packed replica mode needs ysl % 8 == 0")
             self.csl, self.ysl = csl, cfg.ysl
-        fused = os.environ.get("ISING_TPU_FUSED")
-        if fused in ("1", "2"):
-            # pallas_packed.py:961-1005 runs both colors in one kernel under
-            # this variable; running the two-call path in its place would
-            # pass off one kernel for another.
-            raise not_ported(f"the fused packed step (ISING_TPU_FUSED={fused},"
-                             " TPU kernel rows 3 and 4)", FUSED_ITEM)
         self.cfg = cfg
         self.retune(cfg.temperature, cfg.field)
 
@@ -286,3 +417,51 @@ class PackedBackend:
                             rng_mode=self.cfg.rng, greedy=self.greedy,
                             full_table=self.full_table, csl=self.csl,
                             ysl=self.ysl)
+
+    def fusable(self, nrows: int) -> bool:
+        """Whether a step runs as one fused launch: the JAX package's rule
+        (pallas_packed.py:974-983), ISING_TPU_FUSED in ("1", "2"), one
+        device, no replicas, no disorder, and at least 3 row blocks of
+        fused_block_rows."""
+        if os.environ.get("ISING_TPU_FUSED") not in ("1", "2"):
+            return False
+        if (self.cfg.ndev != 1 or self.cfg.xsl is not None
+                or self.cfg.j_prob is not None):
+            return False
+        return nrows // self.fused_block_rows(nrows) >= 3
+
+    def fused_block_rows(self, nrows: int) -> int:
+        """ISING_TPU_FUSED_BY, else the JAX package's block height
+        (pallas_packed.py:985-989). The CUDA kernel runs bands of its own
+        height; this height decides fusable, and under ISING_TPU_FUSED=2
+        it is the JAX manual kernel's block. There a height that is odd or
+        does not divide nrows gives a wrong lattice in the JAX package
+        (ROADMAP.md §3): refused."""
+        by = os.environ.get("ISING_TPU_FUSED_BY")
+        if not by:
+            return _block_rows_for(nrows, 4 * (self.cfg.ncols // 16),
+                                   self.cfg.rng)
+        rows = int(by)
+        if os.environ.get("ISING_TPU_FUSED") == "2" and (
+                rows < 1 or rows % 2 or nrows % rows):
+            raise ValueError(
+                f"ISING_TPU_FUSED_BY={by}: the fused step takes an even block "
+                f"height that divides nrows ({nrows}); the JAX package's "
+                "manual kernel computes a wrong lattice at this one")
+        return rows
+
+    def update_step(self, black, white, *, thr10, step):
+        """Both colors of one step in one launch (pallas_packed.py:
+        991-1005): the manual kernel under ISING_TPU_FUSED=2, else
+        packed_fused_step; row 0 first. Fewer than 3 row blocks of the
+        step's block height raise, as in the JAX package."""
+        H, W = black.shape
+        manual = os.environ.get("ISING_TPU_FUSED") == "2"
+        rows = (self.fused_block_rows(H) if manual
+                else _block_rows_for(H, 4 * W, self.cfg.rng))
+        if H // rows < 3:
+            raise ValueError("fused step needs at least 3 row blocks")
+        fn = packed_fused_step_manual if manual else packed_fused_step
+        return fn(black, white, thr10, 0, step, seed=self.cfg.seed,
+                  rng_mode=self.cfg.rng, greedy=self.greedy,
+                  full_table=self.full_table)

@@ -129,3 +129,34 @@ def test_trace_runs_sw_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[trace] 32^2 Swendsen-Wang" in out
     assert '"sw": {' in out.splitlines()[-1]
+
+
+@pytest.mark.parametrize("fused,block_rows,want", [
+    (None, None, ("packed_sweep", 2)),
+    ("1", None, ("packed_sweep", 2)),     # 64 rows: one block, not fusable
+    ("1", "8", ("packed_fused_step", 1)),
+    ("2", "8", ("packed_fused_step_manual", 1)),
+])
+def test_fused_path_expects_one_launch_a_step(fused, block_rows, want,
+                                              monkeypatch, capsys):
+    """Under ISING_TPU_FUSED=1|2 on packed, where the fused step applies,
+    the trace expects one launch of the fused kernel a step and counts
+    its kernel's launches and gaps."""
+    for name, value in (("ISING_TPU_FUSED", fused),
+                        ("ISING_TPU_FUSED_BY", block_rows)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    cfg = device_trace.SimConfig(nrows=64, ncols=64, backend="packed",
+                                 rng="philox", device="cpu")
+    assert device_trace.step_launches(cfg) == want
+    assert device_trace.is_kernel(
+        "void (anonymous namespace)::packed_fused_kernel<0, 10, 0, true>"
+        "((anonymous namespace)::FusedArgs)")
+    if fused == "2":
+        assert device_trace.main(["--size", "64", "-w", "2", "-n", "4", "-p",
+                                  "2", "--rng", "philox", "--backend",
+                                  "packed", "--device", "cpu"]) == 0
+        assert "(of 4 packed_fused_step_manual launches)" in (
+            capsys.readouterr().out)

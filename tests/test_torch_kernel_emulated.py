@@ -10,10 +10,11 @@ kernels' arithmetic (draw layouts of every rng mode, counters with carry,
 neighbours, the u32, bit-serial and 10-class field accepts, the
 quenched-disorder links as J planes and as the split link store, the
 replica wraps; in the packed kernel ChaCha's pair of words, the 4-bit
-rotation at the row's ends, the J word and the replica edges; in the dense
-kernel the per-call sites, the 10-entry select and the J planes) against
-their plain torch version before any card sees it. mxu_sweep.cu and
-cluster_label.cu are left out (NOT_EMULATED).
+rotation at the row's ends, the J word and the replica edges, through the
+accept and draws of packed_word.cuh, which the fused step shares; in the
+dense kernel the per-call sites, the 10-entry select and the J planes)
+against their plain torch version before any card sees it. mxu_sweep.cu,
+cluster_label.cu and packed_fused.cu are left out (NOT_EMULATED).
 The card itself checks the compiled kernels in chip_smoke.py.
 """
 
@@ -78,10 +79,15 @@ EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
 # wmma products and its __syncthreads between the staging, the products and
 # the accept; cluster_label.cu's block-wide barriers between its phases (a
 # thread's union-find reads what the others wrote before the barrier), its
-# warp votes and its shared-memory atomics. chip_smoke.py holds those
-# kernels against their plain versions on the card.
-NOT_EMULATED = {"mxu_sweep.cu": "mxu_sweep_launch",
-                "cluster_label.cu": "cluster_label_launch"}
+# warp votes and its shared-memory atomics; packed_fused.cu's rings of rows
+# refilled behind a barrier on every row (a thread computes from rows the
+# others copied) and its cp.async. chip_smoke.py holds those kernels against
+# their plain versions on the card.
+NOT_EMULATED = {"mxu_sweep.cu": ("mxu_sweep_launch",),
+                "cluster_label.cu": ("cluster_label_launch",),
+                "packed_fused.cu": ("packed_fused_step_launch",
+                                    "packed_fused_step_manual_launch",
+                                    "packed_fused_step_band")}
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +115,7 @@ def emulated_lib(tmp_path_factory):
                    timeout=300)
     lib = ctypes.CDLL(str(out))
     for name, (argtypes, restype) in kernel_lib.SIGNATURES.items():
-        if name in NOT_EMULATED.values():
+        if any(name in names for names in NOT_EMULATED.values()):
             continue
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = restype

@@ -6,9 +6,9 @@ ysl over several 8-row blocks) and both, against the Pallas kernel in
 interpret mode; Simulation trajectories, energies and up counts of the
 packed backend against the JAX xla backend (whose u32 trajectories the
 packed one equals) and once against JAX packed itself; build_disorder's
-J word; the backend's fences and their wording; and the refusal of the
-fused step (ISING_TPU_FUSED). Every compared value is an integer or a
-bit pattern: exact equality.
+J word; and the backend's fences and their wording (the fused step,
+ISING_TPU_FUSED, is in tests/test_torch_fused.py). Every compared value
+is an integer or a bit pattern: exact equality.
 """
 
 import numpy as np
@@ -187,22 +187,6 @@ def test_config_refuses_packed_hw_with_a_field():
             cls(backend="packed", ncols=64, rng="hw", field=0.1)
         with pytest.raises(ValueError, match="ncols multiple of 16"):
             cls(backend="packed", ncols=40)
-
-
-@pytest.mark.parametrize("value", ["1", "2"])
-def test_fused_step_is_refused(value, monkeypatch, capsys):
-    """ISING_TPU_FUSED=1|2 asks for the fused kernels (TPU rows 3 and 4),
-    which are not ported: the backend raises and the CLI exits 1 naming
-    ROADMAP item 16, rather than run the two-call path in their place."""
-    monkeypatch.setenv("ISING_TPU_FUSED", value)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        packed.PackedBackend(SimConfig(backend="packed", ncols=64,
-                                       device="cpu"))
-    assert cli.main(["--backend", "packed", "-x", "64", "-y", "8", "-n", "1",
-                     "--device", "cpu"]) == 1
-    assert f"ISING_TPU_FUSED={value}" in capsys.readouterr().err
-    monkeypatch.setenv("ISING_TPU_FUSED", "0")
-    packed.PackedBackend(SimConfig(backend="packed", ncols=64, device="cpu"))
 
 
 @pytest.mark.parametrize("extra", [
