@@ -32,13 +32,16 @@ Phases, each printed as it ends:
                columns (H = 14 and 7, counters that carry, rows that wrap)
                in the u32 modes and hw, at T > 0, T = 0, h = 0.3 (not hw)
                and with J planes; mxu_sweep at 16384^2, 128 x 256 and
-               256 x 768 at T > 0 and T = 0; then the cluster labeler,
-               label_pass, one pass from the site ids and from in-cluster
-               labels against local_pass_reference (its changed flag
-               too), and whole labelings against label_clusters, at
-               4096^2, 1024^2 and 200 x 328 (tiles that do not divide it)
-               and in replicas of 128^2, 16^2 and 32 x 64, with bonds
-               open at p = 0, 0.585 and 1;
+               256 x 768 at T > 0 and T = 0; then the cluster labeler's
+               three kernels: tile_roots against tile_roots_reference
+               (positions, and ids where tiles hold whole replicas),
+               hook_roots and flatten_roots together against the plain
+               hook and flatten, and whole labelings (3 launches, or 1)
+               against label_clusters, at 4096^2, 1024^2 and 200 x 328
+               (tiles that do not divide it), in replicas of 128^2, 16^2
+               and 32 x 64 (whole in a tile) and of 512 x 256 (cut by the
+               tiles), with bonds open at p = 0, 0.585 and 1, and on the
+               full lattices a cluster that snakes through every tile;
   4. golden    the port's Simulation on the card reproduces the JAX
                package's trajectories recorded in ising_tpu_torch/golden.py,
                the disordered ones with their energy, on every backend of
@@ -75,10 +78,12 @@ Phases, each printed as it ends:
                dense's and packed's in hw. Then --algo sw, the README's
                command at 4096^2 and T = Tc (three runs), with --xsl 128
                --ysl 128 and with --field 0.1, and 4 updates at 16384^2,
-               each reading label_pass's launch count (it must equal the
-               passes the run counted), the passes per update and the
-               flag reads; at 256^2 the card's lattice after 8 updates
-               equals the CPU's;
+               each reading the labeler's three launch counts (tile_roots
+               once an update, hook_roots and flatten_roots once an update
+               whose tiles cut the lattice; their sum the launches the
+               run counted); at 256^2 the card's lattice and launches
+               after 8 updates equal the CPU's, also in replicas that the
+               tiles cut;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
@@ -96,11 +101,12 @@ Phases, each printed as it ends:
                J planes, with the field in philox) and mxu_sweep in every
                u32 mode and hw at 16384^2 and 8192^2 the same way; then
                at 4096^2 and 16384^2, on bonds drawn at Tc from the main
-               path's lattice, a labeling (ms, passes, ms a pass, against
-               its 6 B a site bytes bound and the plain label_clusters)
-               and the other parts of an update (bonds, coins and flip,
-               the ghost), and at 4096^2 the labeling by passes per flag
-               read and by tile.
+               path's lattice, a labeling (ms, launches, against its 6 B a
+               site bytes bound and the plain label_clusters), each of its
+               kernels alone against its bytes bound and plain version,
+               the depth of the hooked forest, and the other parts of an
+               update (bonds, coins and flip, the ghost), and at 4096^2 the
+               labeling by tile.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -227,7 +233,7 @@ SWEEPS = {"bit1": bit1.bit1_sweep, "packed": packed.packed_sweep,
 # ISING_TPU_FUSED=1 (packed_fused_step) and =2 (packed_fused_step_manual).
 FUSED = {"1": packed.packed_fused_step, "2": packed.packed_fused_step_manual}
 # Every launch counter: set to 0 before each main-path run.
-COUNTERS = (*SWEEPS.values(), *FUSED.values(), cluster.label_pass)
+COUNTERS = (*SWEEPS.values(), *FUSED.values(), *cluster.LABEL_PHASES)
 # The wrapper that device_trace.step_launches names for a path.
 STEP_WRAPPERS = {f.__name__: f for f in (*SWEEPS.values(), *FUSED.values())}
 # Kernel-vs-plain shapes of the fused step, (Y, X, row0, band rows): W =
@@ -255,8 +261,9 @@ FUSED_KERNEL = {"1": "ising_tpu/ops/pallas_packed.py:453",
 # in replica mode and with the field, one run each; a few updates at
 # 16384^2; at 256^2 the card's lattice against the CPU's. The labeler's
 # kernel-vs-plain cases: (Y, X, ysl, xsl) with bonds open at LABEL_PROBS,
-# a shape whose tiles do not divide it (200 x 328), and the replica
-# geometries 128 x 128 (one replica a tile), 16 x 16 and 32 x 64.
+# a shape whose tiles do not divide it (200 x 328), the replica
+# geometries 128 x 128 (one replica a tile), 16 x 16 and 32 x 64 (grouped
+# in tiles) and 512 x 256 (cut by the tiles, its wraps hooked across).
 SW_SHAPE, SW_ITERS, SW_PRINT = 4096, 64, 8
 SW_FLAGS = ["--algo", "sw", "-a", "1.0"]
 SW_RUNS = (("full lattice", [], 3), ("replicas", REPLICA_FLAGS, 1),
@@ -265,11 +272,11 @@ SW_SCALE_SHAPE, SW_SCALE_ITERS = 16384, 4
 SW_EQUALITY_SHAPE, SW_EQUALITY_ITERS = 256, 8
 LABEL_CASES = ((SW_SHAPE, SW_SHAPE, None, None), (1024, 1024, None, None),
                (200, 328, None, None), (SW_SHAPE, SW_SHAPE, 128, 128),
-               (1024, 1024, 16, 16), (1024, 1024, 32, 64))
+               (1024, 1024, 16, 16), (1024, 1024, 32, 64),
+               (1024, 1024, 512, 256))
 LABEL_PROBS = (0.0, 0.585, 1.0)
 # A labeling reads the two bond planes and writes the labels: 6 B a site.
 LABEL_BYTES_PER_SITE = 6
-LABEL_READS = (1, 2, 4, 8)         # passes per flag read, timed at 4096^2
 LABEL_TILES = ((64, 128), (128, 128), (32, 128))
 LABEL_KERNEL = {"source": "ising_tpu_torch/csrc/cluster_label.cu",
                 "replaces": "ising_tpu/cluster.py:168"}
@@ -1710,61 +1717,90 @@ def random_bonds(gen, Y, X, p, device):
                  for _ in range(2))
 
 
-def one_pass(lab, o_r, o_d, tile, geo):
-    """label_pass into a new plane: (labels, changed flag)."""
-    out = torch.empty(o_r.shape, dtype=torch.int32, device=o_r.device)
-    flag = torch.zeros(1, dtype=torch.int32, device=o_r.device)
-    cluster.label_pass(lab, o_r, o_d, out, flag, tile=tile, **geo)
-    return out, flag
+def snake_bonds(Y, X, device):
+    """One cluster that snakes through every tile: rows open along their
+    length but for the periodic wrap, joined at alternate ends (the longest
+    chain of tile roots the hooks can meet)."""
+    o_r = torch.ones((Y, X), dtype=torch.bool, device=device)
+    o_r[:, -1] = False
+    o_d = torch.zeros_like(o_r)
+    o_d[0:Y - 1:2, -1] = True
+    o_d[1:Y - 1:2, 0] = True
+    return o_r, o_d
+
+
+def max_err(a, b) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
 def phase_compare_labels(dev):
-    """The labeler against its plain versions, bit for bit: one pass from
-    the site ids and from random in-cluster labels (each site's own id or
-    its cluster's least) against local_pass_reference, the changed flag
-    included, and a whole labeling against label_clusters; every case of
-    LABEL_CASES at every bond probability of LABEL_PROBS, at the tile
-    pick_tile gives it. Returns (cases, max abs err)."""
+    """The labeler's kernels against their plain versions, bit for bit, at
+    the tile pick_tile gives each case of LABEL_CASES, on bonds open at
+    every probability of LABEL_PROBS (and a cluster that snakes through
+    every tile on the full lattices): tile_roots against
+    tile_roots_reference (positions, and the ids where tiles hold whole
+    replicas); hook_roots and flatten_roots from that plane against the
+    plain hook and flatten, which equal label_clusters (the hooks' forest
+    depends on the order of the atomics, the flattened labels do not); the
+    whole labeling against label_clusters, with its launches. Returns
+    (cases, max abs err)."""
     gen = np.random.default_rng(2026)
-    cases, max_err = 0, 0
+    cases, worst = 0, 0
     for Y, X, ysl, xsl in LABEL_CASES:
         geo = dict(ysl=ysl, xsl=xsl)
         tile = cluster.pick_tile(Y, X, **geo)
-        passes = []
-        for p in LABEL_PROBS:
-            o_r, o_d = random_bonds(gen, Y, X, p, dev)
+        whole = cluster.whole_replica_tiles((Y, X), tile, **geo)
+        bonds = [(p, random_bonds(gen, Y, X, p, dev)) for p in LABEL_PROBS]
+        if ysl is None:
+            bonds.append(("snake", snake_bonds(Y, X, dev)))
+        launches = set()
+        for p, (o_r, o_d) in bonds:
+            where = f"{Y}x{X} replicas {ysl}x{xsl} tile {tile} p={p}"
             want = cluster.label_clusters(o_r, o_d, **geo)
-            ids = cluster.site_ids(Y, X, device=dev, **geo).to(torch.int32)
-            pick = torch.from_numpy(gen.random((Y, X)) < 0.5).to(dev)
-            for lab in (None, torch.where(pick, want, ids)):
-                out, flag = one_pass(lab, o_r, o_d, tile, geo)
-                ref = cluster.local_pass_reference(lab, o_r, o_d, tile=tile,
-                                                   **geo)
+            parent = torch.empty((Y, X), dtype=torch.int32, device=dev)
+            for ids in (False, True) if whole else (False,):
+                cluster.tile_roots(o_r, o_d, parent, tile=tile, ids=ids, **geo)
+                ref = cluster.tile_roots_reference(o_r, o_d, tile=tile,
+                                                   ids=ids, **geo)
                 torch.cuda.synchronize()
-                err = int((out.to(torch.int64) - ref.to(torch.int64))
-                          .abs().max())
-                max_err = max(max_err, err)
-                went_down = not torch.equal(ref, ids if lab is None else lab)
-                require(torch.equal(out, ref)
-                        and bool(flag.item()) == went_down,
-                        f"label_pass != plain at {Y}x{X} replicas {ysl}x{xsl}"
-                        f" tile {tile} p={p} "
-                        f"{'ids' if lab is None else 'in-cluster labels'}; "
-                        f"flag {flag.item()}, plain changed {went_down}")
+                worst = max(worst, max_err(parent, ref))
+                require(torch.equal(parent, ref),
+                        f"tile_roots != plain at {where} ids={ids}")
+                cases += 1
+            if not whole:
+                cluster.tile_roots(o_r, o_d, parent, tile=tile, **geo)
+                labels = (parent if ysl is None
+                          else torch.empty_like(parent))
+                cluster.hook_roots(o_r, o_d, parent, tile=tile, **geo)
+                cluster.flatten_roots(parent, labels, tile=tile, **geo)
+                ref = cluster.flatten_reference(cluster.hook_reference(
+                    cluster.tile_roots_reference(o_r, o_d, tile=tile, **geo),
+                    o_r, o_d, tile=tile, **geo), **geo)
+                torch.cuda.synchronize()
+                worst = max(worst, max_err(labels, ref))
+                require(torch.equal(labels, ref) and torch.equal(ref, want),
+                        f"hook_roots + flatten_roots != plain at {where}")
                 cases += 1
             got, stats = cluster.label_clusters_tiled(o_r, o_d,
                                                       return_stats=True, **geo)
             torch.cuda.synchronize()
-            require(torch.equal(got, want),
-                    f"label_clusters_tiled != label_clusters at {Y}x{X} "
-                    f"replicas {ysl}x{xsl} p={p}")
+            worst = max(worst, max_err(got, want))
+            require(torch.equal(got, want)
+                    and stats["launches"] == (1 if whole else 3),
+                    f"label_clusters_tiled != label_clusters at {where} "
+                    f"({stats})")
             cases += 1
-            passes.append(stats["passes"])
-        say(f"[label] {Y}x{X} replicas {ysl}x{xsl}, tile {tile}: one pass "
-            f"from the ids and from in-cluster labels equal to the plain "
-            f"pass, labelings equal to label_clusters at p = "
-            f"{', '.join(map(str, LABEL_PROBS))} (passes {passes})")
-    return cases, max_err
+            launches.add(stats["launches"])
+        say(f"[label] {Y}x{X} replicas {ysl}x{xsl}, tile {tile}: "
+            f"tile_roots{' (positions and ids)' if whole else ''} equal to "
+            f"its plain version"
+            + ("" if whole else ", hook_roots + flatten_roots equal to the "
+               "plain hook and flatten")
+            + ", labelings equal to label_clusters at p = "
+            + ", ".join(str(p) for p, _ in bonds)
+            + f" ({', '.join(map(str, sorted(launches)))} launches a "
+              "labeling)")
+    return cases, worst
 
 
 def phase_sw_golden():
@@ -1776,20 +1812,16 @@ def phase_sw_golden():
             "package")
 
 
-def pass_summary(counts):
-    """(median, min, max) passes per update from a Counter of them."""
-    flat = sorted(counts.elements())
-    return flat[len(flat) // 2], flat[0], flat[-1]
-
-
 def sw_runs(card, what, extra, runs, shape=SW_SHAPE, iters=SW_ITERS,
             prints=SW_PRINT, e_max=-1.2):
     """`runs` CLI runs of --algo sw at shape^2, T = Tc, with the flags
     `extra`: set-up timed, peak memory read, every launch count set to 0
-    just before the run loop and read after it: label_pass's must equal
-    the passes the run counted (and be > 0), the sweeps' 0. E/N must lie
-    in (-2.2, e_max)."""
-    rates, launches = [], 0
+    just before the run loop and read after it: tile_roots once an update,
+    hook_roots and flatten_roots once an update that takes three launches,
+    their sum the launches the run counted, each kernel of the path
+    launched, the sweeps not. E/N must lie in (-2.2, e_max)."""
+    rates = []
+    launches = {f.__name__: 0 for f in cluster.LABEL_PHASES}
     for _ in range(runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1803,12 +1835,20 @@ def sw_runs(card, what, extra, runs, shape=SW_SHAPE, iters=SW_ITERS,
         for f in COUNTERS:
             f.launches = 0
         result = sim.run()
-        n = cluster.label_pass.launches
-        passes = sum(k * v for k, v in sim.pass_counts.items())
-        require(result["steps"] == iters,
-                f"ran {result['steps']} of {iters} updates")
-        require(n > 0 and n == passes,
-                f"label_pass launched {n} times, the run counted {passes}")
+        n = {f.__name__: f.launches for f in cluster.LABEL_PHASES}
+        updates = sum(sim.launch_counts.values())
+        three = sim.launch_counts[3]
+        require(result["steps"] == iters == updates,
+                f"ran {result['steps']} of {iters} updates ({updates} "
+                "labelings)")
+        require(n["tile_roots"] == updates
+                and n["hook_roots"] == n["flatten_roots"] == three
+                and sum(n.values()) == sum(k * v for k, v in
+                                           sim.launch_counts.items()),
+                f"labeler launches {n}, the run counted "
+                f"{dict(sim.launch_counts)}")
+        require(n["tile_roots"] > 0 and (n["hook_roots"] > 0) == (three > 0),
+                f"a kernel of the SW path was not launched: {n}")
         require(not any(f.launches for f in SWEEPS.values()),
                 "a Metropolis kernel launched on the SW path")
         e_n = sim.energy()
@@ -1822,17 +1862,15 @@ def sw_runs(card, what, extra, runs, shape=SW_SHAPE, iters=SW_ITERS,
                     f"replica |m| of shape {rm.shape}")
             say(f"[sw] {count} replica |m|: mean {rm.mean():.6f}, range "
                 f"{rm.min():.6f}-{rm.max():.6f}")
-        med, lo, hi = pass_summary(sim.pass_counts)
-        updates = sum(sim.pass_counts.values())
-        launches += n
+        for k, v in n.items():
+            launches[k] += v
         rates.append(result["flips_ns"])
-        say(f"[sw] {shape}^2 {what}: label_pass launches {n} over {updates} "
-            f"updates, passes per update median {med} (range {lo}-{hi}), "
-            f"flag reads per update {sim.flag_reads / updates:.2f}; E/N "
-            f"{e_n:.6f}, |m| {m:.6f}, {result['flips_ns']:.4f} flips/ns; "
-            f"set-up {setup:.3f} s, peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on "
-            f"{card['smi']}")
+        say(f"[sw] {shape}^2 {what}: launches {n} over {updates} updates "
+            f"({dict(sim.launch_counts)} by launches an update), no host "
+            f"read in a labeling; E/N {e_n:.6f}, |m| {m:.6f}, "
+            f"{result['flips_ns']:.4f} flips/ns; set-up {setup:.3f} s, peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB on {card['smi']}")
         last = sim
         del sim
         torch.cuda.empty_cache()
@@ -1840,14 +1878,14 @@ def sw_runs(card, what, extra, runs, shape=SW_SHAPE, iters=SW_ITERS,
     say(f"[sw] {shape}^2 {what}: {median:.4f} flips/ns median of {runs} "
         f"runs (range {min(rates):.4f}-{max(rates):.4f})")
     return {"launches": launches, "flips_ns": median, "flips_ns_runs": rates,
-            "passes_per_update": pass_summary(last.pass_counts),
+            "launches_per_update": dict(last.launch_counts),
             "full": last.full}
 
 
 def phase_sw_main(card):
     """The README's --algo sw runs (SW_RUNS), the 16384^2 run, and at
-    256^2 the card's lattice, passes and flag reads after
-    SW_EQUALITY_ITERS updates against the CPU's (the plain path)."""
+    256^2 the card's lattice and launches after SW_EQUALITY_ITERS updates
+    against the CPU's (the plain path)."""
     out = {what: sw_runs(card, what, extra, runs)
            for what, extra, runs in SW_RUNS}
     # 4 updates from the random start: E/N about -1.16 (256^2, CPU)
@@ -1855,19 +1893,19 @@ def phase_sw_main(card):
                            SW_SCALE_ITERS, SW_SCALE_ITERS, -0.9)
     flags = SW_FLAGS + ["-x", str(SW_EQUALITY_SHAPE), "-y",
                         str(SW_EQUALITY_SHAPE)]
-    for extra in ([], ["--field", "0.1"], ["--xsl", "64", "--ysl", "32"]):
+    for extra in ([], ["--field", "0.1"], ["--xsl", "64", "--ysl", "32"],
+                  ["--xsl", "256", "--ysl", "128"]):
         sims = [cli_simulation(flags + extra + dev)
                 for dev in ([], ["--device", "cpu"])]
         for sim in sims:
             sim.advance(SW_EQUALITY_ITERS)
         require(torch.equal(sims[0].full.cpu(), sims[1].full)
-                and sims[0].pass_counts == sims[1].pass_counts
-                and sims[0].flag_reads == sims[1].flag_reads,
+                and sims[0].launch_counts == sims[1].launch_counts,
                 f"SW at {SW_EQUALITY_SHAPE}^2 {' '.join(extra)}: the card's "
                 "run differs from the CPU's")
         say(f"[sw] {SW_EQUALITY_SHAPE}^2 {' '.join(extra)}: lattice after "
-            f"{SW_EQUALITY_ITERS} updates, passes "
-            f"{dict(sims[0].pass_counts)} and flag reads equal to the CPU's")
+            f"{SW_EQUALITY_ITERS} updates and launches "
+            f"{dict(sims[0].launch_counts)} equal to the CPU's")
     return out
 
 
@@ -1878,39 +1916,123 @@ def event_ms(fn, n: int = 1) -> float:
     return time_launches(lambda _: fn(), n)
 
 
+def launch_ms(setup, fn, n: int) -> float:
+    """ms per call of fn() over n calls, each after setup() and timed alone
+    (CUDA events around fn only), after one warm-up call."""
+    setup()
+    fn()
+    pairs = []
+    for _ in range(n):
+        setup()
+        pairs.append((torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)))
+        pairs[-1][0].record()
+        fn()
+        pairs[-1][1].record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / n
+
+
+def host_ms(fn) -> float:
+    """ms of one call of fn() on the host clock, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def crossing_bonds(Y, X, tile, device):
+    """Bonds of the full lattice whose ends lie in two tiles (the ones
+    hook_roots reads): right bonds of the columns and down bonds of the
+    rows whose next site is in another tile."""
+    def crossing(n, t):
+        i = torch.arange(n, device=device)
+        return int((i // t != (i + 1) % n // t).sum())
+    return crossing(X, tile[1]) * Y + crossing(Y, tile[0]) * X
+
+
 def phase_sw_timing(card, states):
     """At 4096^2 and 16384^2, from the lattice the main path left at Tc:
-    the bonds of one update at Tc, then the labeling by the kernel (ms,
-    passes, ms per pass) against the bound and the plain label_clusters
-    (bit for bit, and timed), and the other parts of an update: bonds,
-    coins and flip, the ghost. At 4096^2 also the labeling at other
-    passes per flag read and other tiles. Returns {shape: timing}."""
+    the bonds of one update at Tc, then the labeling (ms, launches)
+    against its 6 B a site bound and the plain label_clusters (bit for
+    bit, and timed), each kernel alone (tile_roots, hook_roots on a fresh
+    copy of tile_roots' plane, flatten_roots on a fresh copy of the hooked
+    one) against its bytes bound and its plain version, the depth of the
+    hooked forest, and the other parts of an update: bonds, coins and
+    flip, the ghost. At 4096^2 also the labeling at other tiles. Returns
+    {shape: timing}."""
     out = {}
     seed, step = 12345, 1000
     thr = cluster.bond_threshold(TCRIT)
     thr_ghost = cluster.bond_threshold(TCRIT, 0.1)
+    hbm_ms = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3
     for shape, full in states.items():
         Y = X = shape
         o_r, o_d, _ = cluster.draw_bonds(full, thr, seed, step)
         labels, stats = cluster.label_clusters_tiled(o_r, o_d,
                                                      return_stats=True)
-        t0 = time.perf_counter()
         want = cluster.label_clusters(o_r, o_d)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        require(torch.equal(labels, want),
-                f"label_clusters_tiled != label_clusters at {shape}^2, Tc")
-        runs = sorted(event_ms(lambda: cluster.label_clusters_tiled(o_r, o_d))
-                      for _ in range(TIMED_REPEATS))
+        plain_ms = host_ms(lambda: cluster.label_clusters(o_r, o_d))
+        require(torch.equal(labels, want) and stats["launches"] == 3,
+                f"label_clusters_tiled != label_clusters at {shape}^2, Tc "
+                f"({stats})")
+        runs = sorted(event_ms(lambda: cluster.label_clusters_tiled(o_r, o_d),
+                               5) for _ in range(TIMED_REPEATS))
         ms = runs[len(runs) // 2]
         tile = cluster.pick_tile(Y, X)
-        out_plane, flag = one_pass(labels, o_r, o_d, tile, {})
-        pass_ms = event_ms(lambda: one_pass(labels, o_r, o_d, tile, {}), 20)
-        ref = cluster.local_pass_reference(labels, o_r, o_d, tile=tile)
-        torch.cuda.synchronize()
-        require(torch.equal(out_plane, ref) and not flag.item(),
-                f"a pass at the fixpoint changed labels at {shape}^2")
-        bound_ms = LABEL_BYTES_PER_SITE * Y * X / HBM_BYTES_PER_S * 1e3
+        kw = dict(tile=tile)
+        # each kernel alone
+        roots = torch.empty((Y, X), dtype=torch.int32, device=full.device)
+        cluster.tile_roots(o_r, o_d, roots, **kw)
+        roots_ms = event_ms(lambda: cluster.tile_roots(o_r, o_d, roots, **kw),
+                            20)
+        work = torch.empty_like(roots)
+        hook_ms = launch_ms(lambda: work.copy_(roots),
+                            lambda: cluster.hook_roots(o_r, o_d, work, **kw),
+                            20)
+        hooked = work.clone()
+        flatten_ms = launch_ms(lambda: work.copy_(hooked),
+                               lambda: cluster.flatten_roots(work, work, **kw),
+                               20)
+        require(torch.equal(work, want), f"hook + flatten alone != plain at "
+                f"{shape}^2")
+        # the hooked forest: depth (pointer jumps to the roots) and hooks
+        f, jumps = hooked.reshape(-1).to(torch.int64), 0
+        while not torch.equal(f[f], f):
+            f, jumps = f[f], jumps + 1
+        flat_roots = roots.reshape(-1).to(torch.int64)
+        u, v = cluster._bond_edges(o_r, o_d, Y, X)
+        tiles = cluster._tile_of(Y, X, tile, full.device)
+        cross = tiles[u] != tiles[v]
+        ends = torch.unique(flat_roots[torch.cat([u[cross], v[cross]])])
+        hooks = int(ends.numel() - torch.unique(f[ends]).numel())
+        open_cross = int(cross.sum())
+        del u, v, tiles, cross, f
+        plain_roots_ms = host_ms(lambda: cluster.tile_roots_reference(
+            o_r, o_d, **kw))
+        ref_hooked = cluster.hook_reference(roots, o_r, o_d, **kw)
+        plain_hook_ms = host_ms(lambda: cluster.hook_reference(
+            roots, o_r, o_d, **kw))
+        plain_flatten_ms = host_ms(lambda: cluster.flatten_reference(
+            ref_hooked))
+        del ref_hooked
+        # bounds: the labeling and tile_roots 6 B a site (bonds in, one
+        # int32 plane out); hook_roots the crossing bonds it reads (1 B
+        # each), two parent reads an open crossing bond and one write a
+        # hook; flatten_roots 8 B a site (parent in, labels out)
+        bound_ms = hbm_ms(LABEL_BYTES_PER_SITE * Y * X)
+        hook_bytes = (crossing_bonds(Y, X, tile, full.device)
+                      + 8 * open_cross + 4 * hooks)
+        kernels = {
+            "tile_roots": {"ms": roots_ms, "plain_ms": plain_roots_ms,
+                           "bound_ms": bound_ms},
+            "hook_roots": {"ms": hook_ms, "plain_ms": plain_hook_ms,
+                           "bound_ms": hbm_ms(hook_bytes),
+                           "open_crossing_bonds": open_cross,
+                           "hooks": hooks},
+            "flatten_roots": {"ms": flatten_ms, "plain_ms": plain_flatten_ms,
+                              "bound_ms": hbm_ms(8 * Y * X)}}
         bonds_ms = event_ms(lambda: cluster.draw_bonds(full, thr, seed, step))
         field_bonds_ms = event_ms(lambda: cluster.draw_bonds(
             full, thr, seed, step, field=0.1, thr_ghost=thr_ghost))
@@ -1921,72 +2043,79 @@ def phase_sw_timing(card, states):
         ghost_flip_ms = event_ms(lambda: cluster.flip_clusters(
             full, labels, seed, step, ghost))
         density = float((o_r.sum() + o_d.sum()) / (2 * Y * X))
-        t = {"ms": ms, "runs": runs, "passes": stats["passes"],
-             "reads": stats["reads"], "ms_per_pass": pass_ms,
+        t = {"ms": ms, "runs": runs, "launches": stats["launches"],
              "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "kernels": kernels, "forest_jumps": jumps,
              "bond_density": density, "bonds_ms": bonds_ms,
              "bonds_field_ms": field_bonds_ms, "flip_ms": flip_ms,
              "flip_field_ms": ghost_flip_ms, "tile": tile}
         say(f"[sw-timing] {shape}^2 at Tc (bond density {density:.4f}): "
             f"labeling {ms:.4f} ms (median of {TIMED_REPEATS}, range "
-            f"{runs[0]:.4f}-{runs[-1]:.4f}), {stats['passes']} passes of "
-            f"tile {tile}, {stats['reads']} flag reads, {pass_ms:.4f} ms a "
-            f"pass; bound {bound_ms:.4f} ms (bytes, "
+            f"{runs[0]:.4f}-{runs[-1]:.4f}), {stats['launches']} launches "
+            f"of tile {tile}, no host read; bound {bound_ms:.4f} ms (bytes, "
             f"{LABEL_BYTES_PER_SITE} B a site), {bound_ms / ms:.2%} of it; "
-            f"plain label_clusters {plain_ms:.1f} ms; per update: bonds "
-            f"{bonds_ms:.3f} ms ({field_bonds_ms:.3f} with the ghost), "
-            f"labeling {ms:.3f}, coins and flip {flip_ms:.3f} "
-            f"({ghost_flip_ms:.3f} with the ghost) on {card['smi']}")
+            f"plain label_clusters {plain_ms:.2f} ms on {card['smi']}")
+        for name, k in kernels.items():
+            say(f"[sw-timing] {shape}^2 {name}: {k['ms']:.4f} ms, bound "
+                f"{k['bound_ms']:.4f} ms (bytes, {k['bound_ms'] / k['ms']:.2%}"
+                f" of it), plain {k['plain_ms']:.2f} ms")
+        say(f"[sw-timing] {shape}^2 hooks: {open_cross} open bonds across "
+            f"tiles, {hooks} hooks, the hooked forest {jumps} pointer jumps "
+            f"deep; per update: bonds {bonds_ms:.3f} ms ({field_bonds_ms:.3f}"
+            f" with the ghost), labeling {ms:.3f}, coins and flip "
+            f"{flip_ms:.3f} ({ghost_flip_ms:.3f} with the ghost)")
         if shape == SW_SHAPE:
-            t["per_read"] = {}
-            for k in LABEL_READS:
-                t["per_read"][k] = event_ms(
-                    lambda: cluster.label_clusters_tiled(
-                        o_r, o_d, passes_per_read=k), 3)
             t["per_tile"] = {}
             for tl in LABEL_TILES:
-                got, st = cluster.label_clusters_tiled(o_r, o_d, tile=tl,
-                                                       return_stats=True)
+                got = cluster.label_clusters_tiled(o_r, o_d, tile=tl)
                 require(torch.equal(got, want), f"tile {tl} != plain")
-                t["per_tile"][f"{tl[0]}x{tl[1]}"] = (event_ms(
+                t["per_tile"][f"{tl[0]}x{tl[1]}"] = event_ms(
                     lambda: cluster.label_clusters_tiled(o_r, o_d, tile=tl),
-                    3), st["passes"])
-            say(f"[sw-timing] {shape}^2 labeling ms by passes per flag read "
-                + ", ".join(f"{k}: {v:.4f}" for k, v in t["per_read"].items())
-                + "; by tile " + ", ".join(
-                    f"{tl}: {v[0]:.4f} ms, {v[1]} passes"
-                    for tl, v in t["per_tile"].items()))
+                    5)
+            say(f"[sw-timing] {shape}^2 labeling ms by tile "
+                + ", ".join(f"{tl}: {v:.4f}"
+                            for tl, v in t["per_tile"].items()))
         out[shape] = t
-        del o_r, o_d, labels, want, ghost, out_plane, ref
+        del o_r, o_d, labels, want, ghost, roots, work, hooked
         torch.cuda.empty_cache()
     return out
 
 
-def label_entry(sw_main, timing, cases, max_err, info):
-    """The kernels line's entry of the labeler: launches of the --algo sw
-    main-path runs, timing of a labeling at 4096^2 at Tc."""
+def label_entries(sw_main, timing, cases, max_abs_err, info):
+    """The kernels line's entries of the labeler's three kernels: launches
+    of the --algo sw main-path runs, each kernel's time at 4096^2 at Tc
+    beside its bound and plain version, and the whole labeling's."""
     t = timing[SW_SHAPE]
-    return {
-        "name": "label_clusters",
-        "route": "cuda",
-        "source": LABEL_KERNEL["source"],
-        "sources": [LABEL_KERNEL["source"]],
-        "replaces": LABEL_KERNEL["replaces"],
-        "path": "--algo sw",
-        "launches": sum(r["launches"] for r in sw_main.values()),
-        "main_path": {k: {kk: v for kk, v in r.items() if kk != "full"}
-                      for k, r in sw_main.items()},
-        "max_abs_err": max_err,
-        "compared_cases": cases,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "held_against_plain": True,
-        "build_s": info.seconds,
-        "per_shape": {f"{s}^2": tt for s, tt in timing.items()},
-    }
+    labeling = {k: t[k] for k in ("ms", "runs", "launches", "plain_ms",
+                                  "bound_ms", "tile", "forest_jumps")}
+    entries = []
+    for f in cluster.LABEL_PHASES:
+        name = f.__name__
+        k = t["kernels"][name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": LABEL_KERNEL["source"],
+            "replaces": LABEL_KERNEL["replaces"],
+            "path": "--algo sw",
+            "launches": sum(r["launches"][name] for r in sw_main.values()),
+            "max_abs_err": max_abs_err,
+            "compared_cases": cases,
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "held_against_plain": True,
+            "build_s": info.seconds,
+            "labeling": labeling,
+            "per_shape": {f"{s}^2": tt["kernels"][name]
+                          for s, tt in timing.items()},
+        })
+    entries[0]["main_path"] = {
+        what: {k: v for k, v in r.items() if k != "full"}
+        for what, r in sw_main.items()}
+    return entries
 
 
 def _on_alarm(signum, frame):
@@ -2020,8 +2149,9 @@ def main() -> int:
             f"cases equal, max abs err {max(d_err, m_err)}  "
             f"[time {elapsed():.1f} s]")
         l_cases, l_err = phase_compare_labels(dev)
-        say(f"[kernel] {l_cases} label_pass and labeling cases equal to the "
-            f"plain versions, max abs err {l_err}  [time {elapsed():.1f} s]")
+        say(f"[kernel] {l_cases} labeler kernel and labeling cases equal to "
+            f"the plain versions, max abs err {l_err}  "
+            f"[time {elapsed():.1f} s]")
         phase_golden()
         phase_fused_golden()
         phase_sw_golden()
@@ -2103,7 +2233,7 @@ def main() -> int:
         "mxu_sweep", "mxu", None, pl_timing,
         sum(r["launches"] for r in m_ordered.values()), m_ordered, m_err,
         info))
-    entries.append(label_entry(sw_main, sw_timing, l_cases, l_err, info))
+    entries += label_entries(sw_main, sw_timing, l_cases, l_err, info)
     kernels = {"kernels": entries}
     say(card["smi"])
     say(json.dumps(kernels))

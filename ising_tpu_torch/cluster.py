@@ -1,5 +1,5 @@
-"""Swendsen-Wang cluster updates (--algo sw), with the cluster labeler's
-pass as a hand-written CUDA kernel.
+"""Swendsen-Wang cluster updates (--algo sw), with the cluster labeler as
+three hand-written CUDA kernels.
 
 The port of ``ising_tpu/cluster.py``, on one device. Each update
   * opens the bond between two aligned neighbours with p = 1 - exp(-2/T):
@@ -22,19 +22,24 @@ position, so the component's minimum position carries its minimum id; but
 an id is not a position, and nothing here gathers by id.
 
 The labeler (the port of ``label_clusters_tiled`` and its Pallas kernel
-``_local_pass_kernel``, kernel row 7): passes over tiles of the lattice.
-One pass reads labels A, pulls across the open bonds that leave a tile
-(the tile edges and the periodic or replica wraps), then takes the minimum
-over each component of the bonds inside the tile, and writes labels B. The
-passes ping-pong A and B until one changes nothing. The host reads the
-changed flags once every `passes_per_read` passes: the minimum is
-monotone, so passes after the fixpoint change nothing. Where every tile
-holds whole replicas (or the whole lattice), every bond lies inside a tile
-and one pass is the labeling.
-
-``label_pass`` launches csrc/cluster_label.cu on CUDA tensors and runs
-``local_pass_reference`` on CPU tensors. ``label_clusters`` and
-``label_clusters_tiled_reference`` are the plain labelers beside it.
+``_local_pass_kernel``, kernel row 7) is a global union-find on flat
+positions y * X + x, in three launches of csrc/cluster_label.cu with no
+host read between them:
+  1. ``tile_roots``: a union-find over the open bonds inside each tile
+     gives every site the least position of its tile component (the
+     parent plane); where every tile holds whole replicas (or the whole
+     lattice) every bond lies inside a tile, it writes the least site id
+     instead, and the labeling is this one launch;
+  2. ``hook_roots``: over the open bonds that leave a tile (the tile edges
+     and the periodic or replica wraps), the larger root goes under the
+     smaller in the parent plane;
+  3. ``flatten_roots``: every site takes the site id of its root.
+Each component's last root is its least position whatever order the
+hooks take, so the labels are unique. The wrappers launch the kernels on
+CUDA tensors and run the plain phases beside them on CPU tensors
+(``tile_roots_reference``, ``hook_reference``, ``flatten_reference``).
+``label_clusters`` is the plain global labeler; ``local_pass_reference``
+and ``label_clusters_tiled_reference`` record the JAX package's passes.
 Bonds, coins, the ghost and the flip stay plain torch on every device,
 as the JAX package computes them outside any Pallas kernel.
 """
@@ -56,14 +61,13 @@ from .ops.bit1 import _cuda_stream, overlaps
 from .rng import (MASK, TAG_CLUSTER, color_draws, threefry2x32,
                   threefry_stream_key)
 
-# The kernel's tile: labels and union-find parents of each site in shared
-# memory, 8 B a site. MAX_TILE_SITES (128 KB) takes one 128 x 128 replica;
-# tiles of the full lattice, and of grouped small replicas, hold at most
-# TILE_SITES (64 KB: three blocks on an SM).
+# tile_roots' tile: the least key and union-find parent of each site in
+# shared memory, 8 B a site. MAX_TILE_SITES (128 KB) takes one 128 x 128
+# replica; tiles of the full lattice, and of grouped small replicas, hold
+# at most TILE_SITES (64 KB: three blocks on an SM).
 MAX_TILE_SITES = 16384
 TILE_SITES = 8192
 TILE_COLS = 128
-PASSES_PER_READ = 4
 # Row slabs of the int64 draw and coin planes (8 B a site each).
 SLAB_SITES = 1 << 24
 NO_LABEL = 0x7FFFFFFF
@@ -195,7 +199,8 @@ def local_pass_reference(lab, open_r, open_d, *, tile, ysl=None, xsl=None):
 
 def whole_replica_tiles(shape, tile, *, ysl=None, xsl=None) -> bool:
     """Whether every tile holds whole replicas (or the whole lattice), so
-    that every bond lies inside one tile and one pass is the labeling."""
+    that every bond lies inside one tile: one pass of the JAX labeler, one
+    launch (tile_roots) of the port's."""
     _, _, ysl, xsl = _sizes(shape, ysl, xsl)
     return tile[0] % ysl == 0 and tile[1] % xsl == 0
 
@@ -245,113 +250,200 @@ def pick_tile(Y: int, X: int, *, ysl=None, xsl=None):
     return max(d for d in _divisors(ysl) if d * tx <= TILE_SITES), tx
 
 
-def _check_pass(lab_in, open_r, open_d, lab_out, changed, tile, ysl, xsl):
-    """The wrapper's checks (device, dtype, shape, contiguity, aliasing,
-    geometry); returns (Y, X, ysl, xsl)."""
-    Y, X, ysl, xsl = _sizes(tuple(open_r.shape), ysl, xsl)
+def tile_roots_reference(open_r, open_d, *, tile, ysl=None, xsl=None,
+                         ids=False):
+    """Phase 1 of the labeler in plain torch: the int32 (Y, X) least flat
+    position of each site's component under the open bonds inside its
+    tile (tiles as in local_pass_reference); with ids, the site id of that
+    position."""
+    Y, X, ysl, xsl = _sizes(open_r.shape, ysl, xsl)
+    u, v = _bond_edges(open_r, open_d, ysl, xsl)
+    tiles = _tile_of(Y, X, tile, open_r.device)
+    inside = tiles[u] == tiles[v]
+    least = _min_positions(Y * X, u[inside], v[inside])
+    if ids:
+        least = site_ids(Y, X, ysl=ysl, xsl=xsl,
+                         device=open_r.device).reshape(-1)[least]
+    return least.reshape(Y, X).to(torch.int32)
+
+
+def hook_reference(parent, open_r, open_d, *, tile, ysl=None, xsl=None):
+    """Phase 2 in plain torch: from phase 1's parent plane, the int32
+    (Y, X) least position of each site's component, over the bonds that
+    leave a tile between the tile roots. It is the flattest forest the
+    kernel's hooks may leave; the kernel's own depends on the order of its
+    atomics, and only the flattened labels are unique."""
+    Y, X, ysl, xsl = _sizes(open_r.shape, ysl, xsl)
+    u, v = _bond_edges(open_r, open_d, ysl, xsl)
+    tiles = _tile_of(Y, X, tile, open_r.device)
+    cross = tiles[u] != tiles[v]
+    flat = parent.reshape(-1).to(torch.int64)
+    least = _min_positions(Y * X, flat[u[cross]], flat[v[cross]])
+    return least[flat].reshape(Y, X).to(torch.int32)
+
+
+def flatten_reference(parent, *, ysl=None, xsl=None):
+    """Phase 3 in plain torch: the int32 (Y, X) site id of each site's
+    root in the parent plane (pointers jumped to their roots)."""
+    Y, X, ysl, xsl = _sizes(parent.shape, ysl, xsl)
+    flat = parent.reshape(-1).to(torch.int64)
+    while True:
+        jumped = flat[flat]
+        if torch.equal(jumped, flat):
+            break
+        flat = jumped
+    ids = site_ids(Y, X, ysl=ysl, xsl=xsl, device=parent.device).reshape(-1)
+    return ids[flat].reshape(Y, X).to(torch.int32)
+
+
+def _check_planes(what, device, planes):
+    """Device, dtype, shape and contiguity of (name, tensor, dtype, shape)
+    planes."""
+    for name, t, dtype, shape in planes:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_geometry(what, shape, ysl, xsl, tile=None):
+    """The lattice, replica and tile checks of the wrappers; returns
+    (Y, X, ysl, xsl)."""
+    Y, X, ysl, xsl = _sizes(tuple(shape), ysl, xsl)
     if Y * X >= 2 ** 31:
         raise ValueError("labels are int32 site ids: needs nrows * ncols "
                          "< 2^31")
     if Y % ysl or X % xsl:
-        raise ValueError(f"label_pass: replicas of {ysl} x {xsl} do not "
-                         f"tile {Y} x {X}")
-    ty, tx = tile
-    if not (0 < ty <= Y and 0 < tx <= X and ty * tx <= MAX_TILE_SITES):
-        raise ValueError(f"label_pass: tile {tile} must fit the lattice "
-                         f"and hold at most {MAX_TILE_SITES} sites")
-    planes = (("open_r", open_r, torch.bool, (Y, X)),
-              ("open_d", open_d, torch.bool, (Y, X)),
-              ("lab_out", lab_out, torch.int32, (Y, X)),
-              ("changed", changed, torch.int32, (1,)))
-    if lab_in is not None:
-        planes += (("lab_in", lab_in, torch.int32, (Y, X)),)
-    for name, t, dtype, shape in planes:
-        if t.device != open_r.device:
-            raise ValueError(f"label_pass: {name} is on {t.device}, open_r "
-                             f"on {open_r.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"label_pass: {name} must be {dtype}, got "
-                            f"{t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"label_pass: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"label_pass: {name} must be contiguous")
-    if any(overlaps(lab_out, t) for t in (lab_in, open_r, open_d, changed)
-           if t is not None):
-        raise ValueError("label_pass writes lab_out: it must not overlap "
-                         "lab_in, the bonds or the flag")
+        raise ValueError(f"{what}: replicas of {ysl} x {xsl} do not tile "
+                         f"{Y} x {X}")
+    if tile is not None:
+        ty, tx = tile
+        if not (0 < ty <= Y and 0 < tx <= X and ty * tx <= MAX_TILE_SITES):
+            raise ValueError(f"{what}: tile {tile} must fit the lattice and "
+                             f"hold at most {MAX_TILE_SITES} sites")
     return Y, X, ysl, xsl
 
 
-def label_pass(lab_in, open_r, open_d, lab_out, changed, *, tile, ysl=None,
-               xsl=None):
-    """One pass of the tiled labeler into lab_out; returns lab_out.
+def _check_bond_phase(what, open_r, open_d, plane, tile, ysl, xsl):
+    """The checks of tile_roots and hook_roots: bool bonds, the int32
+    plane they write, which must not overlap the bonds."""
+    Y, X, ysl, xsl = _check_geometry(what, open_r.shape, ysl, xsl, tile)
+    _check_planes(what, open_r.device,
+                  (("open_r", open_r, torch.bool, (Y, X)),
+                   ("open_d", open_d, torch.bool, (Y, X)),
+                   ("the int32 plane", plane, torch.int32, (Y, X))))
+    if overlaps(plane, open_r) or overlaps(plane, open_d):
+        raise ValueError(f"{what} writes its int32 plane: it must not "
+                         "overlap the bonds")
+    return Y, X, ysl, xsl
 
-    lab_in: int32 (Y, X) labels, or None for the site ids; open_r, open_d:
-    bool (Y, X) bond planes; changed: an int32 (1,) flag, set to 1 if any
-    label of lab_out differs from its input (left alone otherwise). On
-    CUDA tensors this launches csrc/cluster_label.cu; a launch that fails
-    raises. On CPU tensors it runs local_pass_reference. Counts launches in
-    label_pass.launches.
-    """
-    Y, X, ysl, xsl = _check_pass(lab_in, open_r, open_d, lab_out, changed,
-                                 tile, ysl, xsl)
-    device = open_r.device
-    if device.type == "cpu":
-        new = local_pass_reference(lab_in, open_r, open_d, tile=tile,
-                                   ysl=ysl, xsl=xsl)
-        old = (site_ids(Y, X, ysl=ysl, xsl=xsl) if lab_in is None
-               else lab_in)
-        if not torch.equal(new.to(torch.int64), old.to(torch.int64)):
-            changed.fill_(1)
-        lab_out.copy_(new)
-        return lab_out
+
+def _launch(what, device, name, *args):
+    """Launch the C entry point `name` on device's current stream; a launch
+    that fails raises."""
     if device.type != "cuda":
-        raise ValueError(f"label_pass runs on cuda or cpu, not {device}")
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
     lib, _ = kernel_lib.load()
-    code = lib.cluster_label_launch(
-        None if lab_in is None else lab_in.data_ptr(), open_r.data_ptr(),
-        open_d.data_ptr(), lab_out.data_ptr(), changed.data_ptr(), Y, X,
-        ysl, xsl, tile[0], tile[1], _cuda_stream(device))
-    kernel_lib.check(lib, code, "label_pass launch")
-    label_pass.launches += 1
-    return lab_out
+    code = getattr(lib, name)(*args, _cuda_stream(device))
+    kernel_lib.check(lib, code, f"{what} launch")
 
 
-label_pass.launches = 0
+def tile_roots(open_r, open_d, out, *, tile, ysl=None, xsl=None, ids=False):
+    """Phase 1 into out (int32 (Y, X)); returns out. Each site gets the
+    least flat position of its component under the open bonds inside its
+    tile (ids: that position's site id, the labels where every tile holds
+    whole replicas). On CUDA tensors this launches csrc/cluster_label.cu
+    (counted in tile_roots.launches); a launch that fails raises. On CPU
+    tensors it runs tile_roots_reference."""
+    Y, X, ysl, xsl = _check_bond_phase("tile_roots", open_r, open_d, out,
+                                       tile, ysl, xsl)
+    if open_r.device.type == "cpu":
+        return out.copy_(tile_roots_reference(open_r, open_d, tile=tile,
+                                              ysl=ysl, xsl=xsl, ids=ids))
+    _launch("tile_roots", open_r.device, "label_tile_roots_launch",
+            open_r.data_ptr(), open_d.data_ptr(), out.data_ptr(), Y, X, ysl,
+            xsl, tile[0], tile[1], int(bool(ids)))
+    tile_roots.launches += 1
+    return out
+
+
+def hook_roots(open_r, open_d, parent, *, tile, ysl=None, xsl=None):
+    """Phase 2 on tile_roots' parent plane, in place; returns parent.
+    Every open bond that leaves a tile joins the roots of its two ends,
+    the larger under the smaller. On CUDA tensors this launches
+    csrc/cluster_label.cu (counted in hook_roots.launches); on CPU tensors
+    it runs hook_reference."""
+    Y, X, ysl, xsl = _check_bond_phase("hook_roots", open_r, open_d, parent,
+                                       tile, ysl, xsl)
+    if open_r.device.type == "cpu":
+        return parent.copy_(hook_reference(parent, open_r, open_d, tile=tile,
+                                           ysl=ysl, xsl=xsl))
+    _launch("hook_roots", open_r.device, "label_hook_launch",
+            open_r.data_ptr(), open_d.data_ptr(), parent.data_ptr(), Y, X,
+            ysl, xsl, tile[0], tile[1])
+    hook_roots.launches += 1
+    return parent
+
+
+def flatten_roots(parent, labels, *, tile, ysl=None, xsl=None):
+    """Phase 3 into labels (int32 (Y, X)); returns labels: the site id of
+    each site's root in parent, by phase 1's tiles. On the full lattice
+    labels may be parent itself (the id is the position); in replica mode
+    it must not overlap it. On CUDA tensors this launches
+    csrc/cluster_label.cu (counted in flatten_roots.launches); on CPU
+    tensors it runs flatten_reference."""
+    Y, X, ysl, xsl = _check_geometry("flatten_roots", parent.shape, ysl, xsl,
+                                     tile)
+    _check_planes("flatten_roots", parent.device,
+                  (("parent", parent, torch.int32, (Y, X)),
+                   ("labels", labels, torch.int32, (Y, X))))
+    same = labels.data_ptr() == parent.data_ptr()
+    if overlaps(labels, parent) and not (same and (ysl, xsl) == (Y, X)):
+        raise ValueError("flatten_roots: labels must be parent itself (on "
+                         "the full lattice only) or not overlap it")
+    if parent.device.type == "cpu":
+        return labels.copy_(flatten_reference(parent, ysl=ysl, xsl=xsl))
+    _launch("flatten_roots", parent.device, "label_flatten_launch",
+            parent.data_ptr(), labels.data_ptr(), Y, X, ysl, xsl, tile[0],
+            tile[1])
+    flatten_roots.launches += 1
+    return labels
+
+
+tile_roots.launches = hook_roots.launches = flatten_roots.launches = 0
+# The labeler's wrappers, in launch order.
+LABEL_PHASES = (tile_roots, hook_roots, flatten_roots)
 
 
 def label_clusters_tiled(open_r, open_d, *, ysl=None, xsl=None, tile=None,
-                         passes_per_read: int = PASSES_PER_READ,
                          return_stats: bool = False):
-    """The labels of label_clusters, by label_pass: a first pass from the
-    ids, then batches of `passes_per_read` passes, the flag of each pass in
-    its own slot, until the last pass of a batch changed nothing (one host
-    read per batch). With whole replicas in every tile, one pass.
-    return_stats adds {"passes": launches, "reads": flag reads}."""
+    """The labels of label_clusters by the three phases, enqueued with no
+    host read: tile_roots, then hook_roots and flatten_roots, or
+    tile_roots alone (writing ids) where every tile holds whole replicas.
+    On the full lattice the labels overwrite the parent plane. return_stats
+    adds {"launches": 3 or 1}."""
     Y, X, ysl, xsl = _sizes(open_r.shape, ysl, xsl)
     if tile is None:
         tile = pick_tile(Y, X, ysl=ysl, xsl=xsl)
     kw = dict(tile=tile, ysl=ysl, xsl=xsl)
-    a = torch.empty((Y, X), dtype=torch.int32, device=open_r.device)
-    b = torch.empty_like(a)
-    flags = torch.zeros(passes_per_read, dtype=torch.int32,
-                        device=open_r.device)
-    label_pass(None, open_r, open_d, a, flags[:1], **kw)
-    passes, reads = 1, 0
-    if not whole_replica_tiles((Y, X), tile, ysl=ysl, xsl=xsl):
-        while True:
-            flags.zero_()
-            for j in range(passes_per_read):
-                label_pass(a, open_r, open_d, b, flags[j:j + 1], **kw)
-                a, b = b, a
-            passes += passes_per_read
-            reads += 1
-            if not int(flags[-1]):
-                break
-    stats = {"passes": passes, "reads": reads}
-    return (a, stats) if return_stats else a
+    whole = whole_replica_tiles((Y, X), tile, ysl=ysl, xsl=xsl)
+    parent = torch.empty((Y, X), dtype=torch.int32, device=open_r.device)
+    tile_roots(open_r, open_d, parent, ids=whole, **kw)
+    labels, launches = parent, 1
+    if not whole:
+        hook_roots(open_r, open_d, parent, **kw)
+        if (ysl, xsl) != (Y, X):
+            labels = torch.empty((Y, X), dtype=torch.int32,
+                                 device=open_r.device)
+        flatten_roots(parent, labels, **kw)
+        launches = 3
+    return (labels, {"launches": launches}) if return_stats else labels
 
 
 def cluster_coins(labels, seed: int, step):
@@ -464,10 +556,8 @@ class SwendsenWang:
         self.full = compact_to_full(*(
             (p if torch.is_tensor(p) else torch.from_numpy(np.array(p)))
             .to(self.device, torch.uint8) for p in state))
-        # Labeling passes per update (count of updates by passes) and the
-        # flag reads, summed.
-        self.pass_counts = collections.Counter()
-        self.flag_reads = 0
+        # The labeler's launches per update (count of updates by launches).
+        self.launch_counts = collections.Counter()
         self._set_thresholds()
 
     def _set_thresholds(self):
@@ -492,8 +582,7 @@ class SwendsenWang:
                 self.full, self._thr, self.cfg.seed, self.step,
                 field=self.cfg.field, thr_ghost=self._thr_ghost,
                 ysl=self.cfg.ysl, xsl=self.cfg.xsl, return_stats=True)
-            self.pass_counts[stats["passes"]] += 1
-            self.flag_reads += stats["reads"]
+            self.launch_counts[stats["launches"]] += 1
             self.step += 1
 
     def block(self):

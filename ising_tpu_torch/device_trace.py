@@ -16,8 +16,9 @@ flips/ns times (after the warm-up and the first measurement, which
 - device time by kernel name;
 - the gaps between one sweep kernel (either of the two behind
   bit1_sweep, or packed_sweep's, the fused packed step's, dense_sweep's,
-  mxu_sweep's or the cluster labeler's) and the next kernel: a gap near
-  zero means the host enqueues launches faster than the card runs them;
+  mxu_sweep's or any of the cluster labeler's three) and the next
+  kernel: a gap near zero means the host enqueues launches faster than
+  the card runs them;
 - the kernel launches in the span, against those the path makes: two a
   step, one under ISING_TPU_FUSED=1|2 on packed where the fused step
   applies (packed_fused_step, or packed_fused_step_manual under =2);
@@ -50,7 +51,8 @@ from .ops import get_backend
 
 KERNELS = ("bit1_sweep_kernel", "bit1_planes_kernel", "packed_sweep_kernel",
            "packed_fused_kernel", "dense_sweep_kernel", "mxu_sweep_kernel",
-           "cluster_label_kernel")
+           "label_tile_roots_kernel", "label_hook_kernel",
+           "label_flatten_kernel")
 SW_SPANS = ("sw_step.bonds", "sw_step.label", "sw_step.flip")
 
 

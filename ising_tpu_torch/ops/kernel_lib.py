@@ -104,9 +104,21 @@ SIGNATURES = {
          _c.c_int, _c.c_int,                                  # family rounds
          _c.c_void_p],                                        # stream
         _c.c_int),
-    "cluster_label_launch": (
-        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # lab_in r d out
-         _c.c_void_p,                                         # changed
+    # the SW labeler's three phases (csrc/cluster_label.cu)
+    "label_tile_roots_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p,               # r d out
+         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # Y X ysl xsl
+         _c.c_int, _c.c_int, _c.c_int,                        # ty tx ids
+         _c.c_void_p],                                        # stream
+        _c.c_int),
+    "label_hook_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p,               # r d parent
+         _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # Y X ysl xsl
+         _c.c_int, _c.c_int,                                  # ty tx
+         _c.c_void_p],                                        # stream
+        _c.c_int),
+    "label_flatten_launch": (
+        [_c.c_void_p, _c.c_void_p,                            # parent labels
          _c.c_int, _c.c_int, _c.c_int, _c.c_int,              # Y X ysl xsl
          _c.c_int, _c.c_int,                                  # ty tx
          _c.c_void_p],                                        # stream

@@ -4,12 +4,14 @@ package's (ising_tpu/cluster.py), bit for bit.
 The same inputs, made with numpy from a seed, go through both packages:
 the bond thresholds and bonds, the plain labelers (against the JAX
 labelers, the JAX tiled labeler in Pallas interpret mode, and a union-find
-here), one pass of the tiled labeler (against a union-find over the bonds
-inside each tile), the coins and the ghost, sw_step with and without
-replicas and a field, whole SwendsenWang runs and the CLI. Every value
-compared is an integer or a bit, so every comparison is exact. The CUDA
-labeler is held against the plain pass on the card (the gpu-marked test
-below, and chip_smoke.py).
+here), one pass of the JAX tiled labeler's plain record and the port's
+tile-local phase (against union-finds over the bonds inside each tile),
+the hooks across tiles in shuffled orders, clusters that snake through
+many tiles and replicas larger than a tile, the coins and the ghost,
+sw_step with and without replicas and a field, whole SwendsenWang runs
+and the CLI. Every value compared is an integer or a bit, so every
+comparison is exact. The CUDA labeler is held against its plain phases on
+the card (the gpu-marked test below, and chip_smoke.py).
 """
 
 import jax
@@ -129,8 +131,8 @@ def test_labelers_match_jax_tiled_labeler(shape, p):
     got = cluster.label_clusters_tiled(_t(o_r), _t(o_d))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
-        cluster.label_clusters_tiled(_t(o_r), _t(o_d), tile=(16, 48),
-                                     passes_per_read=1).numpy(), want)
+        cluster.label_clusters_tiled(_t(o_r), _t(o_d), tile=(16, 48)).numpy(),
+        want)
 
 
 @pytest.mark.parametrize("Y,X,ysl,xsl", [(32, 64, 16, 16), (32, 64, 8, 32),
@@ -138,8 +140,9 @@ def test_labelers_match_jax_tiled_labeler(shape, p):
 @pytest.mark.parametrize("p", [0.3, 0.585, 1.0])
 def test_replica_labels_match_jax(Y, X, ysl, xsl, p):
     """Replica ids (rep * ysl * xsl + the id inside the replica), not flat
-    positions; one pass where the tiles hold whole replicas, and the same
-    labels from tiles that cut the replicas."""
+    positions; one launch where the tiles hold whole replicas, and the same
+    labels from tiles that cut the replicas (three launches, and the JAX
+    labeler's passes)."""
     o_r, o_d = _bonds(Y + X + ysl, Y, X, p)
     want = _jax_replica_labels(o_r, o_d, ysl, xsl)
     geo = dict(ysl=ysl, xsl=xsl)
@@ -148,16 +151,22 @@ def test_replica_labels_match_jax(Y, X, ysl, xsl, p):
     got, stats = cluster.label_clusters_tiled(_t(o_r), _t(o_d),
                                               return_stats=True, **geo)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert stats == {"passes": 1, "reads": 0}
+    assert stats == {"launches": 1}
     cut = (ysl // 2, xsl // 2)
     got, passes = cluster.label_clusters_tiled_reference(_t(o_r), _t(o_d),
                                                          tile=cut, **geo)
     np.testing.assert_array_equal(got.numpy(), want)
+    got, stats = cluster.label_clusters_tiled(_t(o_r), _t(o_d), tile=cut,
+                                              return_stats=True, **geo)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert stats == {"launches": 3}
 
 
-def _uf_local_pass(lab, o_r, o_d, tile, ysl, xsl):
-    """One pass by a union-find over the bonds inside each tile, after the
-    pull across the bonds that leave it."""
+def _tile_union_find(o_r, o_d, tile, ysl, xsl, across=None):
+    """(roots, find): a union-find over the open bonds inside each tile,
+    linking the larger root under the smaller, so that every root is its
+    tile component's least position. across(a, b) is called for each open
+    bond that leaves a tile."""
     Y, X = o_r.shape
     ty, tx = tile
     parent = list(range(Y * X))
@@ -167,8 +176,6 @@ def _uf_local_pass(lab, o_r, o_d, tile, ysl, xsl):
             i = parent[i]
         return i
 
-    stepped = lab.reshape(-1).astype(np.int64).copy()
-    flat = stepped.copy()
     for y in range(Y):
         for x in range(X):
             xr = x + 1 if (x + 1) % xsl else x + 1 - xsl
@@ -181,10 +188,23 @@ def _uf_local_pass(lab, o_r, o_d, tile, ysl, xsl):
                 if (y // ty, x // tx) == (y2 // ty, x2 // tx):
                     ra, rb = find(a), find(b)
                     parent[max(ra, rb)] = min(ra, rb)
-                else:
-                    stepped[a] = min(stepped[a], flat[b])
-                    stepped[b] = min(stepped[b], flat[a])
-    roots = [find(i) for i in range(Y * X)]
+                elif across is not None:
+                    across(a, b)
+    return [find(i) for i in range(Y * X)], find
+
+
+def _uf_local_pass(lab, o_r, o_d, tile, ysl, xsl):
+    """One pass by a union-find over the bonds inside each tile, after the
+    pull across the bonds that leave it."""
+    Y, X = o_r.shape
+    stepped = lab.reshape(-1).astype(np.int64).copy()
+    flat = stepped.copy()
+
+    def pull(a, b):
+        stepped[a] = min(stepped[a], flat[b])
+        stepped[b] = min(stepped[b], flat[a])
+
+    roots, _ = _tile_union_find(o_r, o_d, tile, ysl, xsl, pull)
     least = {}
     for i, r in enumerate(roots):
         least[r] = min(least.get(r, stepped[i]), stepped[i])
@@ -200,6 +220,10 @@ def _uf_local_pass(lab, o_r, o_d, tile, ysl, xsl):
 ])
 @pytest.mark.parametrize("p", [0.0, 0.585, 1.0])
 def test_local_pass_matches_tile_union_find(Y, X, ysl, xsl, tile, p):
+    """The JAX pass's plain record from the ids and from in-cluster labels,
+    and the port's tile-local phase (plain, and through the wrapper on CPU
+    tensors, positions and ids), against union-finds over the bonds inside
+    each tile."""
     o_r, o_d = _bonds(Y * X + tile[0], Y, X, p)
     ids = cluster.site_ids(Y, X, ysl=ysl, xsl=xsl).numpy()
     rs = np.random.RandomState(1)
@@ -214,13 +238,16 @@ def test_local_pass_matches_tile_union_find(Y, X, ysl, xsl, tile, p):
             None if lab is None else _t(lab.astype(np.int32)), _t(o_r),
             _t(o_d), **geo)
         np.testing.assert_array_equal(got.numpy(), want)
+    roots, _ = _tile_union_find(o_r, o_d, tile, ysl, xsl)
+    roots = np.array(roots).reshape(Y, X)
+    for use_ids in (False, True):
+        want = ids.reshape(-1)[roots] if use_ids else roots
+        np.testing.assert_array_equal(cluster.tile_roots_reference(
+            _t(o_r), _t(o_d), ids=use_ids, **geo).numpy(), want)
         out = torch.empty((Y, X), dtype=torch.int32)
-        flag = torch.zeros(1, dtype=torch.int32)
-        cluster.label_pass(None if lab is None else
-                           _t(lab.astype(np.int32)), _t(o_r), _t(o_d), out,
-                           flag, **geo)
+        assert cluster.tile_roots(_t(o_r), _t(o_d), out, ids=use_ids,
+                                  **geo) is out
         np.testing.assert_array_equal(out.numpy(), want)
-        assert int(flag) == int(not np.array_equal(want, src))
 
 
 def test_site_ids_and_tiles():
@@ -246,42 +273,165 @@ def test_site_ids_and_tiles():
 
 
 def test_label_pass_checks_its_arguments():
+    """The three phase wrappers check device, dtype, shape, contiguity,
+    aliasing, replicas, the tile and Y * X < 2^31 before anything runs."""
     o = torch.ones((8, 16), dtype=torch.bool)
     out = torch.empty((8, 16), dtype=torch.int32)
-    flag = torch.zeros(1, dtype=torch.int32)
     kw = dict(tile=(8, 16))
+    for phase in (cluster.tile_roots, cluster.hook_roots):
+        for args, extra, err, msg in (
+                ((o.to(torch.uint8), o, out), {}, TypeError, "bool"),
+                ((o, o, out.to(torch.int64)), {}, TypeError, "int32"),
+                ((o, o[:4], out), {}, ValueError, "shape"),
+                ((o, o, out), dict(tile=(9, 16)), ValueError, "tile"),
+                ((o, o, out), dict(tile=(8, 0)), ValueError, "tile"),
+                ((o, o, out), dict(ysl=3), ValueError, "replicas"),
+                ((o, o, out.view(torch.bool)[:, :16]), {}, TypeError,
+                 "int32"),
+                ((o, o, torch.empty((8, 32), dtype=torch.int32)[:, ::2]), {},
+                 ValueError, "contiguous")):
+            with pytest.raises(err, match=msg):
+                phase(*args, **{**kw, **extra})
+    words = torch.zeros((8, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="overlap"):
+        cluster.tile_roots(words.view(torch.bool).reshape(-1)[:128]
+                           .view(8, 16), o, words, **kw)
     for args, extra, err, msg in (
-            ((None, o.to(torch.uint8), o, out, flag), {}, TypeError, "bool"),
-            ((None, o, o, out.to(torch.int64), flag), {}, TypeError, "int32"),
-            ((None, o, o[:4], out, flag), {}, ValueError, "shape"),
-            ((None, o, o, out, flag), dict(tile=(9, 16)), ValueError, "tile"),
-            ((None, o, o, out, flag), dict(tile=(8, 0)), ValueError, "tile"),
-            ((None, o, o, out, flag), dict(ysl=3), ValueError, "replicas"),
-            ((out, o, o, out, flag), {}, ValueError, "overlap"),
-            ((None, o, o, torch.empty((8, 32), dtype=torch.int32)[:, ::2],
-              flag), {}, ValueError, "contiguous")):
+            ((out, out), dict(ysl=4), ValueError, "overlap"),
+            ((out, out[:4]), {}, ValueError, "shape"),
+            ((out.to(torch.int64), out), {}, TypeError, "int32"),
+            ((out, out), dict(xsl=5), ValueError, "replicas"),
+            ((out, out), dict(tile=(8, 32)), ValueError, "tile")):
         with pytest.raises(err, match=msg):
-            cluster.label_pass(*args, **{**kw, **extra})
+            cluster.flatten_roots(*args, **{**kw, **extra})
     big = torch.ones((1, 1), dtype=torch.bool).expand(1 << 16, 1 << 15)
     with pytest.raises(ValueError, match="2\\^31"):
-        cluster._check_pass(None, big, big, big, flag, (8, 8), None, None)
+        cluster.tile_roots(big, big, big, tile=(8, 8))
+    with pytest.raises(ValueError, match="2\\^31"):
+        cluster.flatten_roots(big, big, tile=(8, 8))
 
 
-def test_tiled_labeling_counts_passes_and_reads():
-    """Batches of passes_per_read passes with one flag read each; every k
-    gives the same labels; pass counts as the plain loop's, rounded up to
-    a batch."""
-    o_r, o_d = _bonds(4, 96, 160, 0.585)
+@pytest.mark.parametrize("shape,tile,launches", [
+    ((96, 160), (16, 32), 3), ((96, 160), (5, 8), 3),
+    ((96, 160), (96, 160), 1)])
+def test_tiled_labeling_counts_passes_and_reads(shape, tile, launches):
+    """The labels of the JAX labeler's passes (label_clusters_tiled_
+    reference) in 3 launches, or 1 where one tile holds the lattice; the
+    JAX labeler needs several passes where tiles cut it."""
+    o_r, o_d = _bonds(4, *shape, 0.585)
     want, passes = cluster.label_clusters_tiled_reference(
-        _t(o_r), _t(o_d), tile=(16, 32))
-    assert passes > 3
-    for k in (1, 2, 4, 8):
-        got, stats = cluster.label_clusters_tiled(
-            _t(o_r), _t(o_d), tile=(16, 32), passes_per_read=k,
-            return_stats=True)
-        assert torch.equal(got, want)
-        reads = -(-(passes - 1) // k)
-        assert stats == {"passes": 1 + k * reads, "reads": reads}
+        _t(o_r), _t(o_d), tile=tile)
+    assert passes > 3 if launches == 3 else passes == 1
+    got, stats = cluster.label_clusters_tiled(_t(o_r), _t(o_d), tile=tile,
+                                              return_stats=True)
+    assert torch.equal(got, want)
+    assert stats == {"launches": launches}
+
+
+def _snake(Y, X):
+    """Bonds of one cluster that snakes through the lattice: every row open
+    along its length but for the periodic wrap, joined to the next row at
+    alternate ends (the worst chain of tile roots for the hooks)."""
+    o_r = np.ones((Y, X), bool)
+    o_r[:, -1] = False
+    o_d = np.zeros((Y, X), bool)
+    o_d[0:Y - 1:2, -1] = True
+    o_d[1:Y - 1:2, 0] = True
+    return o_r, o_d
+
+
+@pytest.mark.parametrize("Y,X,tile", [(64, 96, (4, 8)), (64, 96, (1, 96)),
+                                      (40, 36, (3, 5)), (128, 256, None)])
+def test_snaking_cluster_through_many_tiles(Y, X, tile):
+    """One cluster through every tile (and, cut once, two), labelled by the
+    JAX labeler and the port's phases alike."""
+    o_r, o_d = _snake(Y, X)
+    for cut in (False, True):
+        if cut:
+            o_d[Y // 2 - 1] = False   # the halves meet nowhere else
+        want = np.asarray(jc.label_clusters(jnp.asarray(o_r),
+                                            jnp.asarray(o_d)))
+        assert len(np.unique(want)) == 1 + cut
+        got, stats = cluster.label_clusters_tiled(_t(o_r), _t(o_d), tile=tile,
+                                                  return_stats=True)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert stats == {"launches": 3}
+
+
+@pytest.mark.parametrize("Y,X,ysl,xsl,tile", [
+    (64, 64, 32, 64, (8, 16)), (64, 64, 64, 32, (16, 8)),
+    (256, 256, 256, 128, None), (48, 60, 24, 30, (10, 7))])
+@pytest.mark.parametrize("p", [0.3, 0.585, 1.0])
+def test_replicas_larger_than_a_tile(Y, X, ysl, xsl, tile, p):
+    """Replicas cut by the tiles (by pick_tile where a replica exceeds
+    MAX_TILE_SITES): their wraps cross tiles and are hooked across them;
+    the labels are the JAX package's replica ids."""
+    geo = dict(ysl=ysl, xsl=xsl)
+    tile = tile or cluster.pick_tile(Y, X, **geo)
+    assert not cluster.whole_replica_tiles((Y, X), tile, **geo)
+    o_r, o_d = _bonds(Y + X + int(10 * p), Y, X, p)
+    want = _jax_replica_labels(o_r, o_d, ysl, xsl)
+    got, stats = cluster.label_clusters_tiled(_t(o_r), _t(o_d), tile=tile,
+                                              return_stats=True, **geo)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert stats == {"launches": 3}
+
+
+def _kernel_hooks(parent, cross, order, jumps):
+    """The hook kernel's union-find, one bond at a time in `order`: find
+    both roots (with jumps, each visited node jumps to its grandparent, as
+    find_root does), hook the larger root under the smaller; then every
+    site's root."""
+    parent = parent.copy()
+
+    def find(i):
+        prev, cur = i, parent[i]
+        while parent[cur] != cur:
+            nxt = parent[cur]
+            if jumps:
+                parent[prev] = nxt
+            prev, cur = cur, nxt
+        return cur
+
+    for k in order:
+        a, b = find(cross[k][0]), find(cross[k][1])
+        if a != b:
+            parent[max(a, b)] = min(a, b)
+    return np.array([find(i) for i in range(parent.size)])
+
+
+@pytest.mark.parametrize("Y,X,ysl,xsl,tile", [
+    (24, 40, None, None, (5, 8)), (24, 40, 12, 20, (10, 16)),
+    (32, 32, None, None, (4, 4))])
+@pytest.mark.parametrize("p", [0.5, 0.585, 1.0])
+def test_hooks_in_any_order_give_the_same_labels(Y, X, ysl, xsl, tile, p):
+    """The card's hooks run in no fixed order: every order of the bonds
+    that leave a tile, with or without the grandparent jumps, reaches the
+    same roots, and hook_reference's flattened forest and the flatten give
+    label_clusters' labels."""
+    o_r, o_d = _bonds(Y * 7 + X, Y, X, p)
+    geo = dict(ysl=ysl, xsl=xsl)
+    want = cluster.label_clusters(_t(o_r), _t(o_d), **geo).numpy()
+    crossing = []
+    _, _, ysl_, xsl_ = cluster._sizes((Y, X), ysl, xsl)
+    _tile_union_find(o_r, o_d, tile, ysl_, xsl_,
+                     lambda a, b: crossing.append((a, b)))
+    assert crossing
+    parent = cluster.tile_roots_reference(_t(o_r), _t(o_d), tile=tile, **geo)
+    ids = cluster.site_ids(Y, X, **geo).reshape(-1).numpy()
+    rs = np.random.RandomState(5)
+    for trial in range(6):
+        order = rs.permutation(len(crossing))
+        roots = _kernel_hooks(parent.reshape(-1).numpy(), crossing, order,
+                              jumps=trial % 2 == 0)
+        np.testing.assert_array_equal(ids[roots].reshape(Y, X), want)
+    hooked = cluster.hook_reference(parent, _t(o_r), _t(o_d), tile=tile,
+                                    **geo)
+    np.testing.assert_array_equal(
+        cluster.flatten_reference(hooked, **geo).numpy(), want)
+    np.testing.assert_array_equal(
+        cluster.flatten_reference(parent, **geo).numpy(),
+        ids[parent.reshape(-1).numpy()].reshape(Y, X))
 
 
 @pytest.mark.parametrize("Y,X,ysl,xsl", [(16, 24, None, None), (16, 24, 8, 8)])
@@ -373,7 +523,21 @@ def test_swendsen_wang_runs_match_jax(kw):
     jb, jw = jax_sw.bits()
     np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
     np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
-    assert sum(port.pass_counts.values()) == 5
+    assert sum(port.launch_counts.values()) == 5
+
+
+@pytest.mark.parametrize("kw", [dict(nrows=128, ncols=256, temp=TCRIT),
+                                dict(nrows=256, ncols=256, temp=2.0,
+                                     xsl=128, ysl=256, field=0.1)])
+def test_sw_runs_match_jax_where_tiles_cut_the_replicas(kw):
+    """Lattices and replicas larger than a tile (MAX_TILE_SITES): every
+    update takes the three phases, and the trajectory is the JAX
+    package's."""
+    port, jax_sw = _pair(**kw)
+    for sw in (port, jax_sw):
+        sw.advance(3)
+    _assert_same(port, jax_sw)
+    assert port.launch_counts == {3: 3}
 
 
 def test_state_and_step0_carry_a_jax_lattice():
@@ -458,15 +622,14 @@ def cuda_device():
                                          (256, 256, 128, 128),
                                          (128, 256, 16, 16)])
 def test_kernel_matches_plain_on_card(Y, X, ysl, xsl, cuda_device):
-    """csrc/cluster_label.cu against the plain pass and labeler."""
+    """csrc/cluster_label.cu against its plain phases and labeler."""
     geo = dict(ysl=ysl, xsl=xsl)
     tile = cluster.pick_tile(Y, X, **geo)
     for p in (0.0, 0.585, 1.0):
         o_r, o_d = (_t(b).to(cuda_device) for b in _bonds(3, Y, X, p))
-        want = cluster.local_pass_reference(None, o_r, o_d, tile=tile, **geo)
+        want = cluster.tile_roots_reference(o_r, o_d, tile=tile, **geo)
         out = torch.empty((Y, X), dtype=torch.int32, device=cuda_device)
-        flag = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-        cluster.label_pass(None, o_r, o_d, out, flag, tile=tile, **geo)
+        cluster.tile_roots(o_r, o_d, out, tile=tile, **geo)
         torch.cuda.synchronize()
         assert torch.equal(out, want)
         assert torch.equal(cluster.label_clusters_tiled(o_r, o_d, **geo),

@@ -102,25 +102,26 @@ def test_trace_runs_dense_and_mxu_on_cpu(backend, size, kernel, capsys):
 def test_summarize_times_the_parts_of_an_sw_update():
     """Each sw_step range's device mirror: its span, and the device time
     of the kernels inside it."""
-    k = "(anonymous namespace)::cluster_label_kernel(int const*, ...)"
+    k = "(anonymous namespace)::label_{}_kernel(unsigned char const*, ...)"
     events = [
         _ev(device_trace.WINDOW, 100.0, 300.0, DeviceType.CPU),
         _ev("sw_step.bonds", 110.0, 140.0, DeviceType.CUDA),
         _ev("elementwise", 110.0, 120.0, DeviceType.CUDA),
         _ev("elementwise", 125.0, 140.0, DeviceType.CUDA),
         _ev("sw_step.label", 150.0, 200.0, DeviceType.CUDA),
-        _ev(k, 150.0, 160.0, DeviceType.CUDA),
-        _ev(k, 190.0, 200.0, DeviceType.CUDA),
+        _ev(k.format("tile_roots"), 150.0, 160.0, DeviceType.CUDA),
+        _ev(k.format("hook"), 190.0, 195.0, DeviceType.CUDA),
+        _ev(k.format("flatten"), 196.0, 200.0, DeviceType.CUDA),
         _ev("sw_step.flip", 210.0, 230.0, DeviceType.CUDA),
         _ev("elementwise", 210.0, 230.0, DeviceType.CUDA),
     ]
     out = device_trace.summarize(events)
     assert out["spans"] == {
         "sw_step.bonds": {"span_us": 30.0, "busy_us": 25.0},
-        "sw_step.label": {"span_us": 50.0, "busy_us": 20.0},
+        "sw_step.label": {"span_us": 50.0, "busy_us": 19.0},
         "sw_step.flip": {"span_us": 20.0, "busy_us": 20.0}}
-    assert out["kernel_launches"] == 2
-    assert out["gap_after_kernel_us"]["n"] == 2
+    assert out["kernel_launches"] == 3
+    assert out["gap_after_kernel_us"]["n"] == 3
 
 
 def test_trace_runs_sw_on_cpu(capsys):

@@ -116,8 +116,16 @@ class FakeLib:
         self.calls.append(("planes",) + args)
         return self.code
 
-    def cluster_label_launch(self, *args):
-        self.calls.append(("cluster",) + args)
+    def label_tile_roots_launch(self, *args):
+        self.calls.append(("tile_roots",) + args)
+        return self.code
+
+    def label_hook_launch(self, *args):
+        self.calls.append(("hook",) + args)
+        return self.code
+
+    def label_flatten_launch(self, *args):
+        self.calls.append(("flatten",) + args)
         return self.code
 
     def ising_cuda_error_string(self, code):
@@ -413,7 +421,7 @@ def test_wrapper_refuses_bad_geometry(fake_card):
 
 
 class FakeCudaPlane(FakeCudaWords):
-    """A CUDA tensor of another dtype, for label_pass's checks."""
+    """A CUDA tensor of another dtype, for the labeler's checks."""
 
     def __init__(self, shape, ptr, dtype):
         super().__init__(shape, ptr)
@@ -426,62 +434,133 @@ class FakeCudaPlane(FakeCudaWords):
         return 1 if self.dtype == torch.bool else 4
 
 
-def _fake_label_args(Y=8, X=16):
-    o_r = FakeCudaPlane((Y, X), 1 << 20, torch.bool)
-    o_d = FakeCudaPlane((Y, X), 2 << 20, torch.bool)
-    lab_in = FakeCudaPlane((Y, X), 3 << 20, torch.int32)
-    out = FakeCudaPlane((Y, X), 4 << 20, torch.int32)
-    flag = FakeCudaPlane((1,), 5 << 20, torch.int32)
-    return lab_in, o_r, o_d, out, flag
+def _fake_bonds(Y=8, X=16):
+    return (FakeCudaPlane((Y, X), 1 << 20, torch.bool),
+            FakeCudaPlane((Y, X), 2 << 20, torch.bool))
 
 
 @pytest.fixture
 def fake_label_card(monkeypatch, fake_card):
+    """The fake card, with torch.empty handing out fake CUDA planes (at
+    3 << 20, 4 << 20, ...) and every plain phase refusing to run."""
     def plain_is_not_for_cuda(*a, **k):
         raise AssertionError("plain version called on a CUDA tensor")
-    monkeypatch.setattr(cluster, "local_pass_reference", plain_is_not_for_cuda)
+    for name in ("local_pass_reference", "tile_roots_reference",
+                 "hook_reference", "flatten_reference", "label_clusters"):
+        monkeypatch.setattr(cluster, name, plain_is_not_for_cuda)
     monkeypatch.setattr(cluster, "_cuda_stream", lambda device: 1234)
+    planes = []
+
+    def empty(shape, dtype=None, device=None):
+        assert torch.device(device).type == "cuda"
+        planes.append(FakeCudaPlane(tuple(shape), (3 + len(planes)) << 20,
+                                    dtype))
+        return planes[-1]
+    monkeypatch.setattr(torch, "empty", empty)
+    fake_card.planes = planes
     return fake_card
 
 
-def test_label_pass_launches_kernel_on_cuda_tensor(fake_label_card):
-    lab_in, o_r, o_d, out, flag = _fake_label_args()
-    before = cluster.label_pass.launches
-    for lab, ptr in ((lab_in, lab_in.ptr), (None, None)):
-        assert cluster.label_pass(lab, o_r, o_d, out, flag, tile=(4, 16),
-                                  ysl=4, xsl=8) is out
-        args = fake_label_card.calls.pop()
-        assert args == ("cluster", ptr, o_r.ptr, o_d.ptr, out.ptr, flag.ptr,
-                        8, 16, 4, 8, 4, 16, 1234)
-    assert cluster.label_pass.launches == before + 2
+def _launches():
+    return tuple(f.launches for f in cluster.LABEL_PHASES)
 
 
-def test_label_pass_raises_on_failed_launch(fake_label_card):
-    fake_label_card.code = 700
-    before = cluster.label_pass.launches
+@pytest.mark.parametrize("geo,tile,labels_ptr", [
+    (dict(), (4, 8), 3 << 20),                      # in place on the lattice
+    (dict(ysl=8, xsl=8), (4, 8), 4 << 20)])          # replicas: a new plane
+def test_label_pass_launches_kernel_on_cuda_tensor(fake_label_card, geo,
+                                                   tile, labels_ptr):
+    """A labeling on CUDA tensors: tile_roots, hook_roots, flatten_roots,
+    in that order, with their pointers and geometry, each counted once,
+    with no plain phase and no host read."""
+    o_r, o_d = _fake_bonds()
+    before = _launches()
+    labels, stats = cluster.label_clusters_tiled(o_r, o_d, tile=tile,
+                                                 return_stats=True, **geo)
+    ysl, xsl = geo.get("ysl", 8), geo.get("xsl", 16)
+    parent = 3 << 20
+    assert fake_label_card.calls == [
+        ("tile_roots", o_r.ptr, o_d.ptr, parent, 8, 16, ysl, xsl, *tile, 0,
+         1234),
+        ("hook", o_r.ptr, o_d.ptr, parent, 8, 16, ysl, xsl, *tile, 1234),
+        ("flatten", parent, labels_ptr, 8, 16, ysl, xsl, *tile, 1234)]
+    assert labels.ptr == labels_ptr and stats == {"launches": 3}
+    assert _launches() == tuple(n + 1 for n in before)
+
+
+def test_label_pass_launches_once_with_whole_replica_tiles(fake_label_card):
+    """Tiles that hold whole replicas: one tile_roots launch writing ids."""
+    o_r, o_d = _fake_bonds()
+    before = _launches()
+    labels, stats = cluster.label_clusters_tiled(o_r, o_d, ysl=4, xsl=8,
+                                                 tile=(4, 16),
+                                                 return_stats=True)
+    assert fake_label_card.calls == [
+        ("tile_roots", o_r.ptr, o_d.ptr, 3 << 20, 8, 16, 4, 8, 4, 16, 1,
+         1234)]
+    assert labels.ptr == 3 << 20 and stats == {"launches": 1}
+    assert _launches() == (before[0] + 1, *before[1:])
+
+
+@pytest.mark.parametrize("failing", ["tile_roots", "hook", "flatten"])
+def test_label_pass_raises_on_failed_launch(fake_label_card, failing,
+                                            monkeypatch):
+    """A launch that fails raises, the later phases do not launch, and the
+    failed phase's counter does not move."""
+    lib = fake_label_card
+    name = f"label_{failing}_launch"
+
+    def fail(*args):
+        lib.calls.append((failing,) + args)
+        return 700
+    monkeypatch.setattr(lib, name, fail)
+    before = _launches()
     with pytest.raises(RuntimeError, match="CUDA error 700"):
-        cluster.label_pass(*_fake_label_args(), tile=(8, 16))
-    assert cluster.label_pass.launches == before
+        cluster.label_clusters_tiled(*_fake_bonds(), tile=(4, 8))
+    k = ("tile_roots", "hook", "flatten").index(failing)
+    assert [c[0] for c in lib.calls] == ["tile_roots", "hook",
+                                         "flatten"][:k + 1]
+    assert _launches() == tuple(n + (i < k) for i, n in enumerate(before))
 
 
 def test_label_pass_raises_when_kernel_cannot_build(monkeypatch):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
-    monkeypatch.setattr(cluster, "local_pass_reference",
-                        lambda *a, **k: pytest.fail("fell back to plain"))
+    for name in ("tile_roots_reference", "hook_reference",
+                 "flatten_reference"):
+        monkeypatch.setattr(cluster, name,
+                            lambda *a, **k: pytest.fail("fell back to plain"))
     monkeypatch.setattr(cluster, "_cuda_stream", lambda device: 0)
     monkeypatch.setattr(kernel_lib, "load", no_nvcc)
-    with pytest.raises(RuntimeError, match="nvcc"):
-        cluster.label_pass(*_fake_label_args(), tile=(8, 16))
+    o_r, o_d = _fake_bonds()
+    out = FakeCudaPlane((8, 16), 3 << 20, torch.int32)
+    for call in (lambda: cluster.tile_roots(o_r, o_d, out, tile=(8, 16)),
+                 lambda: cluster.hook_roots(o_r, o_d, out, tile=(8, 16)),
+                 lambda: cluster.flatten_roots(out, out, tile=(8, 16))):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()
 
 
 def test_label_pass_refuses_aliasing_and_bad_tiles(fake_label_card):
-    lab_in, o_r, o_d, out, flag = _fake_label_args()
-    for args, kw, msg in (
-            ((out, o_r, o_d, out, flag), dict(tile=(8, 16)), "overlap"),
-            ((lab_in, o_r, o_d, out, flag), dict(tile=(16, 16)), "tile"),
-            ((lab_in, o_r, o_d, out, flag), dict(tile=(8, 16), xsl=3),
-             "replicas")):
+    o_r, o_d = _fake_bonds()
+    parent = FakeCudaPlane((8, 16), 3 << 20, torch.int32)
+    inside = FakeCudaPlane((8, 16), (1 << 20) + 64, torch.int32)
+    labels = FakeCudaPlane((8, 16), (3 << 20) + 8, torch.int32)
+    for call, msg in (
+            (lambda: cluster.tile_roots(o_r, o_d, inside, tile=(8, 16)),
+             "overlap"),
+            (lambda: cluster.hook_roots(o_r, o_d, inside, tile=(8, 16)),
+             "overlap"),
+            (lambda: cluster.flatten_roots(parent, labels, tile=(8, 16)),
+             "overlap"),
+            (lambda: cluster.flatten_roots(parent, parent, tile=(8, 16),
+                                           ysl=4), "overlap"),
+            (lambda: cluster.flatten_roots(parent, parent, tile=(8, 17)),
+             "tile"),
+            (lambda: cluster.tile_roots(o_r, o_d, parent, tile=(16, 16)),
+             "tile"),
+            (lambda: cluster.hook_roots(o_r, o_d, parent, tile=(8, 16),
+                                        xsl=3), "replicas")):
         with pytest.raises(ValueError, match=msg):
-            cluster.label_pass(*args, **kw)
+            call()
     assert fake_label_card.calls == []

@@ -79,12 +79,15 @@ EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
 # wmma products and its __syncthreads between the staging, the products and
 # the accept; cluster_label.cu's block-wide barriers between its phases (a
 # thread's union-find reads what the others wrote before the barrier), its
-# warp votes and its shared-memory atomics; packed_fused.cu's rings of rows
+# warp votes, its shared-memory atomics and its device-memory
+# compare-and-swap between threads; packed_fused.cu's rings of rows
 # refilled behind a barrier on every row (a thread computes from rows the
 # others copied) and its cp.async. chip_smoke.py holds those kernels against
 # their plain versions on the card.
 NOT_EMULATED = {"mxu_sweep.cu": ("mxu_sweep_launch",),
-                "cluster_label.cu": ("cluster_label_launch",),
+                "cluster_label.cu": ("label_tile_roots_launch",
+                                     "label_hook_launch",
+                                     "label_flatten_launch"),
                 "packed_fused.cu": ("packed_fused_step_launch",
                                     "packed_fused_step_manual_launch",
                                     "packed_fused_step_band")}
