@@ -8,7 +8,7 @@ Phases, each printed as it ends:
   1. device    the card's name, count, torch/CUDA versions, power limit;
   2. build     nvcc builds csrc/*.cu into one C library (seconds, ptxas:
                no kernel may have a stack frame; SASS: the mxu kernel must
-               hold HMMA, its sums on the tensor cores);
+               hold a tensor-core instruction, IMMA for its u8 products);
   3. kernel    bit1_sweep against its plain torch version, bit for bit,
                at the full 16384 width and two small shapes (one whose
                counters carry and whose rows wrap), in every rng mode, at
@@ -226,7 +226,6 @@ PLANE_EQUALITY_RUNS = (("threefry13", [], ("mxu", "dense", "bit1", "xla")),
 PLANE_TIMED_SHAPES = (MAIN_SHAPE, 8192)
 # bytes a site moves: read dst and src, write dst (3); the J planes (7)
 PLANE_PATH_BYTES = {None: 3, "jplanes": 7}
-BF16_FLOPS_PER_S = 989e12   # H100 SXM tensor cores, bf16, dense
 SWEEPS = {"bit1": bit1.bit1_sweep, "packed": packed.packed_sweep,
           "dense": dense.dense_sweep, "mxu": mxu.mxu_sweep}
 # The fused packed step (kernel rows 3 and 4): one launch a step under
@@ -478,9 +477,13 @@ def dense_ops_per_site(mode: str, path: str | None = None) -> float:
             + 4)
 
 
-# Tensor-core work of an mxu site: three 16 x 16 x 16 products per 16 x 16
-# fragment (Kv S, S Kl, S Kr), 2 flops per multiply-add.
-MXU_FLOPS_PER_SITE = 3 * 2 * 16 ** 3 / 16 ** 2
+# Tensor-core work of an mxu site: four m16n8k32 u8 products per 16 x 8
+# tile (the dst, vertical, left and right bands), 2 ops per multiply-add.
+MXU_OPS_PER_SITE = 4 * 2 * 16 * 8 * 32 / (16 * 8)
+INT8_OPS_PER_S = 1979e12    # H100 SXM tensor cores, int8, dense
+# mxu_sweep's instantiations (family, rounds, n8 tiles a run): Philox-7/10
+# and Threefry-13/20 with two tiles, ChaCha-4/6/8 with two and with one.
+MXU_KERNELS = 10
 
 
 # SASS opcodes by the pipe that executes them (Volta to Hopper SMs).
@@ -492,7 +495,7 @@ FMA_OPS = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP"}
 
 def pipe_of(opcode: str) -> str:
     base = opcode.split(".")[0]
-    if base in ("HMMA", "HGMMA"):
+    if base in ("HMMA", "HGMMA", "IMMA", "IGMMA"):
         return "tensor"
     if base in ALU_OPS:
         return "alu"
@@ -511,10 +514,12 @@ def sass_mix(lib_path: str):
     rounds, greedy), for bit1_planes (family, rounds, kbits, accept), for
     packed_sweep (family, rounds, accept), for packed_fused (family,
     rounds, accept, cp.async), for dense_sweep (family, rounds, sites per
-    word), for mxu_sweep (family, rounds); "tensor" counts HMMA. The sweep
-    kernels are fully unrolled and branch-free apart from their edge and
-    path selects, so this is close to the instructions one thread (one
-    word; a pair of words in the packed ChaCha kernel) issues; the fused
+    word), for mxu_sweep (family, rounds, n8 tiles a run); "tensor"
+    counts HMMA and IMMA.
+    The sweep kernels are fully unrolled and branch-free apart from their
+    edge and path selects, so this is close to the instructions one thread
+    (one word; a pair of words in the packed ChaCha kernel; an mxu lane's
+    warp tile) issues; the fused
     kernel's count is static, its loop bodies (a black and a white word's
     update, the row copies) once each. None without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
@@ -575,9 +580,12 @@ def phase_build():
             f"{sum(pipes.values())} instructions, {dict(pipes)}")
     # the mxu kernel's neighbour sums run on the tensor cores
     mxu_keys = [k for k in (mix or {}) if k[0] == "mxu_sweep"]
-    require(len(mxu_keys) == 7 and all(mix[k]["tensor"] for k in mxu_keys),
-            f"no HMMA in the mxu kernel's SASS: {mxu_keys}")
-    say(f"[build] HMMA in all {len(mxu_keys)} mxu_sweep kernels: "
+    require(len(mxu_keys) == MXU_KERNELS
+            and all(mix[k]["tensor"] for k in mxu_keys),
+            "no tensor-core instruction (HMMA, IMMA) in the mxu kernel's "
+            f"SASS: {mxu_keys}")
+    say(f"[build] tensor-core instructions (IMMA) in all {len(mxu_keys)} "
+        "mxu_sweep kernels: "
         + ", ".join(f"{list(k[1])} {mix[k]['tensor']}" for k in mxu_keys))
     return info, mix
 
@@ -1266,8 +1274,10 @@ def phase_timing_planes(card, mix, bit1_timing):
     1.5 (h = 0.3 where a field is timed), on random bit planes: kernel
     against plain (bit for bit, both colors), then the kernel's and the
     plain version's times, the bound (bytes, integer operations and, for
-    mxu, the tensor-core flops) and the compiled code's pipe mix per
-    thread, beside bit1's time in the same mode at 16384^2. Returns
+    mxu, the tensor-core products at the int8 rate) and the compiled
+    code's pipe mix per thread with its ALU- and FMA-pipe time (per site:
+    a dense thread's V calls, an mxu lane's calls of one warp tile), beside
+    bit1's time in the same mode at 16384^2. Returns
     ({(kernel, mode, field, path, shape): timing}, cases, max abs err)."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(9)
@@ -1298,7 +1308,7 @@ def phase_timing_planes(card, mix, bit1_timing):
             max_err, cases = max(max_err, err), cases + 2
             bytes_ms = PLANE_PATH_BYTES[path] * sites / HBM_BYTES_PER_S * 1e3
             ops = dense_ops_per_site(mode, path)
-            mma_ms = (MXU_FLOPS_PER_SITE * sites / BF16_FLOPS_PER_S * 1e3
+            mma_ms = (MXU_OPS_PER_SITE * sites / INT8_OPS_PER_S * 1e3
                       if kernel == "mxu" else 0.0)
             ops_ms = max(ops * sites / rate * 1e3, mma_ms)
             bound_ms = max(bytes_ms, ops_ms)
@@ -1307,16 +1317,19 @@ def phase_timing_planes(card, mix, bit1_timing):
             if family == "hw":
                 family, rounds = "philox", 10
             # a dense thread serves V calls (V = 4 where the row's calls come
-            # in fours), S * V sites; an mxu thread loops over its tile, so
-            # its static count is not per site
+            # in fours), S * V sites; an mxu lane 2 * cols/4 calls of each
+            # warp tile, S sites each, in one unrolled pass of its loop (the
+            # static count adds its constant operands once)
             per = dense.SITES_PER_CALL[family]
             V = 4 if (C // per) % 4 == 0 else 1
+            if kernel == "mxu":
+                V = 2 * mxu.tile_columns(C, mode) // 4
             targs = (bit1._FAMILY_CODE[family], rounds) + (
-                (V,) if kernel == "dense" else ())
+                (V,) if kernel == "dense"
+                else (mxu.tile_columns(C, mode) // mxu.N8,))
             pipes = dict((mix or {}).get((f"{kernel}_sweep", targs), {}))
-            pipe_ms = ({p: pipes[p] * sites / (per * V) / pipe_rate * 1e3
-                        for p in ("alu", "fma") if p in pipes}
-                       if kernel == "dense" else {})
+            pipe_ms = {p: pipes[p] * sites / (per * V) / pipe_rate * 1e3
+                       for p in ("alu", "fma") if p in pipes}
             bit1_ms = (bit1_timing.get((mode, 0.0, None), {}).get("ms")
                        if shape == MAIN_SHAPE and not field and not path
                        else None)

@@ -97,7 +97,7 @@ SIGNATURES = {
         _c.c_int),
     "mxu_sweep_launch": (
         [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # dst src up dn
-         _c.c_int, _c.c_int, _c.c_int,                        # H, C, tq
+         _c.c_int, _c.c_int, _c.c_int,                        # H, C, cols
          _c.c_uint32, _c.c_uint32, _c.c_uint32, _c.c_int,     # row0 step tag color
          _c.POINTER(_c.c_uint32),                             # thr10
          _c.c_uint32, _c.c_uint32,                            # k0 k1

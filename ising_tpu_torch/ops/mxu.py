@@ -1,20 +1,21 @@
 """MXU tier (backend "mxu"): neighbour sums as band-matrix products.
 
 The port of ``ising_tpu/ops/mxu.py`` and its TPU kernel ``_mxu_kernel``:
-the spins of a uint8 bit plane become +-1, the vertical sum s[r-1] + s[r+1]
-and the left / right neighbours come from products with band matrices
-(``band``), the edges of each product patched from the neighbouring rows
-and columns, and the accept is the integer one through the mirrored count
-e = b ? n : 4 - n (h = 0 only). Every term is a small integer, exact in
-bf16 and float32, so trajectories equal the dense and xla backends' in the
-counter modes, and the dense and packed backends' in hw (salted Philox-10).
+the vertical sum s[r-1] + s[r+1] and the left / right neighbour (with the
+site's own column) come from products with band matrices, and the accept is
+the integer one through the mirrored count e = b ? n : 4 - n (h = 0 only).
+Every term is a small integer, exact in any of the products' types, so
+trajectories equal the dense and xla backends' in the counter modes, and the
+dense and packed backends' in hw (salted Philox-10).
 
 ``mxu_sweep`` launches the hand-written kernel ``csrc/mxu_sweep.cu``, whose
-products run on the tensor cores, on CUDA tensors, and runs
-``mxu_sweep_reference`` on CPU tensors. The plain version tiles the
-products as the kernel does: 16-row blocks for the vertical product, and
-16-column windows at the kernel's run offsets for the horizontal ones
-(``calls_per_tile``), so the CPU tests check the kernel's edge patching.
+products run on the tensor cores (mma.sync m16n8k32 on the 0/1 spin bytes),
+on CUDA tensors, and runs ``mxu_sweep_reference`` on CPU tensors. The plain
+version tiles the products as the kernel does (``neighbour_counts``): a
+16 x 32 band over 32 rows of k per 16-row block (the block's rows, then the
+rows above and below: no edge patch), and per group of ``tile_columns``
+output columns a window of 32 columns from 4 left of the group times a
+32 x 8 band per n8 tile, output column n of tile j at ``tile_column``.
 """
 
 from __future__ import annotations
@@ -31,66 +32,88 @@ from .dense import (check_cuda_planes, check_plane_sweep, site_draws,
 from .xla_ref import select_threshold
 
 TILE = 128          # the JAX backend's fences: nrows, ncols/2, slab % 128
-FRAG = 16           # the kernel's fragment: 16 rows, 16 columns
-MAX_COLS = 256      # columns a CTA of the kernel stages
+TILE_ROWS = 16      # rows of one product (mma m16)
+N8 = 8              # output columns of one product (mma n8)
+DEPTH = 32          # k of one product (mma k32): rows, or window columns
+HALO_K = (16, 17)   # k of the rows above and below in the vertical band
+WINDOW_LEFT = 4     # a window's first column: 4 left of its group's
 
 
-def band(n: int, offset: int) -> np.ndarray:
-    """(n, n) matrix with ones on the given diagonal (mxu.py:_band)."""
-    m = np.zeros((n, n), np.float32)
-    idx = np.arange(n - abs(offset))
-    if offset >= 0:
-        m[idx, idx + offset] = 1.0
-    else:
-        m[idx - offset, idx] = 1.0
+def tile_columns(C: int, rng_mode: str) -> int:
+    """Output columns a run of one warp's tile in csrc/mxu_sweep.cu: two
+    n8 tiles (16) where G = C/S is a multiple of 16 (every Philox and
+    Threefry width, ChaCha where C % 256 == 0), else one (8; C % 128 == 0
+    gives G % 8 == 0)."""
+    G = C // sites_per_call(rng_mode)
+    if G % N8:
+        raise ValueError(f"mxu_sweep: C = {C} leaves {G} calls per run, not "
+                         f"a multiple of {N8}")
+    return 2 * N8 if G % (2 * N8) == 0 else N8
+
+
+def tile_column(cols: int, j, n):
+    """Offset in its group of output column n of n8 tile j: 2n + j with two
+    tiles (lane g's vertical operand is then columns 2g, 2g + 1 of one
+    row), n with one."""
+    return 2 * n + j if cols == 2 * N8 else n
+
+
+def vertical_band() -> np.ndarray:
+    """(16, 32) A operand of the vertical product: row m has ones at k =
+    m - 1 and m + 1, k 0..15 being the block's rows, 16 the row above and
+    17 the row below it."""
+    m = np.zeros((TILE_ROWS, DEPTH), np.float32)
+    for r in range(TILE_ROWS):
+        m[r, HALO_K[0] if r == 0 else r - 1] = 1.0
+        m[r, HALO_K[1] if r == TILE_ROWS - 1 else r + 1] = 1.0
     return m
 
 
-def calls_per_tile(C: int, rng_mode: str) -> int:
-    """tq, the generator calls per run of one CTA of csrc/mxu_sweep.cu: the
-    largest of 64, 32, 16 dividing G = C/S with S * tq <= 256 columns, else
-    8. The kernel's 16-wide fragments start at multiples of min(tq, 16)."""
-    S = sites_per_call(rng_mode)
-    G = C // S
-    for tq in (64, 32, 16):
-        if G % tq == 0 and S * tq <= MAX_COLS:
-            return tq
-    if G % 8 == 0:
-        return 8
-    raise ValueError(f"mxu_sweep: C = {C} leaves {G} calls per run, not a "
-                     "multiple of 8")
+def horizontal_band(cols: int, j: int, right: bool) -> np.ndarray:
+    """(32, 8) B operand of n8 tile j's horizontal product, k being window
+    column c0 - 4 + k: ones at the site's own column and at its left
+    (right) neighbour's."""
+    m = np.zeros((DEPTH, N8), np.float32)
+    for n in range(N8):
+        k = WINDOW_LEFT + tile_column(cols, j, n)
+        m[k, n] = 1.0
+        m[k + 1 if right else k - 1, n] = 1.0
+    return m
 
 
-def neighbour_counts(src, src_up, src_dn, *, color: int, window: int):
-    """(H, C) int32 neighbour counts n = (total + 4) >> 1, the sums taken as
-    the kernel takes them: +-1 spins, float32 band products on 16-row blocks
-    (vertical) and on 16-column windows starting every `window` columns
-    (horizontal, the first `window` outputs of each kept), edges patched
-    from the rows above / below and the columns left / right (periodic)."""
+def neighbour_counts(src, src_up, src_dn, *, color: int, cols: int):
+    """(H, C) int32 neighbour counts n, the sums taken as the kernel takes
+    them: the vertical band times 32 rows of k per 16-row block (its rows,
+    the rows above and below, zeros); per group of `cols` output columns a
+    window of 32 columns (periodic) times the left or right band of each n8
+    tile. Products in float32 on 0/1 spins: exact."""
     H, C = src.shape
-    pm = lambda b: 2.0 * b.to(torch.float32) - 1.0
-    s = pm(src)
+    s = src.to(torch.float32)
     dev = src.device
-    kv = torch.from_numpy(band(FRAG, 1) + band(FRAG, -1)).to(dev)
-    kl = torch.from_numpy(band(FRAG, 1)).to(dev)     # out[j] = in[j - 1]
-    kr = torch.from_numpy(band(FRAG, -1)).to(dev)    # out[j] = in[j + 1]
-    v = torch.matmul(kv, s.reshape(H // FRAG, FRAG, C)).reshape(H, C)
-    row = (torch.arange(H, device=dev) % FRAG)[:, None]
-    v = torch.where(row == 0, v + torch.cat([pm(src_up), s[:-1]]), v)
-    v = torch.where(row == FRAG - 1, v + torch.cat([s[1:], pm(src_dn)]), v)
-    cols = (torch.arange(0, C, window, device=dev)[:, None]
-            + torch.arange(FRAG, device=dev)) % C
-    win = s[:, cols]                                  # (H, C/window, 16)
-    left = torch.matmul(win, kl)[..., :window].reshape(H, C)
-    right = torch.matmul(win, kr)[..., :window].reshape(H, C)
-    lane = (torch.arange(C, device=dev) % window)[None, :]
-    left = torch.where(lane == 0, torch.roll(s, 1, dims=1), left)
-    right = torch.where(lane == FRAG - 1, torch.roll(s, -1, dims=1), right)
-    odd = (torch.arange(H, device=dev) % 2 == 1)[:, None]
-    off = torch.where(odd, right, left) if color == BLACK \
-        else torch.where(odd, left, right)
-    total = v + s + off
-    return (total.to(torch.int32) + 4) >> 1
+    nb = H // TILE_ROWS
+    above = torch.cat([src_up.to(torch.float32),
+                       s[TILE_ROWS - 1::TILE_ROWS][:-1]])
+    below = torch.cat([s[TILE_ROWS::TILE_ROWS], src_dn.to(torch.float32)])
+    rows = torch.cat([s.reshape(nb, TILE_ROWS, C), above[:, None],
+                      below[:, None],
+                      torch.zeros((nb, DEPTH - TILE_ROWS - 2, C), device=dev)],
+                     dim=1)
+    v = torch.matmul(torch.from_numpy(vertical_band()).to(dev), rows)
+    c0 = torch.arange(0, C, cols, device=dev)
+    win = s[:, (c0[:, None] - WINDOW_LEFT
+                + torch.arange(DEPTH, device=dev)) % C]   # (H, C/cols, 32)
+    right_row = (torch.arange(H, device=dev) % 2 == 1)[:, None]
+    if color != BLACK:
+        right_row = ~right_row
+    h = torch.empty((H, C), dtype=torch.float32, device=dev)
+    for j in range(cols // N8):
+        at = (c0[:, None] + tile_column(cols, j, torch.arange(N8, device=dev))
+              ).reshape(-1)
+        left, right = (torch.matmul(
+            win, torch.from_numpy(horizontal_band(cols, j, r)).to(dev)
+        ).reshape(H, -1) for r in (False, True))
+        h[:, at] = torch.where(right_row, right, left)
+    return (v.reshape(H, C) + h).to(torch.int32)
 
 
 def mxu_sweep_reference(dst, src, src_up, src_dn, thr10, row0, step, *,
@@ -101,7 +124,7 @@ def mxu_sweep_reference(dst, src, src_up, src_dn, thr10, row0, step, *,
     Inputs are not modified."""
     H, C = dst.shape
     n = neighbour_counts(src, src_up, src_dn, color=color,
-                         window=min(calls_per_tile(C, rng_mode), FRAG))
+                         cols=tile_columns(C, rng_mode))
     draws = site_draws(rng_mode, seed, H, C, step=step, color=color,
                        row0=row0, device=dst.device)
     return dst ^ (draws <= select_threshold(dst, n, thr10)).to(torch.uint8)
@@ -111,17 +134,18 @@ def mxu_sweep(dst, src, src_up, src_dn, thr10, row0, step, *, color: int,
               seed: int, rng_mode: str):
     """One color half-sweep of dst, in place; returns dst.
 
-    On CUDA tensors this launches csrc/mxu_sweep.cu (16-row tiles of whole
-    generator calls, neighbour sums on the tensor cores); a launch that
+    On CUDA tensors this launches csrc/mxu_sweep.cu (a warp a 16-row tile
+    of whole generator calls, neighbour sums on the tensor cores, the
+    draws and accept in the lane that holds them); a launch that
     fails raises. On CPU tensors it runs mxu_sweep_reference. Arguments as
     for mxu_sweep_reference; H must be a multiple of 16 and C of 128.
     Counts launches in mxu_sweep.launches.
     """
     H, C = check_plane_sweep("mxu_sweep", dst, src, src_up, src_dn, thr10,
                              color, rng_mode)
-    if H % FRAG or C % TILE:
-        raise ValueError(f"mxu_sweep: needs H % {FRAG} == 0 and C % {TILE} "
-                         f"== 0, got ({H}, {C})")
+    if H % TILE_ROWS or C % TILE:
+        raise ValueError(f"mxu_sweep: needs H % {TILE_ROWS} == 0 and C % "
+                         f"{TILE} == 0, got ({H}, {C})")
     device = dst.device
     if device.type == "cpu":
         dst.copy_(mxu_sweep_reference(
@@ -135,7 +159,7 @@ def mxu_sweep(dst, src, src_up, src_dn, thr10, row0, step, *, color: int,
     lib, _ = kernel_lib.load()
     code = lib.mxu_sweep_launch(
         dst.data_ptr(), src.data_ptr(), src_up.data_ptr(), src_dn.data_ptr(),
-        H, C, calls_per_tile(C, rng_mode), int(row0) & MASK, int(step) & MASK,
+        H, C, tile_columns(C, rng_mode), int(row0) & MASK, int(step) & MASK,
         tag, color, kernel_lib.table10(thr10), k0, k1, family, rounds,
         _cuda_stream(device))
     kernel_lib.check(lib, code, "mxu_sweep launch")

@@ -88,7 +88,7 @@ def test_trace_runs_packed_on_cpu(capsys):
 
 @pytest.mark.parametrize("backend,size,kernel", [
     ("dense", 64, "dense_sweep_kernel<1, 13>"),
-    ("mxu", 256, "mxu_sweep_kernel<0, 10>")])
+    ("mxu", 256, "mxu_sweep_kernel<0, 10, 2>")])
 def test_trace_runs_dense_and_mxu_on_cpu(backend, size, kernel, capsys):
     assert device_trace.main(["--size", str(size), "-w", "2", "-n", "4", "-p",
                               "2", "--rng", "philox", "--backend", backend,

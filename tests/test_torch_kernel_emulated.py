@@ -13,8 +13,10 @@ replica wraps; in the packed kernel ChaCha's pair of words, the 4-bit
 rotation at the row's ends, the J word and the replica edges, through the
 accept and draws of packed_word.cuh, which the fused step shares; in the
 dense kernel the per-call sites, the 10-entry select and the J planes)
-against their plain torch version before any card sees it. mxu_sweep.cu,
-cluster_label.cu and packed_fused.cu are left out (NOT_EMULATED).
+against their plain torch version before any card sees it. mxu_sweep.cu
+(warp-wide mma.sync: a lane's sums come from all 32 lanes' operands, so one
+thread at a time cannot run it), cluster_label.cu and packed_fused.cu are
+left out (NOT_EMULATED).
 The card itself checks the compiled kernels in chip_smoke.py.
 """
 
@@ -76,8 +78,9 @@ LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
 EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
                          "packed_sweep.cu": 1, "dense_sweep.cu": 2}
 # Sources that one thread at a time cannot run: mxu_sweep.cu's warp-wide
-# wmma products and its __syncthreads between the staging, the products and
-# the accept; cluster_label.cu's block-wide barriers between its phases (a
+# mma.sync products (each lane's accumulators take operands from all 32
+# lanes; tests/test_torch_mxu.py models its fragments instead);
+# cluster_label.cu's block-wide barriers between its phases (a
 # thread's union-find reads what the others wrote before the barrier), its
 # warp votes, its shared-memory atomics and its device-memory
 # compare-and-swap between threads; packed_fused.cu's rings of rows
