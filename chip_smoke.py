@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/H100 port (ising_tpu_torch) on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against OLD_TREE]
 
 Phases, each printed as it ends:
 
@@ -108,6 +108,10 @@ Phases, each printed as it ends:
                update (bonds, coins and flip, the ghost), and at 4096^2 the
                labeling by tile.
 
+With --against OLD_TREE (another checkout of the repository, such as its
+parent commit's), it then runs the dense CLI at 16384^2 in threefry13 from
+OLD_TREE and from this tree in turns (cli_turns.py: old, new, new, old).
+
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
 result line. Without a CUDA device, or outside the repository, it fails
@@ -133,8 +137,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ising_tpu_torch import SimConfig, cli, cluster, device_trace, golden
-from ising_tpu_torch import observables
+from ising_tpu_torch import (SimConfig, cli, cli_turns, cluster, device_trace,
+                             golden)
+from ising_tpu_torch import observables, sass
 from ising_tpu_torch.constants import TCRIT
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
@@ -486,63 +491,40 @@ INT8_OPS_PER_S = 1979e12    # H100 SXM tensor cores, int8, dense
 MXU_KERNELS = 10
 
 
-# SASS opcodes by the pipe that executes them (Volta to Hopper SMs).
-ALU_OPS = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "P2R",
-           "R2P", "PLOP3", "IABS", "IMNMX", "FSEL", "FSETP", "MOV", "FLO",
-           "POPC", "BMSK", "SGXT"}
-FMA_OPS = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "IDP"}
-
-
-def pipe_of(opcode: str) -> str:
-    base = opcode.split(".")[0]
-    if base in ("HMMA", "HGMMA", "IMMA", "IGMMA"):
-        return "tensor"
-    if base in ALU_OPS:
-        return "alu"
-    if base in FMA_OPS:
-        return "fma"
-    if base.startswith("U") or base in ("S2UR", "R2UR"):
-        return "uniform"
-    if base[:2] in ("LD", "ST") or base in ("RED", "ATOM", "ATOMG"):
-        return "memory"
-    return "control/other"
-
-
 def sass_mix(lib_path: str):
-    """{(kernel, template arguments): Counter(pipe -> SASS instructions)}
-    of each kernel instantiation, from cuobjdump: for bit1_sweep (family,
-    rounds, greedy), for bit1_planes (family, rounds, kbits, accept), for
-    packed_sweep (family, rounds, accept), for packed_fused (family,
-    rounds, accept, cp.async), for dense_sweep (family, rounds, sites per
-    word), for mxu_sweep (family, rounds, n8 tiles a run); "tensor"
-    counts HMMA and IMMA.
-    The sweep kernels are fully unrolled and branch-free apart from their
-    edge and path selects, so this is close to the instructions one thread
-    (one word; a pair of words in the packed ChaCha kernel; an mxu lane's
-    warp tile) issues; the fused
-    kernel's count is static, its loop bodies (a black and a white word's
-    update, the row copies) once each. None without cuobjdump."""
+    """({(kernel, template arguments): Counter(pipe -> SASS instructions)},
+    the same for each kernel's main loop) of each kernel instantiation, from
+    cuobjdump (pipes and loops as ising_tpu_torch/sass.py reads them): for
+    bit1_sweep (family, rounds, greedy), for bit1_planes (family, rounds,
+    kbits, accept), for packed_sweep (family, rounds, accept), for
+    packed_fused (family, rounds, accept, cp.async), for dense_sweep
+    (family, rounds, sites per word, J planes), for mxu_sweep (family,
+    rounds, n8 tiles a run); "tensor" counts HMMA and IMMA.
+    The bit1, packed and mxu sweeps are fully unrolled and branch-free apart
+    from their edge and path selects, so the whole function is close to
+    the instructions one thread (one word; a pair of words in the packed
+    ChaCha kernel; an mxu lane's warp tile) issues; the fused kernel's count
+    is static, its loop bodies (a black and a white word's update, the row
+    copies) once each. dense_sweep's main loop is the pair of rows a thread
+    walks (2 S V sites). None without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(kernel_lib.find_nvcc()).parent / "cuobjdump")
     try:
-        sass = run([tool, "-sass", lib_path], timeout=120)
+        listing = run([tool, "-sass", lib_path], timeout=120)
     except (OSError, subprocess.SubprocessError):
-        return None
-    mix, key = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : \S*(bit1_\w+?|packed_sweep|packed_fused|"
-                      r"dense_sweep|mxu_sweep)_kernelI"
-                      r"((?:L[ib]\d+E)+)", line)
-        if m:
-            key = (m[1], tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2])))
-            mix[key] = collections.Counter()
-        elif "Function :" in line:
-            key = None
-        elif key:
-            op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-            if op and op[1] != "NOP":
-                mix[key][pipe_of(op[1])] += 1
-    return mix
+        return None, None
+    mix, loops = {}, {}
+    for name, instrs in sass.functions(listing).items():
+        m = re.search(r"(bit1_\w+?|packed_sweep|packed_fused|dense_sweep|"
+                      r"mxu_sweep)_kernelI((?:L[ib]\d+E)+)", name)
+        if not m:
+            continue
+        key = (m[1], tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2])))
+        lo_hi = sass.main_loop(instrs)
+        mix[key] = sass.mix(instrs, [])["all"]
+        loops[key] = sass.mix([i for i in instrs if lo_hi
+                               and lo_hi[0] <= i[0] <= lo_hi[1]], [])["all"]
+    return mix, loops
 
 
 def stack_frames(ptxas_lines):
@@ -574,7 +556,7 @@ def phase_build():
             "ptxas reports a stack frame in "
             f"{[k for k, v in frames.items() if v]}")
     say(f"[build] no stack frame in any of the {len(frames)} kernels")
-    mix = sass_mix(info.path)
+    mix, loops = sass_mix(info.path)
     for key, pipes in sorted((mix or {}).items()):
         say(f"[build] SASS {key[0]}{list(key[1])}: "
             f"{sum(pipes.values())} instructions, {dict(pipes)}")
@@ -587,7 +569,7 @@ def phase_build():
     say(f"[build] tensor-core instructions (IMMA) in all {len(mxu_keys)} "
         "mxu_sweep kernels: "
         + ", ".join(f"{list(k[1])} {mix[k]['tensor']}" for k in mxu_keys))
-    return info, mix
+    return info, mix, loops
 
 
 def random_bits(gen, shape, device):
@@ -1269,15 +1251,16 @@ def plane_timing_cases():
             + [("mxu", m, 0.0, None) for m in PLANE_MODES])
 
 
-def phase_timing_planes(card, mix, bit1_timing):
+def phase_timing_planes(card, mix, loops, bit1_timing):
     """dense_sweep and mxu_sweep per color phase at 16384^2 and 8192^2, T =
     1.5 (h = 0.3 where a field is timed), on random bit planes: kernel
     against plain (bit for bit, both colors), then the kernel's and the
     plain version's times, the bound (bytes, integer operations and, for
     mxu, the tensor-core products at the int8 rate) and the compiled
-    code's pipe mix per thread with its ALU- and FMA-pipe time (per site:
-    a dense thread's V calls, an mxu lane's calls of one warp tile), beside
-    bit1's time in the same mode at 16384^2. Returns
+    code's ALU and FMA instructions a site with their pipes' time (dense:
+    its main loop over the 2 S V sites of a pair of rows; mxu: an mxu lane's
+    calls of one warp tile), beside bit1's time in the same mode at
+    16384^2. Returns
     ({(kernel, mode, field, path, shape): timing}, cases, max abs err)."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(9)
@@ -1316,20 +1299,27 @@ def phase_timing_planes(card, mix, bit1_timing):
             family, rounds = parse_rng_mode(mode)
             if family == "hw":
                 family, rounds = "philox", 10
-            # a dense thread serves V calls (V = 4 where the row's calls come
-            # in fours), S * V sites; an mxu lane 2 * cols/4 calls of each
-            # warp tile, S sites each, in one unrolled pass of its loop (the
-            # static count adds its constant operands once)
+            # a dense thread serves V calls a row (V = 4 where the row's
+            # calls come in fours), S * V sites, and its main loop two rows;
+            # an mxu lane 2 * cols/4 calls of each warp tile, S sites each,
+            # in one unrolled pass of its loop (the static count adds its
+            # constant operands once)
             per = dense.SITES_PER_CALL[family]
             V = 4 if (C // per) % 4 == 0 else 1
-            if kernel == "mxu":
+            if kernel == "dense":
+                targs = (bit1._FAMILY_CODE[family], rounds, V, int(bool(path)))
+                pipes = dict((loops or {}).get(("dense_sweep", targs), {}))
+                per_thread = 2 * per * V
+            else:
                 V = 2 * mxu.tile_columns(C, mode) // 4
-            targs = (bit1._FAMILY_CODE[family], rounds) + (
-                (V,) if kernel == "dense"
-                else (mxu.tile_columns(C, mode) // mxu.N8,))
-            pipes = dict((mix or {}).get((f"{kernel}_sweep", targs), {}))
-            pipe_ms = {p: pipes[p] * sites / (per * V) / pipe_rate * 1e3
-                       for p in ("alu", "fma") if p in pipes}
+                targs = (bit1._FAMILY_CODE[family], rounds,
+                         mxu.tile_columns(C, mode) // mxu.N8)
+                pipes = dict((mix or {}).get(("mxu_sweep", targs), {}))
+                per_thread = per * V
+            per_site = {p: pipes[p] / per_thread for p in ("alu", "fma")
+                        if p in pipes}
+            pipe_ms = {p: n * sites / pipe_rate * 1e3
+                       for p, n in per_site.items()}
             bit1_ms = (bit1_timing.get((mode, 0.0, None), {}).get("ms")
                        if shape == MAIN_SHAPE and not field and not path
                        else None)
@@ -1339,7 +1329,8 @@ def phase_timing_planes(card, mix, bit1_timing):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes_ms": bytes_ms, "ops_per_site": ops, "ops_ms": ops_ms,
                 "mma_ms": mma_ms, "sass_per_thread": pipes,
-                "pipe_ms": pipe_ms, "bit1_ms": bit1_ms}
+                "sass_per_site": per_site, "pipe_ms": pipe_ms,
+                "bit1_ms": bit1_ms}
             say(f"[timing] {shape}^2 {what}, one color phase: kernel "
                 f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
                 f"launches (range {runs[0]:.4f}-{runs[-1]:.4f}; "
@@ -1353,7 +1344,11 @@ def phase_timing_planes(card, mix, bit1_timing):
                 + f"), {bound_ms / ms:.1%} of bound; "
                 + (f"bit1 {bit1_ms:.4f} ms ({ms / bit1_ms:.2f}x); "
                    if bit1_ms else "")
-                + f"compiled code per thread {pipes}"
+                + ("compiled code per pass of the row pair"
+                   if kernel == "dense" else "compiled code per thread")
+                + f" {pipes}; "
+                + ", ".join(f"{p.upper()} {n:.2f}" for p, n in per_site.items())
+                + " instructions a site"
                 + "".join(f", {p} {t:.4f} ms" for p, t in pipe_ms.items())
                 + f", on {card['smi']}")
         del planes, jplanes
@@ -2131,11 +2126,29 @@ def label_entries(sw_main, timing, cases, max_abs_err, info):
     return entries
 
 
+TURNS_ARGS = ["--backend", "dense", "--rng", "threefry13", "-x",
+              str(MAIN_SHAPE), "-y", str(MAIN_SHAPE), "-w", "8", "-n", "64",
+              "-p", "16"]
+
+
+def phase_turns(old_tree: str):
+    """The dense CLI from old_tree and from this tree in turns, one process
+    a run; the second runs compare (a first run pays its tree's build)."""
+    runs = [[tree, cli_turns.run_cli(tree, TURNS_ARGS)]
+            for tree in (old_tree, ".", ".", old_tree)]
+    say(f"[turns] dense threefry13 {MAIN_SHAPE}^2, flips/ns: "
+        + ", ".join(f"{t} {r:.2f}" for t, r in runs)
+        + f"; second runs {runs[2][1] / runs[3][1]:.3f}x the old tree's")
+    say(json.dumps({"runs": runs}))
+
+
 def _on_alarm(signum, frame):
     raise Failed(f"time budget of {BUDGET_S} s exceeded")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    against = argv[argv.index("--against") + 1] if "--against" in argv else None
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(BUDGET_S)
     # Hard stop even if the main thread is stuck inside a CUDA call.
@@ -2143,7 +2156,7 @@ def main() -> int:
     try:
         card = phase_device()
         dev = torch.device("cuda")
-        info, mix = phase_build()
+        info, mix, loops = phase_build()
         say(f"[time] {elapsed():.1f} s")
         cases, max_err = phase_compare(dev)
         geo_cases, geo_err = phase_compare_geometry(dev)
@@ -2189,7 +2202,8 @@ def main() -> int:
         p_cases, p_err = p_cases + full_cases, max(p_err, full_err)
         f_timing, full_cases, full_err = phase_timing_fused(card, mix)
         f_cases, f_err = f_cases + full_cases, max(f_err, full_err)
-        pl_timing, pl_cases, pl_err = phase_timing_planes(card, mix, timing)
+        pl_timing, pl_cases, pl_err = phase_timing_planes(card, mix, loops,
+                                                          timing)
         d_cases += sum(1 for k in pl_timing if k[0] == "dense") * 2
         m_cases += sum(1 for k in pl_timing if k[0] == "mxu") * 2
         d_err, m_err = max(d_err, pl_err), max(m_err, pl_err)
@@ -2201,6 +2215,9 @@ def main() -> int:
             SW_SHAPE: sw_main["full lattice"]["full"],
             SW_SCALE_SHAPE: sw_main["scale"]["full"]})
         say(f"[time] {elapsed():.1f} s")
+        if against:
+            phase_turns(against)
+            say(f"[time] {elapsed():.1f} s")
     except Failed as e:
         say(f"FAILED: {e}")
         return 1

@@ -113,8 +113,9 @@ def dense_sweep(dst, src, src_up, src_dn, thr10, row0, step, jplanes=None,
                 *, color: int, seed: int, rng_mode: str):
     """One color half-sweep of dst, in place; returns dst.
 
-    On CUDA tensors this launches csrc/dense_sweep.cu (one thread per one
-    or four generator calls of a row); a launch that fails raises. On CPU tensors it runs
+    On CUDA tensors this launches csrc/dense_sweep.cu (a thread takes one
+    or four generator calls of each row of a band of rows); a launch that
+    fails raises. On CPU tensors it runs
     dense_sweep_reference. Arguments as for dense_sweep_reference. Counts
     launches in dense_sweep.launches.
     """

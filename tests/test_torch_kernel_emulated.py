@@ -12,8 +12,11 @@ quenched-disorder links as J planes and as the split link store, the
 replica wraps; in the packed kernel ChaCha's pair of words, the 4-bit
 rotation at the row's ends, the J word and the replica edges, through the
 accept and draws of packed_word.cuh, which the fused step shares; in the
-dense kernel the per-call sites, the 10-entry select and the J planes)
-against their plain torch version before any card sees it. mxu_sweep.cu
+dense kernel the per-call sites, the row walk down a band with its
+three-row window (heights that cross and do not divide the band, the lone
+first and last rows, the slab's edge rows), the accept through one byte
+offset into the 64-word shared table, and the J planes) against their
+plain torch version before any card sees it. mxu_sweep.cu
 (warp-wide mma.sync: a lane's sums come from all 32 lanes' operands, so one
 thread at a time cannot run it), cluster_label.cu and packed_fused.cu are
 left out (NOT_EMULATED).
@@ -43,7 +46,7 @@ CUDA_SHIM = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 inline void __syncthreads() {}
 struct uint4 { uint32_t x, y, z, w; };
@@ -53,6 +56,12 @@ inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
   s &= 31; uint64_t v = ((uint64_t)hi << 32) | lo; return (uint32_t)((v << s) >> 32); }
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
+  s &= 31; uint64_t v = ((uint64_t)hi << 32) | lo; return (uint32_t)(v >> s); }
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  uint64_t v = ((uint64_t)y << 32) | x; uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= (uint32_t)(v >> (8 * ((s >> (4 * i)) & 7)) & 0xFF) << (8 * i);
+  return r; }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
@@ -76,7 +85,7 @@ void emulate_launch(dim3 grid, dim3 block, F f, A... a) {
 # kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
 EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
-                         "packed_sweep.cu": 1, "dense_sweep.cu": 2}
+                         "packed_sweep.cu": 1, "dense_sweep.cu": 1}
 # Sources that one thread at a time cannot run: mxu_sweep.cu's warp-wide
 # mma.sync products (each lane's accumulators take operands from all 32
 # lanes; tests/test_torch_mxu.py models its fragments instead);
@@ -417,14 +426,30 @@ def _bits(gen, shape):
 # from src_up / src_dn), C = 16 (one ChaCha call per row), C = 20 and 36
 # (not multiples of 16: Philox and Threefry only), C = 48 (three ChaCha
 # calls), a wide row; J planes. The kernel takes four sites per word where
-# G = C/S is a multiple of 4 (Philox at C = 16, 48, 1056; Threefry at 48,
+# G = C/S is a multiple of 4 (Philox at C = 16, 48, 64, 1056; Threefry at 48,
 # 64, 1056; ChaCha at 64 and 128) and one elsewhere (C = 36: Philox and
-# Threefry, C = 1056: ChaCha).
+# Threefry, C = 1056: ChaCha). A thread walks a band of rows (dense_band):
+# heights 1, 7 (odd), a band and one row and two bands and three rows of
+# each band height, on both paths at C = 36 (one site a word) and C = 64
+# (four in every family); color 1 shifts the bands by a row.
+def dense_band(family: str) -> int:
+    """The rows a dense thread walks (csrc/dense_sweep.cu: band_rows)."""
+    src = (kernel_lib.CSRC_DIR / "dense_sweep.cu").read_text()
+    chacha, other = re.search(
+        r"band_rows\(int family\) \{\s*return family == FAMILY_CHACHA \? "
+        r"(\d+) : (\d+);", src).groups()
+    return int(chacha) if family == "chacha" else int(other)
+
+
+DENSE_BANDS = sorted({dense_band(f) for f in ("philox", "chacha")})
 DENSE_GEOMETRIES = [
     ("ordered", (1, 16)), ("ordered", (2, 20)), ("ordered", (6, 48)),
     ("ordered", (4, 36)), ("ordered", (3, 1056)), ("ordered", (3, 64)),
     ("jplanes", (5, 32)), ("jplanes", (2, 1056)), ("jplanes", (2, 128)),
     ("jplanes", (3, 36)),
+    *((path, (H, C)) for path in ("ordered", "jplanes") for C in (36, 64)
+      for H in sorted({1, 7} | {h for b in DENSE_BANDS
+                                for h in (b + 1, 2 * b + 3)})),
 ]
 
 
@@ -469,6 +494,7 @@ def test_dense_kernel_source_matches_plain_version(geometry, emulated_lib,
 
 def test_dense_geometries_cover_the_edges():
     shapes = [g[1] for g in DENSE_GEOMETRIES]
+    assert len(set(DENSE_GEOMETRIES)) == len(DENSE_GEOMETRIES)
     assert any(h == 1 for h, _ in shapes)
     assert {c % 16 == 0 for _, c in shapes} == {True, False}
     assert any(c == 16 for _, c in shapes)
@@ -480,6 +506,64 @@ def test_dense_geometries_cover_the_edges():
             gs = {(c // S) % 4 == 0 for p, (_, c) in DENSE_GEOMETRIES
                   if p == path and c % S == 0}
             assert gs == {True, False}
+    # heights that cross each family's band and do not divide it, on both
+    # paths, at a one-site and a four-site width
+    for family, S in dense.SITES_PER_CALL.items():
+        band = dense_band(family)
+        assert band % 2 == 0
+        for path in ("ordered", "jplanes"):
+            for C, four in ((36, False), (64, True)):
+                if C % S:
+                    continue
+                assert (C // S % 4 == 0) == four
+                heights = {h for p, (h, c) in DENSE_GEOMETRIES
+                           if p == path and c == C}
+                assert {1, band + 1, 2 * band + 3} <= heights
+                assert any(h % 2 and h % band and h > band for h in heights)
+
+
+def _kernel_constant(name: str) -> int:
+    src = (kernel_lib.CSRC_DIR / "dense_sweep.cu").read_text()
+    return int(re.search(rf"constexpr \w+ {name} = (\d+);", src)[1])
+
+
+@pytest.mark.parametrize("temp,field", [(1.5, 0.0), (0.0, 0.0), (1.5, 0.3)])
+def test_dense_byte_offsets_read_the_jax_select(temp, field):
+    """A plain model of csrc/dense_sweep.cu's accept: the shared table's
+    TABLE_WORDS words hold thr10 from word BIAS/4 on and 0 elsewhere; a
+    site's byte offset is BIAS + 20*dst + 4*nsum (summed bytewise over a
+    word's four sites). At every word offset 4k a byte can address, the
+    table gives pallas_dense.py's select of thr10 at index k - BIAS/4
+    (:198-200: an index outside 0..9 selects 0), and every bit-plane site
+    reads thr10[dst*5 + nsum] at an offset whose bit 7 is dst."""
+    bias, words = _kernel_constant("BIAS"), _kernel_constant("TABLE_WORDS")
+    assert bias % 4 == 0 and words == 64
+    thr = [int(t) for t in ising.threshold_table(temp, field)]
+    table = [thr[k - bias // 4] if 0 <= k - bias // 4 < 10 else 0
+             for k in range(words)]
+
+    def jax_select(idx):
+        return thr[idx] if 0 <= idx < 10 else 0
+
+    for k in range(words):        # every word offset 4k: no range check
+        assert table[k] == jax_select(k - bias // 4)
+    assert 4 * words == 256       # a byte offset always lands in the table
+    for dst in (0, 1):
+        for nsum in range(5):
+            off = bias + 20 * dst + 4 * nsum
+            assert off % 4 == 0 and off < 256
+            assert off >> 7 == dst
+            assert table[off // 4] == jax_select(dst * 5 + nsum)
+    # four sites summed bytewise carry into no neighbouring byte
+    gen = np.random.default_rng(5)
+    for _ in range(200):
+        dst, n = gen.integers(0, 2, 4), gen.integers(0, 5, 4)
+        word = sum((bias + 20 * int(d) + 4 * int(m)) << (8 * v)
+                   for v, (d, m) in enumerate(zip(dst, n)))
+        for v in range(4):
+            b = word >> (8 * v) & 0xFF
+            assert table[b // 4] == jax_select(int(dst[v]) * 5 + int(n[v]))
+            assert b >> 7 == dst[v]
 
 
 @pytest.mark.parametrize("args,ok", [
