@@ -19,9 +19,11 @@ Phases, each printed as it ends:
                replicas with J planes), in every mode and accept; then
                packed_sweep the same way on random words (bit 31 set in
                half of them), at the 16384 width and at 1056 (W = 66, not
-               a multiple of 32), in the u32 modes and hw, at T > 0, T = 0
-               and with the full field table (h = 0.3, not hw), on the
-               ordered, J-word, replica and replica + J paths; then the
+               a multiple of 32), at heights that cross its bands (13, 21
+               and 48 rows, 48 also in replicas of 6 and 12 rows) and a
+               lone row, in the u32 modes and hw, at T > 0, T = 0 and with
+               the full field table (h = 0.3, not hw), on the ordered,
+               J-word, replica and replica + J paths; then the
                fused step, packed_fused_step and packed_fused_step_manual,
                against the plain fused step and two packed_sweep launches,
                both planes, at the 16384 width (384 rows) and at 1056
@@ -94,10 +96,12 @@ Phases, each printed as it ends:
                mix; then packed_sweep in every u32 mode and hw, with the
                field in philox, and on the J-word, replica and replica + J
                paths in threefry13, philox and chacha8, beside bit1's time
-               in the same mode and path; then both fused kernels per step
-               in every u32 mode and hw, at their default band and at 64
-               rows, beside two packed_sweep launches a step, the plain
-               step and the bound; then dense_sweep (ordered, with
+               in the same mode and path and its ALU and FMA instructions a
+               word; then both fused kernels per step in every u32 mode and
+               hw, at their default band and at 64 rows, beside two
+               packed_sweep launches a step, the plain step, the bound and
+               their ALU and FMA instructions a word; then dense_sweep
+               (ordered, with
                J planes, with the field in philox) and mxu_sweep in every
                u32 mode and hw at 16384^2 and 8192^2 the same way; then
                at 4096^2 and 16384^2, on bonds drawn at Tc from the main
@@ -109,8 +113,12 @@ Phases, each printed as it ends:
                labeling by tile.
 
 With --against OLD_TREE (another checkout of the repository, such as its
-parent commit's), it then runs the dense CLI at 16384^2 in threefry13 from
-OLD_TREE and from this tree in turns (cli_turns.py: old, new, new, old).
+parent commit's), it then times packed_sweep (phase 6's cases) and both
+fused kernels (the four main modes) at 16384^2 from OLD_TREE's kernel
+library and from this tree's, in turns (old, new, new, old) on the same
+words, their results equal; and runs the CLI at 16384^2 in threefry13 from
+OLD_TREE and from this tree in turns (cli_turns.py: old, new, new, old):
+dense, packed, and packed under ISING_TPU_FUSED=1.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -122,6 +130,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import faulthandler
 import json
 import math
@@ -146,6 +155,7 @@ from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
 from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
 
 BUDGET_S = 600          # the whole script, build included
+AGAINST_S = 600         # more for --against: the old tree's build and runs
 MAIN_SHAPE = 16384      # bench.py's flagship lattice, 16384^2
 MAIN_WARMUP, MAIN_ITERS = 8, 64
 MAIN_REPEATS = 3        # CLI runs per mode: median and range
@@ -198,7 +208,13 @@ PACKED_MAIN_PATHS = (("jword", J_FLAGS, "threefry13", 3, -1.2),
                      ("replicas", REPLICA_FLAGS, "threefry13", 3, -1.5),
                      ("replicas+jword", REPLICA_FLAGS + J_FLAGS, "threefry13",
                       1, -1.2))
+# (Y, X, row0): the 16384 width, W = 66 at counters that carry and rows that
+# wrap mod 2^32, heights that cross the kernel's bands and do not divide
+# them (13, 21 rows), a lone row (both edge rows from src_up and src_dn),
+# and 48 rows, whose replicas of 6 and 12 rows the bands do not divide
 PACKED_COMPARE_SHAPES = ((512, 16384, 0), (64, 1056, (1 << 25) - 32),
+                         (48, 1056, (1 << 32) - 20), (13, 1056, (1 << 32) - 6),
+                         (21, 16384, 3), (1, 1056, 7),
                          (64, 1056, (1 << 32) - 32))
 PACKED_PATHS = ("jword", "replicas", "replicas+jword")
 PACKED_TIMED_FIELD_MODES = ("philox",)
@@ -496,17 +512,18 @@ def sass_mix(lib_path: str):
     the same for each kernel's main loop) of each kernel instantiation, from
     cuobjdump (pipes and loops as ising_tpu_torch/sass.py reads them): for
     bit1_sweep (family, rounds, greedy), for bit1_planes (family, rounds,
-    kbits, accept), for packed_sweep (family, rounds, accept), for
+    kbits, accept), for packed_sweep (family, rounds, accept, J word,
+    replica rows), for
     packed_fused (family, rounds, accept, cp.async), for dense_sweep
     (family, rounds, sites per word, J planes), for mxu_sweep (family,
     rounds, n8 tiles a run); "tensor" counts HMMA and IMMA.
-    The bit1, packed and mxu sweeps are fully unrolled and branch-free apart
-    from their edge and path selects, so the whole function is close to
-    the instructions one thread (one word; a pair of words in the packed
-    ChaCha kernel; an mxu lane's warp tile) issues; the fused kernel's count
-    is static, its loop bodies (a black and a white word's update, the row
-    copies) once each. dense_sweep's main loop is the pair of rows a thread
-    walks (2 S V sites). None without cuobjdump."""
+    The bit1 and mxu sweeps are fully unrolled and branch-free apart from
+    their edge and path selects, so the whole function is close to the
+    instructions one thread (one word; an mxu lane's warp tile) issues.
+    The main loop of dense_sweep and packed_sweep is the pair of rows a
+    thread walks (2 S V sites; 2 words, 4 in the packed ChaCha kernel), of
+    packed_fused one word's update (a pair of words in ChaCha). None
+    without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(kernel_lib.find_nvcc()).parent / "cuobjdump")
     try:
@@ -678,11 +695,15 @@ def phase_compare_geometry(dev):
 
 def packed_geometry_cases(H: int, W: int):
     """(path, csl, ysl) of the packed kernel's cases at (H, W): ordered, the
-    J word, and the replica edges csl == 1, csl == W, ysl == 8, ysl == H,
-    alone and with the J word."""
+    J word, and the replica edges csl == 1, csl == W, ysl == 8, ysl == H
+    and replicas of 6 and 12 rows where they divide H, alone and with the J
+    word."""
     return [(None, None, None), ("jword", None, None), ("replicas", 1, 8),
             ("replicas", W, H), ("replicas+jword", W, 8),
-            ("replicas+jword", 1, H)]
+            ("replicas+jword", 1, H)] + [
+        (path, csl, ysl) for path, csl, ysl in (
+            ("replicas", 2, 6), ("replicas+jword", W // 2, 12))
+        if H % ysl == 0 and W % csl == 0]
 
 
 def packed_accepts(mode: str):
@@ -702,13 +723,13 @@ def phase_compare_packed(dev):
     """packed_sweep against its plain version on the same CUDA tensors, at
     every shape, mode and accept, both colors: the ordered path over
     COMPARE_STEPS steps at every shape, the J-word and replica paths at the
-    first two. Random words: every bit, bit 31 included, so the 4-bit
+    first three. Random words: every bit, bit 31 included, so the 4-bit
     rotation at the row's ends moves set bits. Returns (cases, max err)."""
     gen = np.random.default_rng(2026)
     cases, max_err = 0, 0
     for si, (Y, X, row0) in enumerate(PACKED_COMPARE_SHAPES):
         H, W = Y, X // 16
-        geos = packed_geometry_cases(H, W) if si < 2 else [(None,) * 3]
+        geos = packed_geometry_cases(H, W) if si < 3 else [(None,) * 3]
         for path, csl, ysl in geos:
             for mode in PACKED_MODES:
                 for temp, field in packed_accepts(mode):
@@ -1169,12 +1190,14 @@ def packed_timing_cases():
                for mode in PACKED_TIMED_PATH_MODES])
 
 
-def phase_timing_packed(card, mix, bit1_timing):
+def phase_timing_packed(card, loops, bit1_timing):
     """packed_sweep per color phase at 16384^2 (W = 1024), T = 1.5, on
     random words: kernel against plain (bit for bit, both colors), then the
-    kernel's and the plain version's times, the bound, and bit1's time in
-    the same mode and path (bit1_timing; None where phase 6 did not time
-    it). Returns ({(mode, field, path): timing}, cases, max abs err)."""
+    kernel's and the plain version's times, the bound, bit1's time in the
+    same mode and path (bit1_timing; None where phase 6 did not time it),
+    and the ALU and FMA instructions a word in the kernel's main loop (a
+    pair of rows of a thread's words: 2 words, 4 in ChaCha). Returns
+    ({(mode, field, path): timing}, cases, max abs err)."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(8)
     H, W = MAIN_SHAPE, MAIN_SHAPE // 16
@@ -1210,20 +1233,22 @@ def phase_timing_packed(card, mix, bit1_timing):
         family, rounds = parse_rng_mode(mode)
         if family == "hw":
             family, rounds = "philox", 10
-        pipes = dict((mix or {}).get(
-            ("packed_sweep", (bit1._FAMILY_CODE[family], rounds, accept)), {}))
-        # the ChaCha kernel's thread updates two words
-        per = 2 if family == "chacha" else 1
-        pipe_ms = {p: pipes[p] * words / per / pipe_rate * 1e3
-                   for p in ("alu", "fma") if p in pipes}
+        pipes = dict((loops or {}).get(("packed_sweep", (
+            bit1._FAMILY_CODE[family], rounds, accept,
+            int(path is not None and "jword" in path),
+            int(path is not None and "replicas" in path))), {}))
+        # a pass of the loop: two rows of the thread's words (two in ChaCha)
+        per = 2 * (2 if family == "chacha" else 1)
+        per_word = {p: pipes[p] / per for p in ("alu", "fma") if p in pipes}
+        pipe_ms = {p: n * words / pipe_rate * 1e3 for p, n in per_word.items()}
         bit1_ms = None if field else bit1_timing.get(
             (mode, 0.0, BIT1_PATH_OF[path]), {}).get("ms")
         ordered = out.get((mode, 0.0, None), {}).get("ms")
         out[(mode, field, path)] = {
             "ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": bytes_ms,
-            "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_thread": pipes,
-            "pipe_ms": pipe_ms, "bit1_ms": bit1_ms}
+            "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_pass": pipes,
+            "sass_per_word": per_word, "pipe_ms": pipe_ms, "bit1_ms": bit1_ms}
         say(f"[timing] {MAIN_SHAPE}^2 {what}, one color phase: kernel "
             f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
             f"launches (range {runs[0]:.4f}-{runs[-1]:.4f}; "
@@ -1234,8 +1259,10 @@ def phase_timing_packed(card, mix, bit1_timing):
             f"{bound_by} (bytes {bytes_ms:.4f} ms; {ops:.1f} integer "
             f"ops/word -> {ops_ms:.4f} ms), {bound_ms / ms:.1%} of bound; "
             + (f"bit1 {bit1_ms:.4f} ms; " if bit1_ms else "")
-            + f"compiled code per thread {pipes}, "
-            + ", ".join(f"{p} {t:.4f} ms" for p, t in pipe_ms.items())
+            + f"compiled code per pass of the row pair {pipes}; "
+            + ", ".join(f"{p.upper()} {n:.2f}" for p, n in per_word.items())
+            + " instructions a word"
+            + "".join(f", {p} {t:.4f} ms" for p, t in pipe_ms.items())
             + f", on {card['smi']}")
     return out, cases, max_err
 
@@ -1548,14 +1575,15 @@ def median_ms(fn, n=TIMED_LAUNCHES):
     return runs[len(runs) // 2], runs
 
 
-def phase_timing_fused(card, mix):
+def phase_timing_fused(card, loops):
     """Per step at 16384^2 (W = 1024), T = 1.5, on random words, in every
     u32 mode and hw: both fused kernels against the plain step (both
     planes, bit for bit), then each timed at its default band and at
     FUSED_TIMED_BAND rows, beside two packed_sweep launches a step in the
     same mode, the plain step, the bound (4 planes; twice a half-sweep's
-    operations) and the pipe mix of the compiled kernel. Returns ({mode:
-    {variable: timing}}, cases, max abs err)."""
+    operations) and the ALU and FMA instructions a word in the compiled
+    kernel's main loop (one word's update, a ChaCha pair's in ChaCha).
+    Returns ({mode: {variable: timing}}, cases, max abs err)."""
     dev = torch.device("cuda")
     gen = np.random.default_rng(10)
     H, W = MAIN_SHAPE, MAIN_SHAPE // 16
@@ -1595,16 +1623,19 @@ def phase_timing_fused(card, mix):
                 for band in (None, FUSED_TIMED_BAND)}
             (ms, runs), (other_ms, _) = timed[None], timed[FUSED_TIMED_BAND]
             band = packed.fused_band_rows(H, W, mode, manual=var == "2")
-            pipes = dict((mix or {}).get(("packed_fused", (
+            pipes = dict((loops or {}).get(("packed_fused", (
                 bit1._FAMILY_CODE[family], rounds, packed.ACCEPT_METROPOLIS,
                 int(var == "2"))), {}))
+            per_word = {p: pipes[p] / (2 if family == "chacha" else 1)
+                        for p in ("alu", "fma") if p in pipes}
             out[mode][var] = {
                 "ms": ms, "ms_runs": runs, "band_rows": band,
                 "other_band_rows": FUSED_TIMED_BAND, "other_band_ms": other_ms,
                 "two_sweeps_ms": two_ms, "two_sweeps_runs": two_runs,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "bytes_ms": bytes_ms,
-                "ops_per_word": ops, "ops_ms": ops_ms, "sass_static": pipes}
+                "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_pass": pipes,
+                "sass_per_word": per_word}
             say(f"[timing] {MAIN_SHAPE}^2 {fn.__name__} {mode}, one step: "
                 f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
                 f"(range {runs[0]:.4f}-{runs[-1]:.4f}; "
@@ -1615,7 +1646,9 @@ def phase_timing_fused(card, mix):
                 f"ms; bound {bound_ms:.4f} ms by {bound_by} (bytes "
                 f"{bytes_ms:.4f} ms; {ops:.1f} integer ops/word -> "
                 f"{ops_ms:.4f} ms), {bound_ms / ms:.1%} of bound; compiled "
-                f"code (static) {pipes}, on {card['smi']}")
+                f"code per pass of its loop {pipes}; "
+                + ", ".join(f"{p.upper()} {n:.2f}" for p, n in per_word.items())
+                + f" instructions a word, on {card['smi']}")
     return out, cases, max_err
 
 
@@ -2126,33 +2159,128 @@ def label_entries(sw_main, timing, cases, max_abs_err, info):
     return entries
 
 
-TURNS_ARGS = ["--backend", "dense", "--rng", "threefry13", "-x",
-              str(MAIN_SHAPE), "-y", str(MAIN_SHAPE), "-w", "8", "-n", "64",
-              "-p", "16"]
+TURNS_FLAGS = ["--rng", "threefry13", "-x", str(MAIN_SHAPE), "-y",
+               str(MAIN_SHAPE), "-w", "8", "-n", "64", "-p", "16"]
+# (what, ISING_TPU_FUSED, backend) of the CLI runs timed in turns
+TURNS_RUNS = (("dense", None, "dense"), ("packed", None, "packed"),
+              ("packed ISING_TPU_FUSED=1", "1", "packed"))
 
 
 def phase_turns(old_tree: str):
-    """The dense CLI from old_tree and from this tree in turns, one process
-    a run; the second runs compare (a first run pays its tree's build)."""
-    runs = [[tree, cli_turns.run_cli(tree, TURNS_ARGS)]
-            for tree in (old_tree, ".", ".", old_tree)]
-    say(f"[turns] dense threefry13 {MAIN_SHAPE}^2, flips/ns: "
-        + ", ".join(f"{t} {r:.2f}" for t, r in runs)
-        + f"; second runs {runs[2][1] / runs[3][1]:.3f}x the old tree's")
-    say(json.dumps({"runs": runs}))
+    """The CLI from old_tree and from this tree in turns, one process a
+    run, for each of TURNS_RUNS; the second runs compare (a first run pays
+    its tree's build)."""
+    for what, fused, backend in TURNS_RUNS:
+        with fused_env(fused):
+            runs = [[tree, cli_turns.run_cli(
+                tree, ["--backend", backend] + TURNS_FLAGS)]
+                for tree in (old_tree, ".", ".", old_tree)]
+        say(f"[turns] {what} threefry13 {MAIN_SHAPE}^2, flips/ns: "
+            + ", ".join(f"{t} {r:.2f}" for t, r in runs)
+            + f"; second runs {runs[2][1] / runs[3][1]:.3f}x the old tree's")
+        say(json.dumps({"what": what, "runs": runs}))
+
+
+def old_library(old_tree: str):
+    """The kernel library of another checkout, built there by its own
+    kernel_lib, with this tree's signatures of the packed entry points
+    (unchanged since they were ported)."""
+    out = subprocess.run(
+        [sys.executable, "-c", "from ising_tpu_torch.ops import kernel_lib; "
+         "print(kernel_lib.load()[1].path)"], cwd=old_tree,
+        capture_output=True, text=True, check=True,
+        timeout=kernel_lib.NVCC_TIMEOUT_S).stdout
+    lib = ctypes.CDLL(out.split()[-1])
+    for name in ("packed_sweep_launch", "packed_fused_step_launch",
+                 "packed_fused_step_manual_launch", "ising_cuda_error_string"):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = (
+            kernel_lib.SIGNATURES[name])
+    return lib
+
+
+@contextlib.contextmanager
+def library(lib):
+    """The wrappers launch `lib`'s kernels for the block."""
+    saved = kernel_lib.load
+    kernel_lib.load = lambda: (lib, None)
+    try:
+        yield
+    finally:
+        kernel_lib.load = saved
+
+
+def phase_against_kernels(card, old_tree: str):
+    """packed_sweep (packed_timing_cases) and both fused kernels (the main
+    modes) from old_tree's library and from this tree's, at 16384^2 on the
+    same random words: their results equal, then each timed (median of
+    TIMED_REPEATS x TIMED_LAUNCHES) in turns, old, new, new, old."""
+    old, new = old_library(old_tree), kernel_lib.load()[0]
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(11)
+    H, W = MAIN_SHAPE, MAIN_SHAPE // 16
+    planes = [random_words(gen, (H, W), dev) for _ in range(2)]
+    jword = random_words(gen, (H, W), dev)
+    out = {}
+
+    def turns(what, launch, result):
+        got = []
+        for lib in (old, new):
+            with library(lib):
+                got.append(result())
+        require(all(torch.equal(a, b) for a, b in zip(*got)),
+                f"{what}: the old and new kernels differ")
+        runs = []
+        for lib in (old, new, new, old):
+            with library(lib):
+                runs.append(median_ms(launch)[0])
+        ratio = (runs[1] + runs[2]) / (runs[0] + runs[3])
+        out[what] = {"old_ms": [runs[0], runs[3]], "new_ms": runs[1:3],
+                     "new_over_old": ratio}
+        say(f"[against] {MAIN_SHAPE}^2 {what}: old {runs[0]:.4f} ms, new "
+            f"{runs[1]:.4f}, new {runs[2]:.4f}, old {runs[3]:.4f}; new / old "
+            f"{ratio:.3f}, equal results, on {card['smi']}")
+
+    for mode, field, path in packed_timing_cases():
+        thr = ising.threshold_table(1.5, field)
+        kw = packed_kwargs(mode, 1.5, field, path, TIMED_CSL, TIMED_YSL)
+        jw = jword if path and "jword" in path else None
+
+        def launch(i, thr=thr, kw=kw, jw=jw):
+            dst, src = planes[i % 2], planes[1 - i % 2]
+            packed.packed_sweep(dst, src, src[-1:], src[:1], thr, 0, i, jw,
+                                color=i % 2, **kw)
+
+        def result(thr=thr, kw=kw, jw=jw):
+            d = planes[0].clone()
+            src = planes[1]
+            packed.packed_sweep(d, src, src[-1:], src[:1], thr, 0, 5, jw,
+                                color=0, **kw)
+            return (d,)
+
+        turns("packed_sweep " + mode + (f" h={field}" if field else "")
+              + (f" {path}" if path else ""), launch, result)
+    for mode in PACKED_MAIN_MODES:
+        thr = ising.threshold_table(1.5)
+        kw = dict(seed=golden.SEED, rng_mode=mode)
+        for fn in FUSED.values():
+            turns(f"{fn.__name__} {mode}",
+                  lambda i, fn=fn, thr=thr, kw=kw: fn(*planes, thr, 0, i, **kw),
+                  lambda fn=fn, thr=thr, kw=kw: fn(*planes, thr, 0, 1, **kw))
+    return out
 
 
 def _on_alarm(signum, frame):
-    raise Failed(f"time budget of {BUDGET_S} s exceeded")
+    raise Failed("time budget exceeded")
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     against = argv[argv.index("--against") + 1] if "--against" in argv else None
+    budget = BUDGET_S + (AGAINST_S if against else 0)
     signal.signal(signal.SIGALRM, _on_alarm)
-    signal.alarm(BUDGET_S)
+    signal.alarm(budget)
     # Hard stop even if the main thread is stuck inside a CUDA call.
-    faulthandler.dump_traceback_later(BUDGET_S + 30, exit=True)
+    faulthandler.dump_traceback_later(budget + 30, exit=True)
     try:
         card = phase_device()
         dev = torch.device("cuda")
@@ -2198,9 +2326,9 @@ def main(argv=None) -> int:
         say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, mix)
         cases, max_err = cases + full_cases, max(max_err, full_err)
-        p_timing, full_cases, full_err = phase_timing_packed(card, mix, timing)
+        p_timing, full_cases, full_err = phase_timing_packed(card, loops, timing)
         p_cases, p_err = p_cases + full_cases, max(p_err, full_err)
-        f_timing, full_cases, full_err = phase_timing_fused(card, mix)
+        f_timing, full_cases, full_err = phase_timing_fused(card, loops)
         f_cases, f_err = f_cases + full_cases, max(f_err, full_err)
         pl_timing, pl_cases, pl_err = phase_timing_planes(card, mix, loops,
                                                           timing)
@@ -2216,6 +2344,8 @@ def main(argv=None) -> int:
             SW_SCALE_SHAPE: sw_main["scale"]["full"]})
         say(f"[time] {elapsed():.1f} s")
         if against:
+            phase_against_kernels(card, against)
+            say(f"[time] {elapsed():.1f} s")
             phase_turns(against)
             say(f"[time] {elapsed():.1f} s")
     except Failed as e:

@@ -146,52 +146,6 @@ __device__ __forceinline__ T* run_at(T* row, uint32_t G, int s) {
   return row + static_cast<uint64_t>(G) * static_cast<uint32_t>(s);
 }
 
-// a + b on the FMA pipe (IMAD a, one, b), bit for bit the 32-bit sum: `one`
-// is a kernel argument (always 1), so the compiler cannot fold it back into
-// an ALU add.
-__device__ __forceinline__ uint32_t fma_add(uint32_t a, uint32_t b, uint32_t one) {
-#ifdef __CUDA_ARCH__
-  uint32_t r;
-  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(one), "r"(b));
-  return r;
-#else
-  return a * one + b;
-#endif
-}
-
-// x ^= bit where d <= th (unsigned): the compare's predicate guards the xor,
-// two ALU instructions and no select.
-__device__ __forceinline__ void flip_if_le(uint32_t& x, uint32_t d, uint32_t th, uint32_t bit) {
-#ifdef __CUDA_ARCH__
-  asm("{\n\t.reg .pred p;\n\tsetp.le.u32 p, %1, %2;\n\t@p xor.b32 %0, %0, %3;\n\t}"
-      : "+r"(x)
-      : "r"(d), "r"(th), "r"(bit));
-#else
-  x ^= d <= th ? bit : 0u;
-#endif
-}
-
-// counter_rng.cuh's Threefry2x32-R with each round's add on the FMA pipe,
-// beside the rotation and xor on the ALU pipe.
-template <int R>
-__device__ __forceinline__ uint2 threefry_fma(uint32_t c0, uint32_t c1, uint32_t k0,
-                                              uint32_t k1, uint32_t one) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    x0 = fma_add(x0, x1, one);
-    x1 = rotl(x1, threefry_rot(r % 8)) ^ x0;
-    if ((r + 1) % 4 == 0) {
-      const int j = (r + 1) / 4;
-      x0 += ks[j % 3];
-      x1 += ks[(j + 1) % 3] + static_cast<uint32_t>(j);
-    }
-  }
-  return make_uint2(x0, x1);
-}
-
 // site_draws.cuh's call_draws: the draws of call q of global row gy.
 template <int FAMILY, int R>
 __device__ __forceinline__ void thread_draws(const Sweep& a, uint32_t gy, uint32_t q,

@@ -22,8 +22,12 @@
 // whatever order the CTAs run in. Rows wrap mod H, so white row 0 reads new
 // black row H - 1 directly, and a band may wrap onto itself (H = 1, 2).
 // Shared memory holds full-width rows: a ring of 4 old-white rows and one of
-// 3 new-black rows (7 rows, 28 KiB at W = 1024); a row's off-column words
-// are its neighbours' in shared memory, with the 4-bit rotation at the ends.
+// 3 new-black rows (7 rows, 29 KiB at W = 1024). Each row sits between two
+// pad words that hold its end words rotated, so a word's off-column
+// neighbour is the word beside it, the row's side one pointer for all of a
+// thread's words. A thread takes word columns threadIdx.x + i * THREADS,
+// each with the shared word update of packed_word.cuh (the accept through
+// one byte offset a field into a 32-word shared table).
 //
 // Two ways rows reach shared memory, two entry points (rows 3 and 4 of the
 // kernel table): packed_fused_step_launch loads each old-white row with
@@ -44,7 +48,10 @@
 // keeps packed_sweep's arithmetic (operands in registers, generators fully
 // unrolled) and adds only what the band needs: two recomputed black rows a
 // band, which the default band height (one wave of CTAs, from the occupancy
-// of the kernel) keeps to a few per cent of the work.
+// of the kernel) keeps to 6-8% of the work at 16384^2. That share is what
+// the step pays over two packed_sweep launches, whose row walk has no
+// per-word address work left either: both run at the same ALU (Threefry,
+// ChaCha) or FMA (Philox's wide multiplies) time a word.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a (ops/kernel_lib.py). The
 // C entry points return cudaGetLastError() after the launch.
@@ -76,6 +83,7 @@ struct FusedArgs {
   uint32_t row0;          // the plane's first global row, for the draws
   Stream sb, sw;          // black's and white's counter streams
   Thresholds thr;
+  uint32_t one;           // 1: adds on the FMA pipe
   bool vec16;             // rows copy as 16-byte vectors
 };
 
@@ -84,23 +92,37 @@ __device__ __forceinline__ int wrap_row(int y, int H) {
   return y < 0 ? y + H : y;
 }
 
+// cp.async of 4 or 16 bytes, its commit and its wait (a plain copy and
+// nothing off the card).
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+#ifdef __CUDA_ARCH__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+#else
+  *dst = *src;
+#endif
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
+#ifdef __CUDA_ARCH__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
 }
 
 __device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
   asm volatile("cp.async.commit_group;\n" ::);
+#endif
 }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
 }
 
 // One row of W words into shared memory, by every thread of the CTA.
@@ -126,41 +148,98 @@ __device__ __forceinline__ void copy_row(uint32_t* dst, const uint32_t* src,
   }
 }
 
+// A row of W words in shared memory sits between two pad words: word -1
+// holds its word W - 1 rotated 4 bits left and word W its word 0 rotated 28,
+// so that every word's off-column neighbour is word j - 1 or j + 1 of its
+// row (pallas_packed.py:202-235), with no select at the row's ends. Rows
+// start PAD words into their slot of W + 2 * PAD words (16-byte aligned).
+constexpr int PAD = 4;
+constexpr int PAD_THREAD = THREADS - 1;   // the thread that writes the pads
+
+__device__ __forceinline__ void write_pads(uint32_t* row, int W) {
+  row[-1] = rotl(row[W - 1], 4);
+  row[W] = rotl(row[0], 28);
+}
+
+// One row of a plane's new words from shared-memory rows: `me` (the row's
+// old words), up, same and dn (the other color's rows around it) and
+// off_row (same, one word to the side the row looks to); into out and, where
+// gout is not null, device memory. A thread takes word columns threadIdx.x,
+// threadIdx.x + THREADS, ...; each keeps its counter addends (Calls).
+template <int FAMILY, int R, int ACCEPT>
+__device__ __forceinline__ void update_row(const uint32_t* me, const uint32_t* up,
+                                           const uint32_t* same, const uint32_t* dn,
+                                           const uint32_t* off_row, uint32_t* out,
+                                           uint32_t* gout, uint32_t gy, int W,
+                                           const Stream& s, uint32_t one,
+                                           const uint32_t* table) {
+  constexpr int P = words_per_thread(FAMILY);
+  for (int q = threadIdx.x; q < W / P; q += THREADS) {
+    const Calls<FAMILY> calls(q, W);
+    uint32_t x[P];
+    uint2 off[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int j = q + p * (W / 2);
+      x[p] = me[j];
+      off[p] = field_offsets<ACCEPT>(x[p], up[j] + dn[j] + same[j] + off_row[j]);
+    }
+    accept_words<FAMILY, R>(x, off, gy, calls, s, one, table);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int j = q + p * (W / 2);
+      if (out != nullptr) out[j] = x[p];
+      if (gout != nullptr) gout[j] = x[p];
+    }
+  }
+}
+
 // Old-white row k of a band starting at row a is plane row a - 2 + k; old
 // (and new) black row i is plane row a - 1 + i. Step s (0 <= s <= n + 1)
 // reads white rows s, s + 1, s + 2 and black row s, and computes new black
-// row s and, from s = 2, new white row s - 2 (plane row a + s - 2).
+// row s and, from s = 2, new white row s - 2 (plane row a + s - 2). A row
+// of either color looks to the side its plane row's parity gives. White row
+// k is black row k - 1's `same`, so its pads are written at step k - 2,
+// once it has landed; new black row i is white row i - 1's `same`, so its
+// pads are written at step i, after the barrier that ends its update.
 template <int FAMILY, int R, int ACCEPT, bool ASYNC>
 __global__ void __launch_bounds__(THREADS) packed_fused_kernel(const FusedArgs p) {
   extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ uint32_t table[TABLE_WORDS];
   constexpr int NW = WHITE_ROWS<ASYNC>;
-  constexpr int PAIR = FAMILY == FAMILY_CHACHA ? 2 : 1;
-  const int H = p.H, W = p.W;
+  const int H = p.H, W = p.W, stride = W + 2 * PAD;
   const int a = blockIdx.x * p.band;
   const int n = min(p.band, H - a);
-  const int units = W / PAIR;
-  uint32_t* const wring = smem;
-  uint32_t* const nb = wring + NW * W;
-  uint32_t* const ob = nb + NEW_BLACK_ROWS * W;
-  const auto wslot = [&](int k) { return wring + (k % NW) * W; };
+  if (threadIdx.x == 0) fill_table<ACCEPT>(table, p.thr);
+  uint32_t* const wring = smem + PAD;
+  uint32_t* const nb = wring + NW * stride;
+  uint32_t* const ob = nb + NEW_BLACK_ROWS * stride;
+  const auto wslot = [&](int k) { return wring + (k % NW) * stride; };
+  const auto nbslot = [&](int i) { return nb + (i % NEW_BLACK_ROWS) * stride; };
   const auto white_row = [&](int k) {
     return p.white + static_cast<int64_t>(wrap_row(a - 2 + k, H)) * W;
   };
   const auto black_row = [&](int i) {
     return p.black + static_cast<int64_t>(wrap_row(a - 1 + i, H)) * W;
   };
-  // cp.async group g carries old-white row g + 2 and old-black row g; group
-  // 0 also white rows 0 and 1.
+  // cp.async group g carries old-white row g + 2 and old-black row g
   const auto prefetch = [&](int g) {
     if (g <= n + 1) {
       copy_row<true>(wslot(g + 2), white_row(g + 2), W, p.vec16);
-      copy_row<true>(ob + (g % OLD_BLACK_ROWS) * W, black_row(g), W, p.vec16);
+      copy_row<true>(ob + (g % OLD_BLACK_ROWS) * stride, black_row(g), W, p.vec16);
     }
     cp_async_commit();
   };
 
-  copy_row<ASYNC>(wslot(0), white_row(0), W, p.vec16);
-  copy_row<ASYNC>(wslot(1), white_row(1), W, p.vec16);
+  // white rows 0 and 1 by plain loads; row 1 (black row 0's `same`) with
+  // its pads, from device memory
+  copy_row<false>(wslot(0), white_row(0), W, p.vec16);
+  copy_row<false>(wslot(1), white_row(1), W, p.vec16);
+  if (threadIdx.x == PAD_THREAD) {
+    const uint32_t* row = white_row(1);
+    wslot(1)[-1] = rotl(row[W - 1], 4);
+    wslot(1)[W] = rotl(row[0], 28);
+  }
   if constexpr (ASYNC) {
 #pragma unroll
     for (int g = 0; g < STAGES; ++g) prefetch(g);
@@ -174,46 +253,26 @@ __global__ void __launch_bounds__(THREADS) packed_fused_kernel(const FusedArgs p
       copy_row<false>(wslot(s + 2), white_row(s + 2), W, p.vec16);
       __syncthreads();
     }
+    if (threadIdx.x == PAD_THREAD) write_pads(wslot(s + 2), W);
     {  // new black row s: a band row (1 <= s <= n) or a recomputed halo row
       const int y = wrap_row(a - 1 + s, H);
-      const uint32_t* up = wslot(s);
       const uint32_t* same = wslot(s + 1);
-      const uint32_t* dn = wslot(s + 2);
-      const uint32_t* me = ASYNC ? ob + (s % OLD_BLACK_ROWS) * W : black_row(s);
-      uint32_t* out = nb + (s % NEW_BLACK_ROWS) * W;
-      uint32_t* gout = p.black_out + static_cast<int64_t>(y) * W;
-      const bool owned = s >= 1 && s <= n;
-      const bool right = looks_right(0, y);
-      for (int q = threadIdx.x; q < units; q += THREADS) {
-        update_words<FAMILY, R, ACCEPT>(
-            [&](int j) {
-              return Word{me[j], up[j], dn[j], same[j], off_word(same, j, W, right)};
-            },
-            [&](int j, uint32_t v) {
-              out[j] = v;
-              if (owned) gout[j] = v;
-            },
-            p.row0 + static_cast<uint32_t>(y), W, q, p.sb, p.thr);
-      }
+      update_row<FAMILY, R, ACCEPT>(
+          ASYNC ? ob + (s % OLD_BLACK_ROWS) * stride : black_row(s), wslot(s), same,
+          wslot(s + 2), same + (looks_right(0, y) ? 1 : -1), nbslot(s),
+          s >= 1 && s <= n ? p.black_out + static_cast<int64_t>(y) * W : nullptr,
+          p.row0 + static_cast<uint32_t>(y), W, p.sb, p.one, table);
     }
     __syncthreads();
+    if (threadIdx.x == PAD_THREAD) write_pads(nbslot(s), W);
     if (s >= 2) {  // new white row t = s - 2, against new black t .. t + 2
       const int t = s - 2;
-      const int y = a + t;
-      const uint32_t* me = wslot(s);
-      const uint32_t* up = nb + (t % NEW_BLACK_ROWS) * W;
-      const uint32_t* same = nb + ((t + 1) % NEW_BLACK_ROWS) * W;
-      const uint32_t* dn = nb + ((t + 2) % NEW_BLACK_ROWS) * W;
-      uint32_t* gout = p.white_out + static_cast<int64_t>(y) * W;
-      const bool right = looks_right(1, y);
-      for (int q = threadIdx.x; q < units; q += THREADS) {
-        update_words<FAMILY, R, ACCEPT>(
-            [&](int j) {
-              return Word{me[j], up[j], dn[j], same[j], off_word(same, j, W, right)};
-            },
-            [&](int j, uint32_t v) { gout[j] = v; },
-            p.row0 + static_cast<uint32_t>(y), W, q, p.sw, p.thr);
-      }
+      const uint32_t* same = nbslot(t + 1);
+      update_row<FAMILY, R, ACCEPT>(
+          wslot(s), nbslot(t), same, nbslot(t + 2),
+          same + (looks_right(1, a + t) ? 1 : -1), nullptr,
+          p.white_out + static_cast<int64_t>(a + t) * W,
+          p.row0 + static_cast<uint32_t>(a + t), W, p.sw, p.one, table);
     }
   }
 }
@@ -225,7 +284,8 @@ __global__ void __launch_bounds__(THREADS) packed_fused_kernel(const FusedArgs p
 template <int FAMILY, int R, int ACCEPT, bool ASYNC>
 int launch(FusedArgs* p, cudaStream_t stream, bool run) {
   const auto kernel = packed_fused_kernel<FAMILY, R, ACCEPT, ASYNC>;
-  const size_t smem = static_cast<size_t>(SMEM_ROWS<ASYNC>) * p->W * sizeof(uint32_t);
+  const size_t smem =
+      static_cast<size_t>(SMEM_ROWS<ASYNC>) * (p->W + 2 * PAD) * sizeof(uint32_t);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -302,6 +362,7 @@ int fused_step(const void* black, const void* white, void* black_out,
   p.sb = Stream{step, tag_b, kb0, kb1};
   p.sw = Stream{step, tag_w, kw0, kw1};
   for (int i = 0; i < 10; ++i) p.thr.t[i] = thr10[i];
+  p.one = 1u;
   p.vec16 = W % 4 == 0 && aligned16(black) && aligned16(white);
   return fn(&p, static_cast<cudaStream_t>(stream), true);
 }

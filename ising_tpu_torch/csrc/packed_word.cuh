@@ -1,9 +1,9 @@
 // What one packed word's update needs (4 bits per spin), shared by the
 // half-sweep (packed_sweep.cu) and the fused both-colors step
 // (packed_fused.cu), so that both take one accept and one draw layout: the
-// threshold table, a word's neighbour set, the off-column word at the row's
-// ends, the accept (ising_tpu/ops/pallas_packed.py:_accept_and_flip,
-// :243-393) and the draws of a word or of a ChaCha pair of words.
+// accept (ising_tpu/ops/pallas_packed.py:_accept_and_flip, :243-393) read
+// through a byte offset a field into a 32-word threshold table, and the
+// draws of a word or of a ChaCha pair of words.
 //
 // Layout: a color plane is (H, W) 32-bit words, W = C/8 for C compact
 // columns; field z (bits 4z..4z+3) of word (y, j) holds the spin at compact
@@ -11,7 +11,20 @@
 // whole words, so each field sums its count n = 0..4 without a carry; the
 // mirrored count e = b ? n : 4 - n classifies all eight fields at once
 // (ge_k = e + (8 - k)*0x11111111, bit 3 of each field), and a field flips
-// where its u32 draw is at or below its class's threshold (unsigned).
+// where its u32 draw is at or below its class's threshold (unsigned). The
+// arithmetic is the JAX kernel's on any 32-bit words, not only on valid
+// packed ones (carries between fields included).
+//
+// The accept through one byte offset: a field's threshold is a function of
+// its class bits g1..g4 (bit 4z+3 of ge_1..ge_4) and, for the field table,
+// its own bit b. field_offsets gathers them into the byte 4*(b + 2*g1 +
+// 4*g2 + 8*g3 + 16*g4) for every field at once (even fields in the bytes
+// of one word, odd fields in another; an accept leaves the bits it does not
+// read at 0), and the table holds the select's result at each of the 32
+// word offsets (fill_table). A field then costs one byte extract
+// (__byte_perm), one shared-memory load, and a compare whose predicate
+// toggles its bit of the word (flip_if_le): three ALU-pipe instructions,
+// where two compares, their set bits and the class selects took about six.
 //
 // Draws follow rng.color_draws' contract for a C-wide row: the draw of
 // column c is output slot c / nq of counter q = c mod nq, counter
@@ -22,6 +35,10 @@
 //   ChaCha   (nq = W/2): the block at q = j mod W/2 gives field z of word j
 //            in slot 2z + (j >= W/2), so one block serves words q and
 //            q + W/2, and one thread owns that pair of words.
+// A thread keeps its words' counter addends (Calls) across the rows it
+// updates; a row's counter is one 32 x 32 -> 64-bit multiply-add on the FMA
+// pipe (gy * nq + k), which wraps with the global row gy as the JAX
+// package's uint32 row index does.
 
 #pragma once
 
@@ -49,130 +66,146 @@ struct Stream {
   uint32_t step, tag, k0, k1;
 };
 
-// A word's own value and the four neighbour words its fields count.
-struct Word {
-  uint32_t me, up, dn, same, off;
-};
+// Words a thread updates in a row (ChaCha: the pair q, q + W/2) and the
+// generator calls they take a row.
+__host__ __device__ constexpr int words_per_thread(int family) {
+  return family == FAMILY_CHACHA ? 2 : 1;
+}
+__host__ __device__ constexpr int calls_per_thread(int family) {
+  return family == FAMILY_PHILOX ? 2 : family == FAMILY_THREEFRY ? 4 : 1;
+}
+
+// The accept table: word i holds the threshold of the class index i = b +
+// 2*g1 + 4*g2 + 8*g3 + 16*g4 (pallas_packed.py:_accept_and_flip):
+//   ACCEPT_METROPOLIS (T > 0): e <= 2 (!g3) flips; e == 3 on d <= thr[8],
+//     e >= 4 (g4) on d <= thr[9];
+//   ACCEPT_GREEDY (T <= 0): e < 2 (!g2) flips; e == 2 on thr[7], and as
+//     above;
+//   ACCEPT_FIELD: own bit 1 takes thr[5 + e], own bit 0 thr[4 - e], e the
+//     highest k with g_k (0 for none).
+// "Flips" is the threshold 0xFFFFFFFF: every u32 draw is at or below it.
+constexpr int TABLE_WORDS = 32;
+
+template <int ACCEPT>
+__device__ __forceinline__ uint32_t table_entry(int i, const Thresholds& thr) {
+  const bool b = i & 1, g1 = i & 2, g2 = i & 4, g3 = i & 8, g4 = i & 16;
+  if constexpr (ACCEPT == ACCEPT_FIELD) {
+    return b ? (g4 ? thr.t[9] : g3 ? thr.t[8] : g2 ? thr.t[7] : g1 ? thr.t[6] : thr.t[5])
+             : (g4 ? thr.t[0] : g3 ? thr.t[1] : g2 ? thr.t[2] : g1 ? thr.t[3] : thr.t[4]);
+  } else if constexpr (ACCEPT == ACCEPT_GREEDY) {
+    return g2 ? (g4 ? thr.t[9] : g3 ? thr.t[8] : thr.t[7]) : 0xFFFFFFFFu;
+  } else {
+    return g3 ? (g4 ? thr.t[9] : thr.t[8]) : 0xFFFFFFFFu;
+  }
+}
+
+// Fills the shared table, by one thread (unrolled: constant indices only).
+template <int ACCEPT>
+__device__ __forceinline__ void fill_table(uint32_t* table, const Thresholds& thr) {
+#pragma unroll
+  for (int i = 0; i < TABLE_WORDS; ++i) table[i] = table_entry<ACCEPT>(i, thr);
+}
+
+// The byte offsets of a word's eight fields into the table, from its own
+// value and the whole-word sum of its four neighbours: field z = 2k in byte
+// k of .x, field 2k + 1 in byte k of .y, each 4*(b + 2*(g1 + 2*g2 + 4*g3 +
+// 8*g4)) <= 124, with the class bits the accept does not read (and b, but
+// for the field table) left at 0.
+template <int ACCEPT>
+__device__ __forceinline__ uint2 field_offsets(uint32_t me, uint32_t nsum) {
+  const uint32_t m1 = me & M1;
+  const uint32_t mask = (m1 << 4) - m1;
+  const uint32_t e = (nsum & mask) | ((0x44444444u - nsum) & ~mask);
+  // each field's class nibble g1 + 2*g2 + 4*g3 + 8*g4
+  uint32_t g = ((e + 0x44444444u) & M8) | (((e + 0x55555555u) & M8) >> 1);
+  if constexpr (ACCEPT != ACCEPT_METROPOLIS) g |= ((e + 0x66666666u) & M8) >> 2;
+  if constexpr (ACCEPT == ACCEPT_FIELD) g |= ((e + 0x77777777u) & M8) >> 3;
+  uint32_t lo = (g & 0x0F0F0F0Fu) << 3, hi = (g >> 1) & 0x78787878u;
+  if constexpr (ACCEPT == ACCEPT_FIELD) {
+    lo |= (me & 0x01010101u) << 2;
+    hi |= (me >> 2) & 0x04040404u;
+  }
+  return make_uint2(lo, hi);
+}
 
 // Whether a site of `color` in row y looks right for its off-column
 // neighbour: it sits on an odd full-lattice column (black on odd rows, white
 // on even rows). The parity is the plane's row index's.
-__device__ __forceinline__ bool looks_right(int color, int y) {
+__host__ __device__ inline bool looks_right(int color, int y) {
   return (color == 0) == static_cast<bool>(y & 1);
 }
 
-// The periodic off-column neighbour of word j in the other color's row `row`
-// (pallas_packed.py:202-235): lane j - 1 or j + 1 of the same field; at the
-// row's first / last lane the last / first word with every field moved one
-// group (a 4-bit rotation).
-__device__ __forceinline__ uint32_t off_word(const uint32_t* row, int j, int W,
-                                             bool right) {
-  return right ? (j == W - 1 ? rotl(row[0], 28) : row[j + 1])
-               : (j == 0 ? rotl(row[W - 1], 4) : row[j - 1]);
+// Field z of a word whose offsets are `off` takes draw d: its bit of x
+// toggles where d is at or below the table's threshold at its offset.
+__device__ __forceinline__ void take(uint32_t& x, uint2 off, int z, uint32_t d,
+                                     const uint32_t* table) {
+  const uint32_t at = __byte_perm(z & 1 ? off.y : off.x, 0u, 0x4440 | (z >> 1));
+  const uint32_t th = *reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<const char*>(table) + at);
+  flip_if_le(x, d, th, 1u << (4 * z));
 }
 
-// The accept of one word (pallas_packed.py:_accept_and_flip), fed one draw
-// per field, then asked for the flip word. The class words ge_k hold, in
-// bit 4z+3, whether field z's mirrored count e is at least k.
-//   ACCEPT_METROPOLIS (T > 0): e <= 2 flips; e == 3 on d <= thr[8], e == 4 on
-//     d <= thr[9];
-//   ACCEPT_GREEDY (T <= 0): e < 2 flips; e == 2 on thr[7], and as above;
-//   ACCEPT_FIELD: own bit 1 takes thr[5 + e], own bit 0 thr[4 - e].
-template <int ACCEPT>
-struct Acceptor {
-  uint32_t me, ge1, ge2, ge3, ge4;
-  uint32_t p0 = 0, p4 = 0, p8 = 0, flips = 0;
+// A thread's generator calls: the counter addend of each (the counter of
+// row gy is gy * nq + k, 64-bit).
+template <int FAMILY>
+struct Calls {
+  uint32_t nq;
+  uint64_t k[calls_per_thread(FAMILY)];
 
-  __device__ __forceinline__ explicit Acceptor(const Word& w) : me(w.me) {
-    const uint32_t nsum = w.up + w.dn + w.same + w.off;
-    const uint32_t m1 = me & M1;
-    const uint32_t mask = (m1 << 4) - m1;
-    const uint32_t e = (nsum & mask) | ((0x44444444u - nsum) & ~mask);
-    ge1 = (e + 0x77777777u) & M8;
-    ge2 = (e + 0x66666666u) & M8;
-    ge3 = (e + 0x55555555u) & M8;
-    ge4 = (e + 0x44444444u) & M8;
+  // The calls of the thread whose first word is column q of a W-word row.
+  __device__ __forceinline__ Calls(int q, int W) {
+    const uint32_t w = static_cast<uint32_t>(W), u = static_cast<uint32_t>(q);
+    nq = FAMILY == FAMILY_CHACHA ? w / 2 : calls_per_thread(FAMILY) * w;
+#pragma unroll
+    for (int r = 0; r < calls_per_thread(FAMILY); ++r) k[r] = r * w + u;
   }
 
-  __device__ __forceinline__ void take(uint32_t d, int z, const Thresholds& thr) {
-    const int b = 4 * z;
-    if constexpr (ACCEPT == ACCEPT_FIELD) {
-      const bool i4 = (ge4 >> (b + 3)) & 1, i3 = (ge3 >> (b + 3)) & 1;
-      const bool i2 = (ge2 >> (b + 3)) & 1, i1 = (ge1 >> (b + 3)) & 1;
-      const uint32_t t_up = i4 ? thr.t[9] : i3 ? thr.t[8] : i2 ? thr.t[7]
-                          : i1 ? thr.t[6] : thr.t[5];
-      const uint32_t t_dn = i4 ? thr.t[0] : i3 ? thr.t[1] : i2 ? thr.t[2]
-                          : i1 ? thr.t[3] : thr.t[4];
-      const uint32_t t = ((me >> b) & 1) ? t_up : t_dn;
-      flips |= static_cast<uint32_t>(d <= t) << b;
-    } else {
-      p4 |= static_cast<uint32_t>(d <= thr.t[8]) << b;
-      p8 |= static_cast<uint32_t>(d <= thr.t[9]) << b;
-      if constexpr (ACCEPT == ACCEPT_GREEDY) {
-        p0 |= static_cast<uint32_t>(d <= thr.t[7]) << b;
-      }
-    }
-  }
-
-  __device__ __forceinline__ uint32_t flip() const {
-    if constexpr (ACCEPT == ACCEPT_FIELD) return flips;
-    const uint32_t g3 = ge3 >> 3, g4 = ge4 >> 3;
-    if constexpr (ACCEPT == ACCEPT_GREEDY) {
-      const uint32_t g2 = ge2 >> 3;
-      return (M1 & ~g2) |
-             (g2 & ((g4 & p8) | (~g4 & g3 & p4) | (~g4 & ~g3 & p0)));
-    } else {
-      return (M1 & ~g3) | (g3 & ~g4 & p4) | (g4 & p8);
-    }
+  __device__ __forceinline__ uint64_t at(uint32_t gy, int r) const {
+    return static_cast<uint64_t>(gy) * nq + k[r];
   }
 };
 
-// The words a thread updates in one row: word q (ChaCha: words q and
-// q + W/2), loaded by load(j) -> Word and written back by store(j, new
-// word). gy is the row's global index (row0 + y, mod 2^32).
-template <int FAMILY, int R, int ACCEPT, class Load, class Store>
-__device__ __forceinline__ void update_words(Load load, Store store, uint32_t gy,
-                                             int W, int q, const Stream& s,
-                                             const Thresholds& thr) {
-  const uint32_t w = static_cast<uint32_t>(W);
-  const Word a = load(q);
-  Acceptor<ACCEPT> acc_a(a);
+// The accept of the thread's words of global row gy: x[0] (word q) and,
+// for ChaCha, x[1] (word q + W/2), whose offsets are off[0], off[1]; each
+// field toggles where its draw is at or below its threshold.
+template <int FAMILY, int R>
+__device__ __forceinline__ void accept_words(uint32_t (&x)[words_per_thread(FAMILY)],
+                                             const uint2 (&off)[words_per_thread(FAMILY)],
+                                             uint32_t gy, const Calls<FAMILY>& calls,
+                                             const Stream& s, uint32_t one,
+                                             const uint32_t* table) {
   if constexpr (FAMILY == FAMILY_CHACHA) {
-    const Word b = load(q + W / 2);
-    Acceptor<ACCEPT> acc_b(b);
-    const uint64_t c = counter(gy, w / 2, static_cast<uint32_t>(q));
+    const uint64_t c = calls.at(gy, 0);
     uint32_t o[16];
     chacha<R>(static_cast<uint32_t>(c), static_cast<uint32_t>(c >> 32), s.step,
               s.tag, s.k0, s.k1, o);
 #pragma unroll
     for (int z = 0; z < 8; ++z) {
-      acc_a.take(o[2 * z], z, thr);
-      acc_b.take(o[2 * z + 1], z, thr);
+      take(x[0], off[0], z, o[2 * z], table);
+      take(x[1], off[1], z, o[2 * z + 1], table);
     }
-    store(q + W / 2, b.me ^ acc_b.flip());
   } else if constexpr (FAMILY == FAMILY_PHILOX) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const uint64_t c = counter(gy, 2u * w, h * w + static_cast<uint32_t>(q));
+      const uint64_t c = calls.at(gy, h);
       const uint4 o = philox<R>(static_cast<uint32_t>(c),
                                 static_cast<uint32_t>(c >> 32), s.step, s.tag,
                                 s.k0, s.k1);
-      acc_a.take(o.x, h, thr);
-      acc_a.take(o.y, 2 + h, thr);
-      acc_a.take(o.z, 4 + h, thr);
-      acc_a.take(o.w, 6 + h, thr);
+      take(x[0], off[0], h, o.x, table);
+      take(x[0], off[0], 2 + h, o.y, table);
+      take(x[0], off[0], 4 + h, o.z, table);
+      take(x[0], off[0], 6 + h, o.w, table);
     }
   } else {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const uint64_t c = counter(gy, 4u * w, r * w + static_cast<uint32_t>(q));
-      const uint2 o = threefry<R>(static_cast<uint32_t>(c),
-                                  static_cast<uint32_t>(c >> 32), s.k0, s.k1);
-      acc_a.take(o.x, r, thr);
-      acc_a.take(o.y, r + 4, thr);
+      const uint64_t c = calls.at(gy, r);
+      const uint2 o = threefry_fma<R>(static_cast<uint32_t>(c),
+                                      static_cast<uint32_t>(c >> 32), s.k0, s.k1, one);
+      take(x[0], off[0], r, o.x, table);
+      take(x[0], off[0], r + 4, o.y, table);
     }
   }
-  store(q, a.me ^ acc_a.flip());
 }
 
 }  // namespace ising

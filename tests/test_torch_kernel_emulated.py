@@ -10,16 +10,19 @@ kernels' arithmetic (draw layouts of every rng mode, counters with carry,
 neighbours, the u32, bit-serial and 10-class field accepts, the
 quenched-disorder links as J planes and as the split link store, the
 replica wraps; in the packed kernel ChaCha's pair of words, the 4-bit
-rotation at the row's ends, the J word and the replica edges, through the
-accept and draws of packed_word.cuh, which the fused step shares; in the
-dense kernel the per-call sites, the row walk down a band with its
-three-row window (heights that cross and do not divide the band, the lone
-first and last rows, the slab's edge rows), the accept through one byte
-offset into the 64-word shared table, and the J planes) against their
-plain torch version before any card sees it. mxu_sweep.cu
-(warp-wide mma.sync: a lane's sums come from all 32 lanes' operands, so one
-thread at a time cannot run it), cluster_label.cu and packed_fused.cu are
-left out (NOT_EMULATED).
+rotation at the row's ends, the J word and the replica edges, the row walk
+down a band (heights that cross and do not divide it, lone first and last
+rows, the slab's edge rows, replica heights the band does not divide), and
+the accept through one byte offset a field into a 32-word table, which the
+fused step shares; in the dense kernel the per-call sites, the row walk
+down a band with its three-row window (heights that cross and do not
+divide the band, the lone first and last rows, the slab's edge rows), the
+accept through one byte offset into the 64-word shared table, and the J
+planes) against their plain torch version before any card sees it. The
+fused packed step (packed_fused.cu), whose threads meet at barriers, runs
+with one fiber a thread (FIBER_SHIM). mxu_sweep.cu (warp-wide mma.sync: a
+lane's sums come from all 32 lanes' operands, so one thread at a time
+cannot run it) and cluster_label.cu are left out (NOT_EMULATED).
 The card itself checks the compiled kernels in chip_smoke.py.
 """
 
@@ -82,27 +85,135 @@ void emulate_launch(dim3 grid, dim3 block, F f, A... a) {
 }
 """
 
+# The same for a kernel whose threads pass barriers (packed_fused.cu): one
+# ucontext fiber a thread of the block, __syncthreads switching to the next
+# thread, a block going on once all its threads wait there (or have
+# returned), in forward or reverse thread order (emu_set). Dynamic shared
+# memory is one buffer filled with a pattern before each block; cp.async
+# copies land at once or, with emu_set, only at the issuing thread's
+# wait_group: a read of a row before its barrier or its wait, or a copy into
+# a slot that another thread still reads, changes the result.
+FIBER_SHIM = CUDA_SHIM.replace("inline void __syncthreads() {}", r"""
+#include <algorithm>
+#include <cstring>
+#include <tuple>
+#include <vector>
+#include <ucontext.h>
+using std::min;
+#define __align__(n) alignas(n)
+inline ucontext_t emu_main;
+inline std::vector<ucontext_t> emu_ctx;
+inline std::vector<char> emu_done;
+inline int emu_cur = 0, emu_reverse = 0, emu_late = 0;
+alignas(16) inline uint32_t emu_smem[1 << 16];
+inline void __syncthreads() { swapcontext(&emu_ctx[emu_cur], &emu_main); }
+struct EmuCopy { uint32_t* d; const uint32_t* s; int n; };
+inline std::vector<std::vector<std::vector<EmuCopy>>> emu_groups;
+inline std::vector<std::vector<EmuCopy>> emu_open;
+inline void emu_land(const EmuCopy& c) { std::memcpy(c.d, c.s, 4 * c.n); }
+inline void emu_cp(uint32_t* d, const uint32_t* s, int n) {
+  if (emu_late) emu_open[emu_cur].push_back({d, s, n}); else emu_land({d, s, n}); }
+inline void emu_commit() {
+  emu_groups[emu_cur].push_back(emu_open[emu_cur]); emu_open[emu_cur].clear(); }
+inline void emu_wait(int n) {
+  auto& g = emu_groups[emu_cur];
+  while (static_cast<int>(g.size()) > n) {
+    for (const auto& c : g.front()) emu_land(c);
+    g.erase(g.begin());
+  } }
+extern "C" void emu_set(int reverse, int late) { emu_reverse = reverse; emu_late = late; }""").replace(
+    "enum { cudaErrorInvalidValue = 1 };", """enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 3; return 0; }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 2; return 0; }""").replace(
+    CUDA_SHIM[CUDA_SHIM.index("template <class F, class... A>\nvoid emulate_launch"):],
+    r"""template <class F, class... A>
+void emu_thread(unsigned lo, unsigned hi) {
+  auto* call = reinterpret_cast<std::tuple<F, A...>*>(
+      (static_cast<uintptr_t>(hi) << 32) | lo);
+  std::apply([](F f, A... a) { (*f)(a...); }, *call);
+  emu_done[emu_cur] = 1;
+}
+template <class F, class... A>
+void emulate_launch(dim3 grid, dim3 block, F f, A... a) {
+  blockDim = block;
+  gridDim = grid;
+  const int n = block.x * block.y;
+  std::vector<std::vector<char>> stacks(n, std::vector<char>(1 << 16));
+  std::tuple<F, A...> call(f, a...);
+  const uintptr_t p = reinterpret_cast<uintptr_t>(&call);
+  for (unsigned b = 0; b < grid.x; ++b) {
+    std::memset(emu_smem, 0xA5, sizeof(emu_smem));
+    emu_ctx.assign(n, ucontext_t{});
+    emu_done.assign(n, 0);
+    emu_groups.assign(n, {});
+    emu_open.assign(n, {});
+    for (int t = 0; t < n; ++t) {
+      getcontext(&emu_ctx[t]);
+      emu_ctx[t].uc_stack.ss_sp = stacks[t].data();
+      emu_ctx[t].uc_stack.ss_size = stacks[t].size();
+      emu_ctx[t].uc_link = &emu_main;
+      makecontext(&emu_ctx[t], reinterpret_cast<void (*)()>(emu_thread<F, A...>), 2,
+                  static_cast<unsigned>(p), static_cast<unsigned>(p >> 32));
+    }
+    blockIdx = dim3(b, 0);
+    for (bool alive = true; alive;) {
+      alive = false;
+      for (int i = 0; i < n; ++i) {
+        const int t = emu_reverse ? n - 1 - i : i;
+        if (emu_done[t]) continue;
+        emu_cur = t;
+        threadIdx = dim3(t % block.x, t / block.x);
+        swapcontext(&emu_main, &emu_ctx[t]);
+        alive = alive || !emu_done[t];
+      }
+    }
+  }
+}
+""")
+# packed_fused.cu's text for FIBER_SHIM: its dynamic shared memory and its
+# cp.async copies (a plain copy off the card) through the shim's
+FIBER_EDITS = (
+    ("extern __shared__ __align__(16) uint32_t smem[];",
+     "uint32_t* smem = emu_smem;"),
+    ("  *dst = *src;\n#endif", "  emu_cp(dst, src, 1);\n#endif"),
+    ("  for (int i = 0; i < 4; ++i) dst[i] = src[i];\n#endif",
+     "  emu_cp(dst, src, 4);\n#endif"),
+    ('  asm volatile("cp.async.commit_group;\\n" ::);\n#endif',
+     '  asm volatile("cp.async.commit_group;\\n" ::);\n#else\n  emu_commit();\n#endif'),
+    ('  asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));\n#endif',
+     '  asm volatile("cp.async.wait_group %0;\\n" ::"n"(N));\n#else\n  emu_wait(N);\n#endif'),
+)
+
 # kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
 EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
-                         "packed_sweep.cu": 1, "dense_sweep.cu": 1}
+                         "packed_sweep.cu": 1, "dense_sweep.cu": 1,
+                         "packed_fused.cu": 1}
+# Sources whose threads meet at barriers, run by FIBER_SHIM: packed_fused.cu's
+# rings of rows refilled behind a barrier on every row (a thread computes
+# from rows the others copied or wrote) and its cp.async.
+FIBER_EMULATED = {"packed_fused.cu": ("packed_fused_step_launch",
+                                      "packed_fused_step_manual_launch",
+                                      "packed_fused_step_band")}
 # Sources that one thread at a time cannot run: mxu_sweep.cu's warp-wide
 # mma.sync products (each lane's accumulators take operands from all 32
 # lanes; tests/test_torch_mxu.py models its fragments instead);
 # cluster_label.cu's block-wide barriers between its phases (a
 # thread's union-find reads what the others wrote before the barrier), its
 # warp votes, its shared-memory atomics and its device-memory
-# compare-and-swap between threads; packed_fused.cu's rings of rows
-# refilled behind a barrier on every row (a thread computes from rows the
-# others copied) and its cp.async. chip_smoke.py holds those kernels against
-# their plain versions on the card.
+# compare-and-swap between threads. chip_smoke.py holds those kernels
+# against their plain versions on the card.
 NOT_EMULATED = {"mxu_sweep.cu": ("mxu_sweep_launch",),
                 "cluster_label.cu": ("label_tile_roots_launch",
                                      "label_hook_launch",
                                      "label_flatten_launch"),
-                "packed_fused.cu": ("packed_fused_step_launch",
-                                    "packed_fused_step_manual_launch",
-                                    "packed_fused_step_band")}
+                **FIBER_EMULATED}
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +245,38 @@ def emulated_lib(tmp_path_factory):
             continue
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = restype
+    return lib
+
+
+@pytest.fixture(scope="module")
+def fiber_lib(tmp_path_factory):
+    """FIBER_EMULATED's sources, compiled over FIBER_SHIM."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++) to emulate the kernel")
+    d = tmp_path_factory.mktemp("fiber")
+    (d / "cuda_runtime.h").write_text(FIBER_SHIM)
+    sources = []
+    for name in FIBER_EMULATED:
+        src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ",
+                             (kernel_lib.CSRC_DIR / name).read_text())
+        assert n == EMULATED_LAUNCH_SITES[name]
+        for old, new in FIBER_EDITS:
+            assert src.count(old) == 1, old
+            src = src.replace(old, new)
+        sources.append(d / (Path(name).stem + ".cpp"))
+        sources[-1].write_text(src)
+    out = d / "libfiber.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{d}",
+                    f"-I{kernel_lib.CSRC_DIR}", "-o", str(out),
+                    *map(str, sources)], check=True, capture_output=True,
+                   timeout=300)
+    lib = ctypes.CDLL(str(out))
+    for names in FIBER_EMULATED.values():
+        for name in names:
+            getattr(lib, name).argtypes, getattr(lib, name).restype = (
+                kernel_lib.SIGNATURES[name])
+    lib.emu_set.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -315,7 +458,23 @@ PACKED_ACCEPTS = ((1.5, 0.0), (0.0, 0.0), (1.5, 0.3), (0.0, -0.2))
 # (path, (H, W), csl, ysl): W odd and W = 1 for the one-word families (not
 # ChaCha, whose thread owns words q and q + W/2), W = 66 (ncols 1056, not a
 # multiple of 32); the J word; replicas with csl == 1, csl == W and between,
-# ysl == 2, 8 and H; replicas with the J word.
+# ysl == 2, 8 and H; replicas with the J word. A thread walks a band of rows
+# (packed_band): heights 1 (both edge rows from src_up and src_dn) and 2, a
+# band and one row, two bands and three rows, odd heights that cross the
+# band and do not divide it (lone first and last rows: color 1 starts the
+# bands a row up), on the ordered and J-word paths; replicas ysl rows tall
+# that the band does not divide (3, 6, 12), alone and with the J word.
+def packed_band() -> int:
+    """The rows a packed thread walks (csrc/packed_sweep.cu: band_rows)."""
+    src = (kernel_lib.CSRC_DIR / "packed_sweep.cu").read_text()
+    chacha, other = re.search(
+        r"band_rows\(int family\) \{\s*return family == FAMILY_CHACHA \? "
+        r"(\d+) : (\d+);", src).groups()
+    assert chacha == other
+    return int(other)
+
+
+PACKED_BAND = packed_band()
 PACKED_GEOMETRIES = [
     ("ordered", (2, 2), None, None), ("ordered", (6, 6), None, None),
     ("ordered", (8, 66), None, None), ("ordered", (4, 3), None, None),
@@ -325,6 +484,15 @@ PACKED_GEOMETRIES = [
     ("replicas", (8, 66), 33, 8), ("replicas", (4, 6), 3, 2),
     ("replicas+J", (16, 4), 2, 16), ("replicas+J", (8, 6), 1, 8),
     ("replicas+J", (8, 66), 66, 2),
+    ("ordered", (1, 6), None, None), ("ordered", (PACKED_BAND + 1, 2), None, None),
+    ("ordered", (2 * PACKED_BAND + 3, 6), None, None),
+    ("ordered", (PACKED_BAND + 3, 1), None, None),
+    ("jword", (1, 2), None, None), ("jword", (2, 66), None, None),
+    ("jword", (2 * PACKED_BAND + 3, 2), None, None),
+    ("replicas", (2 * PACKED_BAND + 2, 4), 2, PACKED_BAND + 1),
+    ("replicas", (24, 2), 1, 6), ("replicas", (21, 6), 3, 3),
+    ("replicas+J", (3 * (PACKED_BAND // 2 + 1), 6), 6, PACKED_BAND // 2 + 1),
+    ("replicas+J", (2 * PACKED_BAND + 2, 2), 2, PACKED_BAND + 1),
 ]
 
 
@@ -368,6 +536,7 @@ def test_packed_kernel_source_matches_plain_version(geometry, emulated_lib,
 
 
 def test_packed_geometries_cover_the_edges():
+    assert len(set(PACKED_GEOMETRIES)) == len(PACKED_GEOMETRIES)
     widths = {g[1][1] for g in PACKED_GEOMETRIES}
     assert 1 in widths and any(w % 2 for w in widths) and 66 in widths
     rep = [g for g in PACKED_GEOMETRIES if g[2] is not None]
@@ -375,9 +544,127 @@ def test_packed_geometries_cover_the_edges():
     assert any(g[2] == g[1][1] for g in rep)
     assert {8, 2} <= {g[3] for g in rep}
     assert any(g[3] == g[1][0] for g in rep)
+    # the row walk: heights 1 and 2, heights that cross the band and do not
+    # divide it (odd: a lone last row), on the ordered and J-word paths, at
+    # a width ChaCha takes; replica heights that neither divide the band
+    # nor are a multiple of it, alone and with the J word
+    band = PACKED_BAND
+    assert band % 2 == 0
+    for path in ("ordered", "jword"):
+        heights = {g[1][0] for g in PACKED_GEOMETRIES
+                   if g[0] == path and g[1][1] % 2 == 0}
+        assert {1, 2} <= heights
+        assert any(h > band and h % band and h % 2 for h in heights)
+    assert {1, band + 1, 2 * band + 3} <= {
+        g[1][0] for g in PACKED_GEOMETRIES if g[0] == "ordered"}
+    for path in ("replicas", "replicas+J"):
+        assert any(g[3] % band and band % g[3] and g[1][0] > band
+                   for g in PACKED_GEOMETRIES if g[0] == path)
     assert set(PACKED_MODES) == {"philox", "philox7", "threefry",
                                  "threefry13", "chacha8", "chacha6", "chacha4",
                                  "hw"}
+
+
+def _packed_constant(name: str) -> int:
+    src = (kernel_lib.CSRC_DIR / "packed_word.cuh").read_text()
+    return int(re.search(rf"constexpr \w+ {name} = (\d+);", src)[1])
+
+
+def _packed_offsets(me, nsum, accept):
+    """A plain model of csrc/packed_word.cuh's field_offsets: the byte
+    offset 4*(b + 2*g1 + 4*g2 + 8*g3 + 16*g4) of each field (the class bits
+    an accept does not read, and b but for the field table, left at 0),
+    even fields in the bytes of one word and odd fields in another. Returns
+    (H, W, 8) offsets by field."""
+    m = np.uint32
+    m1 = me & m(0x11111111)
+    mask = (m1 << m(4)) - m1
+    e = (nsum & mask) | ((m(0x44444444) - nsum) & ~mask)
+    ge = {k: (e + m((8 - k) * 0x11111111)) & m(0x88888888) for k in (1, 2, 3, 4)}
+    g = ge[4] | (ge[3] >> m(1))
+    if accept != packed.ACCEPT_METROPOLIS:
+        g |= ge[2] >> m(2)
+    if accept == packed.ACCEPT_FIELD:
+        g |= ge[1] >> m(3)
+    lo = (g & m(0x0F0F0F0F)) << m(3)
+    hi = (g >> m(1)) & m(0x78787878)
+    if accept == packed.ACCEPT_FIELD:
+        lo |= (me & m(0x01010101)) << m(2)
+        hi |= (me >> m(2)) & m(0x04040404)
+    return np.stack([(w >> m(8 * (z >> 1))) & m(0xFF)
+                     for z in range(8) for w in ((hi if z & 1 else lo),)], -1)
+
+
+def _packed_table(thr, accept):
+    """The kernel's accept table (packed_word.cuh:table_entry): word i =
+    b + 2*g1 + 4*g2 + 8*g3 + 16*g4 holds the threshold of that class."""
+    t, out = [int(x) for x in thr], []
+    for i in range(_packed_constant("TABLE_WORDS")):
+        b, g1, g2, g3, g4 = ((i >> k) & 1 for k in range(5))
+        if accept == packed.ACCEPT_FIELD:
+            k = 4 if g4 else 3 if g3 else 2 if g2 else 1 if g1 else 0
+            out.append(t[5 + k] if b else t[4 - k])
+        elif accept == packed.ACCEPT_GREEDY:
+            out.append((t[9] if g4 else t[8] if g3 else t[7]) if g2
+                       else 0xFFFFFFFF)
+        else:
+            out.append((t[9] if g4 else t[8]) if g3 else 0xFFFFFFFF)
+    return np.array(out, np.uint32)
+
+
+@pytest.mark.parametrize("temp,field,accept", [
+    (1.5, 0.0, packed.ACCEPT_METROPOLIS), (0.0, 0.0, packed.ACCEPT_GREEDY),
+    (1.5, 0.3, packed.ACCEPT_FIELD), (0.0, -0.2, packed.ACCEPT_FIELD)])
+def test_packed_byte_offsets_read_the_jax_select(temp, field, accept,
+                                                 monkeypatch):
+    """A plain model of the packed kernels' accept (csrc/packed_word.cuh:
+    each field's byte offset into a 32-word table, and a flip where its
+    draw is at or below the word there) against packed_sweep_reference's
+    accept (pallas_packed.py:_accept_and_flip), on random words (carries
+    between fields included) that take every class index the accept reads,
+    with each field's draw one below, at and one above its threshold and
+    at and around every entry of thr10."""
+    assert _packed_constant("TABLE_WORDS") == 32
+    thr = ising.threshold_table(temp, field)
+    table = _packed_table(thr, accept)
+    gen = np.random.default_rng(31 + accept)
+    H, W = 3, 512
+    me, up, dn, src = (_random(gen, (H, W)) for _ in range(4))
+    # replicas one word wide: the off-column word is the word itself
+    nsum = up + dn + src + src
+    off = _packed_offsets(me, nsum, accept)
+    assert off.max() <= 124 and not (off % 4).any()
+    # every class index a field can take: its mirrored count's nibble v
+    # and the carries c_k into it from the lower fields' sums e + (8-k)*M1
+    # (c_1 >= c_2 >= c_3 >= c_4), the bits the accept reads
+    used = {packed.ACCEPT_METROPOLIS: 0b11000, packed.ACCEPT_GREEDY: 0b11100,
+            packed.ACCEPT_FIELD: 0b11111}[accept]
+    reachable = {(b + sum((((v + 8 - k + (k <= c)) >> 3) & 1) << k
+                          for k in (1, 2, 3, 4))) & used
+                 for v in range(16) for c in range(5) for b in (0, 1)}
+    assert set(np.unique(off // 4).tolist()) == reachable
+    th = table[off // 4].astype(np.int64)                      # (H, W, 8)
+    t10 = np.array([int(x) for x in thr], np.int64)
+    near = np.concatenate([th[..., None] + np.array([-1, 0, 1]),
+                           np.broadcast_to(t10[:, None] + np.array([-1, 0, 1]),
+                                           th.shape + (10, 3)).reshape(
+                                               th.shape + (30,))], -1)
+    pick = gen.integers(0, near.shape[-1], th.shape)
+    draws = np.take_along_axis(near, pick[..., None], -1)[..., 0] % (1 << 32)
+    flips = sum(((draws[..., z] <= th[..., z]).astype(np.uint32)
+                 << np.uint32(4 * z)) for z in range(8))
+    for row in range(H):
+        # the reference's draws: column z*W + j is field z of word j
+        monkeypatch.setattr(packed, "counter_color_draws",
+                            lambda *a, row=row, **k: torch.from_numpy(
+                                draws[row].T.reshape(1, 8 * W).copy()))
+        got = packed.packed_sweep_reference(
+            _torch(me[row:row + 1]), _torch(src[row:row + 1]),
+            _torch(up[row:row + 1]), _torch(dn[row:row + 1]), thr, 0, 0,
+            color=0, seed=0, rng_mode="philox", greedy=temp <= 0,
+            full_table=accept == packed.ACCEPT_FIELD, csl=1)
+        want = me[row] ^ flips[row]
+        np.testing.assert_array_equal(got.numpy().view(np.uint32)[0], want)
 
 
 @pytest.mark.parametrize("args,ok", [
@@ -403,6 +690,58 @@ def test_packed_launcher_checks_its_arguments(emulated_lib, args, ok):
     assert emulated_lib.packed_sweep_launch(
         p, p, p, p, 4, 3, 0, 0, 0, 0, thr, 0, 0, 2, 8, 0, None, 0, 0,
         None) != 0
+
+
+# The fused step (packed_fused.cu, both entry points): (H, W, row0, band
+# rows; 0 for one wave of the emulated 3 SMs x 2 CTAs): W = 66 (W/2 odd:
+# ChaCha's pairs) with H = 14, 6 and 2 (bands of 1 and 3 rows, bands that
+# wrap onto themselves, fewer rows than CTAs), odd heights and bands (a
+# band's first row of either parity), narrow rows (W = 2: both row ends in
+# one thread), W = 130 (a row that needs a second pass of the CTA's
+# threads), row0 near 2^32 (counters that carry and wrap).
+FUSED_SHAPES = [(14, 66, (1 << 32) - 8, 0), (14, 66, 3, 3), (6, 66, 0, 1),
+                (2, 66, (1 << 32) - 1, 0), (2, 66, 5, 1), (7, 4, 1, 2),
+                (9, 2, (1 << 32) - 3, 4), (5, 260, 0, 0), (11, 6, 2, 3)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES,
+                         ids=[f"{s[0]}x{s[1]}-{s[2]}-{s[3]}"
+                              for s in FUSED_SHAPES])
+def test_fused_kernel_source_matches_plain_version(shape, fiber_lib):
+    """Both fused entry points against the plain fused step, both planes,
+    in every u32 mode and hw and every accept, the threads of a block in
+    forward and reverse order, cp.async copies landing at once and at the
+    wait."""
+    H, W, row0, band = shape
+    gen = np.random.default_rng(300 + FUSED_SHAPES.index(shape))
+    for i, (mode, (temp, field)) in enumerate(itertools.product(
+            PACKED_MODES, PACKED_ACCEPTS)):
+        if mode.startswith("chacha") and W % 2:
+            continue
+        black, white = _random(gen, (H, W)), _random(gen, (H, W))
+        thr = ising.threshold_table(temp, field)
+        seed, step = int(gen.integers(0, 1 << 62)), int(gen.integers(0, 1 << 32))
+        kw = dict(seed=seed, rng_mode=mode, greedy=temp <= 0,
+                  full_table=field != 0)
+        want = packed.packed_fused_step_reference(_torch(black), _torch(white),
+                                                  thr, row0, step, **kw)
+        tag_b, kb0, kb1, family, rounds = bit1.launch_args(mode, seed, step, 0)
+        tag_w, kw0, kw1, _, _ = bit1.launch_args(mode, seed, step, 1)
+        for manual, fn in enumerate((fiber_lib.packed_fused_step_launch,
+                                     fiber_lib.packed_fused_step_manual_launch)):
+            fiber_lib.emu_set(i % 2, (i // 2 + manual) % 2)
+            got = [np.zeros_like(black), np.zeros_like(white)]
+            code = fn(black.ctypes.data, white.ctypes.data, got[0].ctypes.data,
+                      got[1].ctypes.data, H, W, row0, step,
+                      kernel_lib.table10(thr), tag_b, kb0, kb1, tag_w, kw0,
+                      kw1, family, rounds,
+                      packed._accept(temp <= 0, field != 0), band, None)
+            assert code == 0
+            for g, w, color in zip(got, want, ("black", "white")):
+                np.testing.assert_array_equal(
+                    g, w.numpy().view(np.uint32),
+                    err_msg=f"{shape} manual={manual} {mode} T={temp} "
+                            f"h={field} {color}")
 
 
 class HostPlane(HostWords):
