@@ -2,6 +2,7 @@
 """Run the PyTorch/H100 port (ising_tpu_torch) on one CUDA card and check it.
 
     python3 chip_smoke.py [--against OLD_TREE]
+    python3 chip_smoke.py --turns OTHER_TREE MODE[,PATH][,h=F][,T=0] ...
 
 Phases, each printed as it ends:
 
@@ -11,12 +12,16 @@ Phases, each printed as it ends:
                hold a tensor-core instruction, IMMA for its u8 products);
   3. kernel    bit1_sweep against its plain torch version, bit for bit,
                at the full 16384 width and two small shapes (one whose
-               counters carry and whose rows wrap), in every rng mode, at
+               counters carry and whose rows wrap), then at heights that
+               cross the row walk's bands (13, 21 and 48 rows) and a lone
+               row at the 16384 width and at 2112 columns (W1 = 33), row0
+               near 2^32 among them, in every rng mode, at
                T > 0, at T = 0 and, in the bit-plane modes and hw, with an
                external field; both colors, several steps; then on the
                disorder and replica paths (J planes, the split link store,
                replicas with csl == 1, csl == W1, ysl == 8 and ysl == H,
-               replicas with J planes), in every mode and accept; then
+               replicas with J planes, and at 48 rows replicas of 6 and 12
+               rows), in every mode and accept; then
                packed_sweep the same way on random words (bit 31 set in
                half of them), at the 16384 width and at 1056 (W = 66, not
                a multiple of 32), at heights that cross its bands (13, 21
@@ -92,9 +97,10 @@ Phases, each printed as it ends:
                threefry13, philox, chacha6b and chacha8: the kernel against
                its plain version once more, bit for bit, for both colors;
                then both timed per color phase (CUDA events), beside the
-               least time the card could take and the compiled code's pipe
-               mix; then packed_sweep in every u32 mode and hw, with the
-               field in philox, and on the J-word, replica and replica + J
+               least time the card could take and the ALU and FMA
+               instructions a word in the kernel's main loop (the pair of
+               rows a thread walks); then packed_sweep in every u32 mode
+               and hw, with the field in philox, and on the J-word, replica and replica + J
                paths in threefry13, philox and chacha8, beside bit1's time
                in the same mode and path and its ALU and FMA instructions a
                word; then both fused kernels per step in every u32 mode and
@@ -113,12 +119,17 @@ Phases, each printed as it ends:
                labeling by tile.
 
 With --against OLD_TREE (another checkout of the repository, such as its
-parent commit's), it then times packed_sweep (phase 6's cases) and both
-fused kernels (the four main modes) at 16384^2 from OLD_TREE's kernel
-library and from this tree's, in turns (old, new, new, old) on the same
-words, their results equal; and runs the CLI at 16384^2 in threefry13 from
-OLD_TREE and from this tree in turns (cli_turns.py: old, new, new, old):
-dense, packed, and packed under ISING_TPU_FUSED=1.
+parent commit's), it then times bit1_sweep and packed_sweep (phase 6's
+cases: every mode, the field and every path) and both fused kernels (the
+four main modes) at 16384^2 from OLD_TREE's kernel library and from this
+tree's, in turns (old, new, new, old) on the same words, their results
+equal; and runs the CLI at 16384^2 from OLD_TREE and from this tree in
+turns (cli_turns.py: old, new, new, old): bit1 in threefry13, chacha6b and
+hw, and in threefry13 dense, packed, and packed under ISING_TPU_FUSED=1.
+
+With --turns OTHER_TREE and cases, it only times bit1_sweep in those
+cases from both trees' libraries in turns, as --against does, and prints
+both libraries' build times: a probe of a kernel edit, with no result line.
 
 It ends with one JSON line of the kernels and then the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero without the
@@ -132,6 +143,7 @@ import collections
 import contextlib
 import ctypes
 import faulthandler
+import functools
 import json
 import math
 import os
@@ -177,6 +189,15 @@ XLA_GEOMETRY_FLAGS = ["-J", "0.1", "--xsl", "64", "--ysl", "64"]
 # family's 64-bit counter into its high word
 COMPARE_SHAPES = ((512, 16384, 0), (64, 1024, (1 << 25) - 32),
                   (64, 1024, (1 << 32) - 32))
+# (Y, X, row0) of bit1's row walk: heights that cross its bands and do not
+# divide them (13, 21 and 48 rows) and a lone row (both edge rows from src_up
+# and src_dn), at the 16384 width and at 2112 columns (W1 = 33), counters
+# that carry and rows that wrap mod 2^32 among them; one step, both colors.
+# At 48 rows also on the disorder and replica paths, with replicas of 6 and
+# 12 rows (which the bands do not divide).
+BAND_SHAPES = ((13, 2112, (1 << 32) - 6), (21, 16384, 3), (48, 2112, (1 << 32) - 20),
+               (1, 2112, 7), (13, 16384, 0), (21, 2112, (1 << 32) - 2),
+               (48, 16384, (1 << 25) - 24), (1, 16384, (1 << 32) - 1))
 # (temperature, field); a field only in the bit-plane modes and hw
 ACCEPTS = ((1.5, 0.0), (0.0, 0.0), (1.5, 0.3))
 TIMED_FIELD = 0.3
@@ -391,16 +412,17 @@ def call_ops(family: str, rounds: int) -> tuple[int, int]:
 
 # What a disorder or replica path adds to a word's update, under
 # ops_per_word's rule, and the words of lattice traffic it moves per word.
-# J planes: 4 xors of the flags into the neighbours. Split links: the same
-# 4 xors, and the projection: the E/O plane choice, the row-0 wrap of the
-# up flag's row, and for j_off the rotation, the lane-0 select and the
-# odd-column select (5). Replicas: the two remainders y % ysl and j % csl
-# (a multiply-high and a multiply-add each by a per-launch reciprocal: 4),
-# whose edge selects replace the periodic ones, less the two rotations the
-# periodic wrap needs (-2). Traffic: read dst and src, write dst (3), and
-# the four link words where there are links (7).
-PATH_OPS = {None: 0, "jplanes": 4, "split_links": 9, "replicas": 2,
-            "replicas+jplanes": 6}
+# A thread walks a band of rows down its word column, so what is fixed for
+# a thread or a row (its side, its plane choice, a replica's edges, a row's
+# address) is control and loads, not operations a word. J planes: 4 xors of
+# the flags into the neighbours. Split links: the same 4 xors, and the
+# rotation of the off-column link word at the row's first lane (1).
+# Replicas: nothing (the row's replica edges pick the rows loaded, the
+# column's pick the side word, and the lane wraps take no rotation).
+# Traffic: read dst and src, write dst (3), and the four link words where
+# there are links (7).
+PATH_OPS = {None: 0, "jplanes": 4, "split_links": 5, "replicas": 0,
+            "replicas+jplanes": 4}
 PATH_WORDS = {None: 3, "jplanes": 7, "split_links": 7, "replicas": 3,
               "replicas+jplanes": 7}
 
@@ -429,10 +451,10 @@ def ops_per_word(mode: str, greedy: bool, field_table=None,
     else:
         # 32 draws per word; compare + set bit, per threshold
         calls, accept = 32 // draws, 32 * (3 if greedy else 2) * 2
-    # index and (y, j) 4; edge selects and rotations of the 4 neighbours
-    # and the off-column choice 12; the bit-sliced adder 8; counter base 2;
-    # the xor into dst 1
-    common = 4 + 12 + 8 + 2 + 1
+    # the bit-sliced adder 8; the off-column word's rotation 1; the xor
+    # into dst 1; the row's counter base 2 (a thread's column and rows come
+    # from its grid position, its side is fixed down its band)
+    common = 8 + 1 + 1 + 2
     if field_table is not None:
         accept = field_accept_ops(kbits, *field_table)
     else:
@@ -510,20 +532,20 @@ MXU_KERNELS = 10
 def sass_mix(lib_path: str):
     """({(kernel, template arguments): Counter(pipe -> SASS instructions)},
     the same for each kernel's main loop) of each kernel instantiation, from
-    cuobjdump (pipes and loops as ising_tpu_torch/sass.py reads them): for
-    bit1_sweep (family, rounds, greedy), for bit1_planes (family, rounds,
-    kbits, accept), for packed_sweep (family, rounds, accept, J word,
-    replica rows), for
+    cuobjdump (pipes and loops as ising_tpu_torch/sass.py reads them, each
+    kernel keyed by sass.kernel_key): for bit1_sweep (family, rounds,
+    greedy, link mode, replica rows), for bit1_planes (family, rounds,
+    kbits, accept, link mode, replica rows), for packed_sweep (family,
+    rounds, accept, J word, replica rows), for
     packed_fused (family, rounds, accept, cp.async), for dense_sweep
     (family, rounds, sites per word, J planes), for mxu_sweep (family,
     rounds, n8 tiles a run); "tensor" counts HMMA and IMMA.
-    The bit1 and mxu sweeps are fully unrolled and branch-free apart from
-    their edge and path selects, so the whole function is close to the
-    instructions one thread (one word; an mxu lane's warp tile) issues.
-    The main loop of dense_sweep and packed_sweep is the pair of rows a
-    thread walks (2 S V sites; 2 words, 4 in the packed ChaCha kernel), of
-    packed_fused one word's update (a pair of words in ChaCha). None
-    without cuobjdump."""
+    The mxu sweep is fully unrolled and branch-free, so its whole function
+    is close to the instructions one lane (its warp tile) issues. The main
+    loop of bit1's, dense's and packed's sweeps is the pair of rows a
+    thread walks (2 words in bit1; 2 S V sites; 2 words, 4 in the packed
+    ChaCha kernel), of packed_fused one word's update (a pair of words in
+    ChaCha). None without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(kernel_lib.find_nvcc()).parent / "cuobjdump")
     try:
@@ -532,11 +554,9 @@ def sass_mix(lib_path: str):
         return None, None
     mix, loops = {}, {}
     for name, instrs in sass.functions(listing).items():
-        m = re.search(r"(bit1_\w+?|packed_sweep|packed_fused|dense_sweep|"
-                      r"mxu_sweep)_kernelI((?:L[ib]\d+E)+)", name)
-        if not m:
+        key = sass.kernel_key(name)
+        if key is None:
             continue
-        key = (m[1], tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2])))
         lo_hi = sass.main_loop(instrs)
         mix[key] = sass.mix(instrs, [])["all"]
         loops[key] = sass.mix([i for i in instrs if lo_hi
@@ -602,8 +622,9 @@ def phase_compare(dev):
     """Kernel vs plain on the same CUDA tensors; returns (cases, max err)."""
     gen = np.random.default_rng(2024)
     cases, max_err = 0, 0
-    for Y, X, row0 in COMPARE_SHAPES:
+    for Y, X, row0 in COMPARE_SHAPES + BAND_SHAPES:
         H, W1 = Y, X // 64
+        steps = COMPARE_STEPS if (Y, X, row0) in COMPARE_SHAPES else 1
         for mode in PORTED_MODES:
             for temp, field in ACCEPTS:
                 if field and not bit1.accept_bits(mode):
@@ -612,7 +633,7 @@ def phase_compare(dev):
                 b = random_words(gen, (H, W1), dev)
                 w = random_words(gen, (H, W1), dev)
                 seed = int(gen.integers(0, 1 << 62))
-                for step in range(COMPARE_STEPS):
+                for step in range(steps):
                     for color, (dst, src) in enumerate(((b, w), (w, b))):
                         kw = dict(color=color, seed=seed, rng_mode=mode,
                                   greedy=temp <= 0,
@@ -632,17 +653,22 @@ def phase_compare(dev):
                                 f"color={color}")
         say(f"[kernel] {Y}x{X} row0={row0}: all {len(PORTED_MODES)} modes, "
             "T in (1.5, 0) and h = 0.3 in the bit-plane modes and hw, both "
-            f"colors, {COMPARE_STEPS} steps equal to the plain version")
+            f"colors, {steps} step(s) equal to the plain version")
     return cases, max_err
 
 
 def geometry_cases(H: int, W1: int):
     """(path, csl, ysl) of phase 3's disorder and replica cases at (H, W1):
-    the edge geometries csl == 1, csl == W1, ysl == 8 and ysl == H."""
+    the edge geometries csl == 1, csl == W1, ysl == 8 and ysl == H, and
+    replicas of 6 and 12 rows where they divide H."""
     return [("jplanes", None, None), ("split_links", None, None),
             ("replicas", 1, 8), ("replicas", W1, H),
-            ("replicas", max(1, W1 // 4), max(8, H // 4)),
-            ("replicas+jplanes", W1, 8), ("replicas+jplanes", 1, H)]
+            ("replicas", next(c for c in range(max(1, W1 // 4), 0, -1)
+                              if W1 % c == 0), max(8, H // 4)),
+            ("replicas+jplanes", W1, 8), ("replicas+jplanes", 1, H)] + [
+        (path, csl, ysl) for path, csl, ysl in (
+            ("replicas", W1, 6), ("replicas+jplanes", 1, 12))
+        if H % ysl == 0]
 
 
 def geometry_kwargs(path, csl, ysl, links):
@@ -656,7 +682,8 @@ def phase_compare_geometry(dev):
     accept, both colors; returns (cases, max err)."""
     gen = np.random.default_rng(2025)
     cases, max_err = 0, 0
-    for Y, X, row0 in COMPARE_SHAPES[:2]:
+    for Y, X, row0 in COMPARE_SHAPES[:2] + tuple(s for s in BAND_SHAPES
+                                                 if s[0] == 48):
         H, W1 = Y, X // 64
         for path, csl, ysl in geometry_cases(H, W1):
             for mode in PORTED_MODES:
@@ -1103,7 +1130,31 @@ def timing_cases():
                for mode in TIMED_PATH_MODES])
 
 
-def phase_timing(card, mix):
+# The template arguments of a bit1 kernel after (family, rounds) and the
+# accept: the link mode and whether there are replica rows, by path.
+BIT1_PATH_ARGS = {None: (bit1.LINKS_NONE, 0), "jplanes": (bit1.LINKS_JPLANES, 0),
+                  "split_links": (bit1.LINKS_SPLIT, 0),
+                  "replicas": (bit1.LINKS_NONE, 1),
+                  "replicas+jplanes": (bit1.LINKS_JPLANES, 1)}
+
+
+def bit1_kernel_key(mode: str, field: float, path: str | None):
+    """sass_mix's key of the bit1 kernel that phase 6 times for (mode, field
+    at T = 1.5, path): bit1_planes (family, rounds, kbits, accept, links,
+    replica rows) or bit1_sweep (family, rounds, greedy, links, replica
+    rows)."""
+    family, rounds = parse_rng_mode(mode)
+    kbits = bit1.accept_bits(mode)
+    if family == "hw":
+        family, rounds = "philox", 10
+    code = bit1._FAMILY_CODE[family]
+    if kbits:
+        accept = bit1.ACCEPT_FIELD if field else bit1.ACCEPT_METROPOLIS
+        return "bit1_planes", (code, rounds, kbits, accept, *BIT1_PATH_ARGS[path])
+    return "bit1_sweep", (code, rounds, 0, *BIT1_PATH_ARGS[path])
+
+
+def phase_timing(card, loops):
     """Per color phase at 16384^2, at T = 1.5, in every rng mode, in the
     bit-plane modes and hw with a field, and on the disorder and replica
     paths (replicas of --xsl 128 --ysl 128): kernel against plain (bit for
@@ -1147,23 +1198,16 @@ def phase_timing(card, mix):
         ops_ms = ops * words / rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "operations" if ops_ms > bytes_ms else "bytes"
-        family, rounds = parse_rng_mode(mode)
-        kbits = bit1.accept_bits(mode)
-        if family == "hw":
-            family, rounds = "philox", 10
-        code = bit1._FAMILY_CODE[family]
-        accept = bit1.ACCEPT_FIELD if field else bit1.ACCEPT_METROPOLIS
-        pipes = dict((mix or {}).get(
-            ("bit1_planes", (code, rounds, kbits, accept)) if kbits else
-            ("bit1_sweep", (code, rounds, 0)), {}))
-        pipe_ms = {p: pipes[p] * words / pipe_rate * 1e3
-                   for p in ("alu", "fma") if p in pipes}
+        pipes = dict((loops or {}).get(bit1_kernel_key(mode, field, path), {}))
+        # a pass of the loop: a pair of rows of the thread's word
+        per_word = {p: pipes[p] / 2 for p in ("alu", "fma") if p in pipes}
+        pipe_ms = {p: n * words / pipe_rate * 1e3 for p, n in per_word.items()}
         ordered = out.get((mode, 0.0, None), {}).get("ms")
         out[(mode, field, path)] = {
             "ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes_ms": bytes_ms,
-            "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_word": pipes,
-            "pipe_ms": pipe_ms}
+            "ops_per_word": ops, "ops_ms": ops_ms, "sass_per_pass": pipes,
+            "sass_per_word": per_word, "pipe_ms": pipe_ms}
         say(f"[timing] {MAIN_SHAPE}^2 {what}, one color phase: kernel "
             f"{ms:.4f} ms median of {TIMED_REPEATS} x {TIMED_LAUNCHES} "
             f"launches (range {runs[0]:.4f}-{runs[-1]:.4f}; "
@@ -1173,10 +1217,15 @@ def phase_timing(card, mix):
             + f"), plain {plain_ms:.2f} ms; "
             f"bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f} "
             f"ms; {ops} integer ops/word -> {ops_ms:.4f} ms), "
-            f"{bound_ms / ms:.1%} of bound; compiled code per word "
-            f"{pipes}, at {PIPE_LANES_PER_SM} lanes/SM per pipe "
+            f"{bound_ms / ms:.1%} of bound; compiled code per pass of the "
+            f"row pair {pipes}; "
+            + ", ".join(f"{p.upper()} {n:.1f}" for p, n in per_word.items())
+            + f" instructions a word, at {PIPE_LANES_PER_SM} lanes/SM per pipe "
             + ", ".join(f"{p} {t:.4f} ms" for p, t in pipe_ms.items())
             + f", on {card['smi']}")
+    require(all(v["sass_per_word"] for v in out.values()) or loops is None,
+            "no compiled-code count for the bit1 cases "
+            f"{[k for k, v in out.items() if not v['sass_per_word']]}")
     return out, cases, max_err
 
 
@@ -2159,79 +2208,114 @@ def label_entries(sw_main, timing, cases, max_abs_err, info):
     return entries
 
 
-TURNS_FLAGS = ["--rng", "threefry13", "-x", str(MAIN_SHAPE), "-y",
-               str(MAIN_SHAPE), "-w", "8", "-n", "64", "-p", "16"]
-# (what, ISING_TPU_FUSED, backend) of the CLI runs timed in turns
-TURNS_RUNS = (("dense", None, "dense"), ("packed", None, "packed"),
-              ("packed ISING_TPU_FUSED=1", "1", "packed"))
+TURNS_FLAGS = ["-x", str(MAIN_SHAPE), "-y", str(MAIN_SHAPE), "-w", "8", "-n",
+               "64", "-p", "16"]
+# (backend, ISING_TPU_FUSED, rng mode) of the CLI runs timed in turns: bit1
+# in the main path's threefry13 and chacha6b and in bench.py's hw, then
+# dense, packed and its fused step in threefry13
+TURNS_RUNS = (("bit1", None, "threefry13"), ("bit1", None, "chacha6b"),
+              ("bit1", None, "hw"), ("dense", None, "threefry13"),
+              ("packed", None, "threefry13"), ("packed", "1", "threefry13"))
 
 
 def phase_turns(old_tree: str):
     """The CLI from old_tree and from this tree in turns, one process a
     run, for each of TURNS_RUNS; the second runs compare (a first run pays
     its tree's build)."""
-    for what, fused, backend in TURNS_RUNS:
+    for backend, fused, mode in TURNS_RUNS:
+        what = backend + (f" ISING_TPU_FUSED={fused}" if fused else "")
         with fused_env(fused):
             runs = [[tree, cli_turns.run_cli(
-                tree, ["--backend", backend] + TURNS_FLAGS)]
+                tree, ["--backend", backend, "--rng", mode] + TURNS_FLAGS)]
                 for tree in (old_tree, ".", ".", old_tree)]
-        say(f"[turns] {what} threefry13 {MAIN_SHAPE}^2, flips/ns: "
+        say(f"[turns] {what} {mode} {MAIN_SHAPE}^2, flips/ns: "
             + ", ".join(f"{t} {r:.2f}" for t, r in runs)
             + f"; second runs {runs[2][1] / runs[3][1]:.3f}x the old tree's")
-        say(json.dumps({"what": what, "runs": runs}))
+        say(json.dumps({"what": f"{what} {mode}", "runs": runs}))
 
 
 def old_library(old_tree: str):
-    """The kernel library of another checkout, built there by its own
-    kernel_lib, with this tree's signatures of the packed entry points
-    (unchanged since they were ported)."""
+    """(kernel library, bit1's accept_table for it) of another checkout,
+    built there by its own kernel_lib, with this tree's signatures of the
+    bit1 and packed entry points (unchanged since they were ported)."""
     out = subprocess.run(
         [sys.executable, "-c", "from ising_tpu_torch.ops import kernel_lib; "
-         "print(kernel_lib.load()[1].path)"], cwd=old_tree,
-        capture_output=True, text=True, check=True,
+         "info = kernel_lib.load()[1]; "
+         "print(info.path, kernel_lib.TABLE_WORDS, info.seconds)"],
+        cwd=old_tree, capture_output=True, text=True, check=True,
         timeout=kernel_lib.NVCC_TIMEOUT_S).stdout
-    lib = ctypes.CDLL(out.split()[-1])
-    for name in ("packed_sweep_launch", "packed_fused_step_launch",
+    path, words, seconds = out.split()[-3:]
+    say(f"[against] {old_tree}'s kernel library: nvcc {float(seconds):.1f} s "
+        f"(0.0: cached)")
+    lib = ctypes.CDLL(path)
+    for name in ("bit1_sweep_launch", "bit1_planes_launch",
+                 "packed_sweep_launch", "packed_fused_step_launch",
                  "packed_fused_step_manual_launch", "ising_cuda_error_string"):
         getattr(lib, name).argtypes, getattr(lib, name).restype = (
             kernel_lib.SIGNATURES[name])
-    return lib
+    return lib, table_of_layout(int(words))
+
+
+def table_of_layout(words: int):
+    """bit1.accept_table for a kernel library whose AcceptTable
+    (bit1_planes.cu) has `words` words: this tree's, or the 3 + 10 + 10 x
+    TABLE_KBITS words (t4k, t8k, the draw-class bits, the always-words, the
+    class bit-words) of trees whose kernel read t4k and t8k by value."""
+    if words == kernel_lib.TABLE_WORDS:
+        return bit1.accept_table
+    K, ours = kernel_lib.TABLE_KBITS, bit1.accept_table
+    require(words == 3 + 10 + 10 * K, f"an AcceptTable of {words} words")
+
+    @functools.lru_cache(maxsize=16)   # built once, as bit1.accept_table is
+    def table(kbits, t4k, t8k, tvals10, always10):
+        new = list(ours(kbits, t4k, t8k, tvals10, always10))
+        return (ctypes.c_uint32 * words)(t4k, t8k, *new[2 * K:])
+    return table
 
 
 @contextlib.contextmanager
-def library(lib):
-    """The wrappers launch `lib`'s kernels for the block."""
-    saved = kernel_lib.load
+def library(lib, table=None):
+    """The wrappers launch `lib`'s kernels for the block (bit1's planes
+    kernel with the threshold table that `table` lays out)."""
+    saved = kernel_lib.load, bit1.accept_table
     kernel_lib.load = lambda: (lib, None)
+    bit1.accept_table = table or saved[1]
     try:
         yield
     finally:
-        kernel_lib.load = saved
+        kernel_lib.load, bit1.accept_table = saved
 
 
-def phase_against_kernels(card, old_tree: str):
-    """packed_sweep (packed_timing_cases) and both fused kernels (the main
-    modes) from old_tree's library and from this tree's, at 16384^2 on the
-    same random words: their results equal, then each timed (median of
-    TIMED_REPEATS x TIMED_LAUNCHES) in turns, old, new, new, old."""
-    old, new = old_library(old_tree), kernel_lib.load()[0]
+def phase_against_kernels(card, old_tree: str, bit1_cases=None):
+    """bit1_sweep (timing_cases: every mode, the field, every disorder and
+    replica path), packed_sweep (packed_timing_cases) and both fused
+    kernels (the main modes) from old_tree's library and from this tree's,
+    at 16384^2 on the same random words: their results equal, then each
+    timed (median of TIMED_REPEATS x TIMED_LAUNCHES) in turns, old, new,
+    new, old. bit1_cases: only these (mode, field, path, greedy) cases of
+    bit1_sweep, and no other kernel."""
+    (old, old_table), new = old_library(old_tree), kernel_lib.load()[0]
+    libs = {"old": (old, old_table), "new": (new, None)}
     dev = torch.device("cuda")
     gen = np.random.default_rng(11)
     H, W = MAIN_SHAPE, MAIN_SHAPE // 16
     planes = [random_words(gen, (H, W), dev) for _ in range(2)]
     jword = random_words(gen, (H, W), dev)
+    W1 = MAIN_SHAPE // 64
+    words1 = [random_words(gen, (H, W1), dev) for _ in range(2)]
+    links = [random_words(gen, (H, W1), dev) for _ in range(4)]
     out = {}
 
     def turns(what, launch, result):
         got = []
-        for lib in (old, new):
-            with library(lib):
+        for lib in ("old", "new"):
+            with library(*libs[lib]):
                 got.append(result())
         require(all(torch.equal(a, b) for a, b in zip(*got)),
                 f"{what}: the old and new kernels differ")
         runs = []
-        for lib in (old, new, new, old):
-            with library(lib):
+        for lib in ("old", "new", "new", "old"):
+            with library(*libs[lib]):
                 runs.append(median_ms(launch)[0])
         ratio = (runs[1] + runs[2]) / (runs[0] + runs[3])
         out[what] = {"old_ms": [runs[0], runs[3]], "new_ms": runs[1:3],
@@ -2240,6 +2324,34 @@ def phase_against_kernels(card, old_tree: str):
             f"{runs[1]:.4f}, new {runs[2]:.4f}, old {runs[3]:.4f}; new / old "
             f"{ratio:.3f}, equal results, on {card['smi']}")
 
+    for mode, field, path, greedy in bit1_cases or [
+            (*case, False) for case in timing_cases()]:
+        temp = 0.0 if greedy else 1.5
+        thr = ising.threshold_table(temp, field)
+        jplanes, geo = (None, {}) if path is None else geometry_kwargs(
+            path, *((TIMED_CSL, TIMED_YSL) if "replicas" in path
+                    else (None, None)), links)
+        kw = dict(seed=golden.SEED, rng_mode=mode, greedy=greedy, **geo,
+                  **bit1.plane_accept_args(mode, temp, field))
+
+        def launch(i, thr=thr, kw=kw, jplanes=jplanes):
+            dst, src = words1[i % 2], words1[1 - i % 2]
+            bit1.bit1_sweep(dst, src, src[-1:], src[:1], thr, 0, i, jplanes,
+                            color=i % 2, **kw)
+
+        def result(thr=thr, kw=kw, jplanes=jplanes):
+            d = [words1[0].clone(), words1[1].clone()]
+            for color in (0, 1):
+                dst, src = d[color], d[1 - color]
+                bit1.bit1_sweep(dst, src, src[-1:], src[:1], thr, 0, 5,
+                                jplanes, color=color, **kw)
+            return tuple(d)
+
+        turns("bit1_sweep " + mode + (" T=0" if greedy else "")
+              + (f" h={field}" if field else "")
+              + (f" {path}" if path else ""), launch, result)
+    if bit1_cases:
+        return out
     for mode, field, path in packed_timing_cases():
         thr = ising.threshold_table(1.5, field)
         kw = packed_kwargs(mode, 1.5, field, path, TIMED_CSL, TIMED_YSL)
@@ -2269,12 +2381,58 @@ def phase_against_kernels(card, old_tree: str):
     return out
 
 
+def turns_case(spec: str):
+    """(mode, field, path, greedy) of a --turns case MODE[,PATH][,h=F][,T=0]:
+    an rng mode, a disorder or replica path of GEOMETRY_PATHS, a field
+    and the greedy quench."""
+    mode, *rest = spec.split(",")
+    require(mode in PORTED_MODES, f"--turns: no rng mode {mode!r}")
+    field, path, greedy = 0.0, None, False
+    for part in rest:
+        if part == "T=0":
+            greedy = True
+        elif part.startswith("h="):
+            field = float(part[2:])
+        else:
+            require(part in GEOMETRY_PATHS, f"--turns: no path {part!r}")
+            path = part
+    return mode, field, path, greedy
+
+
+def main_turns(other: str, specs) -> int:
+    """python3 chip_smoke.py --turns OTHER_TREE CASE ...: bit1_sweep in each
+    CASE (turns_case) from OTHER_TREE's kernel library and from this
+    tree's, at 16384^2 in turns (phase_against_kernels), with both
+    libraries' build times. A probe of a kernel edit, not the check: it
+    prints no result line and exits 0 when every case ran, equal."""
+    signal.signal(signal.SIGALRM, _on_alarm)
+    signal.alarm(AGAINST_S)
+    try:
+        card = phase_device()
+        cases = [turns_case(spec) for spec in specs]
+        require(cases, "--turns: no case given")
+        info = kernel_lib.load()[1]
+        frames = stack_frames(info.ptxas)
+        say(f"[against] this tree's kernel library: nvcc {info.seconds:.1f} s "
+            f"(0.0: cached), {len(frames)} kernels, stack frames in "
+            f"{sorted(str(sass.kernel_key(k) or k) for k, v in frames.items() if v)}")
+        phase_against_kernels(card, other, cases)
+    except Failed as e:
+        say(f"FAILED: {e}")
+        return 1
+    finally:
+        signal.alarm(0)
+    return 0
+
+
 def _on_alarm(signum, frame):
     raise Failed("time budget exceeded")
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--turns"] and len(argv) > 1:
+        return main_turns(argv[1], argv[2:])
     against = argv[argv.index("--against") + 1] if "--against" in argv else None
     budget = BUDGET_S + (AGAINST_S if against else 0)
     signal.signal(signal.SIGALRM, _on_alarm)
@@ -2324,7 +2482,7 @@ def main(argv=None) -> int:
         say(f"[time] {elapsed():.1f} s")
         sw_main = phase_sw_main(card)
         say(f"[time] {elapsed():.1f} s")
-        timing, full_cases, full_err = phase_timing(card, mix)
+        timing, full_cases, full_err = phase_timing(card, loops)
         cases, max_err = cases + full_cases, max(max_err, full_err)
         p_timing, full_cases, full_err = phase_timing_packed(card, loops, timing)
         p_cases, p_err = p_cases + full_cases, max(p_err, full_err)

@@ -3,8 +3,8 @@
 // mxu_sweep.cu): Philox4x32, Threefry2x32 and ChaCha of ising_tpu/rng.py, as
 // ising_tpu/ops/pallas_packed.py draws them (_draw_counters,
 // _philox_draw_block, _threefry_draw_block, _chacha_draw_block), the 64-bit
-// spatial counter, and two helpers that steer instructions between the ALU
-// and FMA pipes (fma_add, flip_if_le).
+// spatial counter, and helpers that steer instructions between the ALU and
+// FMA pipes (fma_add, flip_if_le, add_if_gt).
 
 #pragma once
 
@@ -115,14 +115,6 @@ __device__ __forceinline__ uint64_t counter(uint32_t gy, uint32_t nq, uint32_t k
   return static_cast<uint64_t>(gy) * nq + k;
 }
 
-// Blocks of 256 threads covering `threads` threads, or false for a count the
-// grid cannot cover.
-inline bool grid_for_threads(int64_t threads, dim3& grid) {
-  if (threads <= 0 || (threads + 255) / 256 > 0x7FFFFFFF) return false;
-  grid = dim3(static_cast<unsigned>((threads + 255) / 256));
-  return true;
-}
-
 // a + b on the FMA pipe (IMAD a, one, b), bit for bit the 32-bit sum: `one`
 // is a kernel argument (always 1), so the compiler cannot fold it back into
 // an ALU add.
@@ -145,6 +137,26 @@ __device__ __forceinline__ void flip_if_le(uint32_t& x, uint32_t d, uint32_t th,
       : "r"(d), "r"(th), "r"(bit));
 #else
   x ^= d <= th ? bit : 0u;
+#endif
+}
+
+// x += bit where d > th (unsigned), on the FMA pipe: the high word of the
+// 64-bit d * one + (2^32 - 1 - th) is 1 exactly where d > th (one = 1, a
+// kernel argument, so the multiply-add is not folded back into an ALU add),
+// and a second multiply-add moves it to bit. Two FMA-pipe instructions, no
+// ALU one; x holds distinct bits, so the add is an or.
+__device__ __forceinline__ void add_if_gt(uint32_t& x, uint32_t d, uint32_t th, uint32_t bit,
+                                          uint32_t one) {
+#ifdef __CUDA_ARCH__
+  const uint64_t nth = ~th;   // zero-extended
+  asm("{\n\t.reg .u64 t;\n\t.reg .u32 lo, hi;\n\t"
+      "mad.wide.u32 t, %1, %3, %2;\n\t"
+      "mov.b64 {lo, hi}, t;\n\t"
+      "mad.lo.u32 %0, hi, %4, %0;\n\t}"
+      : "+r"(x)
+      : "r"(d), "l"(nth), "r"(one), "r"(bit));
+#else
+  x += d > th ? bit * one : 0u;
 #endif
 }
 

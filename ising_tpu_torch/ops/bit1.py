@@ -157,21 +157,30 @@ def plane_accept_args(rng_mode: str, temp: float, field: float = 0.0) -> dict:
 @functools.lru_cache(maxsize=16)
 def accept_table(kbits: int, t4k: int, t8k: int, tvals10, always10: int):
     """bit1_planes_launch's threshold table (AcceptTable in
-    csrc/bit1_planes.cu) as kernel_lib.TABLE_WORDS ctypes words: t4k, t8k;
-    with a field (tvals10 a tuple) the mask of the classes that flip on a
-    draw, then all-ones words where a class always flips and where bit z
-    of a drawing class's threshold is set. Built once per set of
-    thresholds, not on every launch."""
-    words = [t4k, t8k, 0] + [0] * (kernel_lib.TABLE_WORDS - 3)
+    csrc/bit1_planes.cu) as kernel_lib.TABLE_WORDS ctypes words, each
+    threshold bit laid out as a whole word (all ones where it is set), so
+    that the kernel's step of the bit-serial compare over a plane is one
+    logic op: the bit-words of t4k and of t8k; with a field (tvals10 a
+    tuple) the mask of the classes that flip on a draw, then all-ones
+    words where a class always flips and the bit-words of each drawing
+    class's threshold. Built once per set of thresholds, not on every
+    launch."""
+    K = kernel_lib.TABLE_KBITS
+    words = [0] * kernel_lib.TABLE_WORDS
+    for i, t in enumerate((t4k, t8k)):
+        for z in range(kbits):
+            if (t >> z) & 1:
+                words[i * K + z] = MASK
     if tvals10 is not None:
+        draws, always, bits = 2 * K, 2 * K + 1, 2 * K + 11
         for c, t in enumerate(tvals10):
             if (always10 >> c) & 1:
-                words[3 + c] = MASK
+                words[always + c] = MASK
             elif t:
-                words[2] |= 1 << c
+                words[draws] |= 1 << c
                 for z in range(kbits):
                     if (t >> z) & 1:
-                        words[13 + c * kernel_lib.TABLE_KBITS + z] = MASK
+                        words[bits + c * K + z] = MASK
     return (ctypes.c_uint32 * kernel_lib.TABLE_WORDS)(*words)
 
 
@@ -439,7 +448,8 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, jplanes=None, *,
                ysl: int | None = None):
     """One color half-sweep of dst, in place; returns dst.
 
-    On CUDA tensors this launches a kernel of csrc/ (one thread per word):
+    On CUDA tensors this launches a kernel of csrc/ (a thread walks a
+    band of rows down its word column):
     bit1_sweep.cu in the u32 modes, bit1_planes.cu in the bit-plane modes;
     a launch that fails raises. On CPU tensors it runs
     bit1_sweep_reference. Arguments as for bit1_sweep_reference. Counts

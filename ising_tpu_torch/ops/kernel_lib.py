@@ -29,10 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 
 _c = ctypes
-# bit1_planes_launch's threshold table (AcceptTable in bit1_planes.cu):
-# t4k, t8k, the draw-class bits, 10 always-words, 10 x TABLE_KBITS bit-words
+# bit1_planes_launch's threshold table (AcceptTable in bit1_planes.cu): the
+# TABLE_KBITS bit-words of t4k and of t8k, the draw-class bits, 10
+# always-words, 10 x TABLE_KBITS bit-words
 TABLE_KBITS = 24
-TABLE_WORDS = 3 + 10 + 10 * TABLE_KBITS
+TABLE_WORDS = 2 * TABLE_KBITS + 1 + 10 + 10 * TABLE_KBITS
 # Geometry (bit1_common.cuh): the four link planes, link mode, csl, ysl.
 GEOMETRY = [_c.c_void_p] * 4 + [_c.c_int] * 3
 # Argument types of the C entry points (pointers and the stream as

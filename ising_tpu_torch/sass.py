@@ -116,6 +116,24 @@ def functions(listing: str):
     return out
 
 
+# The port's kernels, by the stem of each kernel template's name.
+KERNELS = ("bit1_sweep", "bit1_planes", "packed_sweep", "packed_fused",
+           "dense_sweep", "mxu_sweep")
+
+
+def kernel_key(name: str):
+    """(kernel, template arguments) of a mangled kernel name, or None for
+    another function. The kernel is read from its own length-prefixed name
+    (18bit1_planes_kernelI...), not from the anonymous namespace's, which
+    holds the source file's name (_GLOBAL__N__<hash>_14_bit1_planes_cu_...)."""
+    for stem in KERNELS:
+        ident = stem + "_kernel"
+        m = re.search(rf"(\d+){ident}I((?:L[ib]\d+E)+)E", name)
+        if m and m[1].endswith(str(len(ident))):
+            return stem, tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m[2]))
+    return None
+
+
 def template_args(name: str):
     """The integer template arguments of a mangled kernel name."""
     m = re.search(r"I((?:L[ib]\d+E)+)E", name)

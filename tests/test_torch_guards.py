@@ -254,24 +254,30 @@ def test_wrapper_launches_planes_kernel(fake_card, mode, family, rounds,
     assert args[13:17] == (family, rounds, kbits, accept)
     table = list(args[17])
     assert len(table) == kernel_lib.TABLE_WORDS
+    # AcceptTable: TABLE_KBITS bit-words of t4k and of t8k, the draw-class
+    # bits, 10 always-words, then TABLE_KBITS bit-words per class
+    K = kernel_lib.TABLE_KBITS
+
+    def bit_words(t):
+        return [0xFFFFFFFF * (t >> z & 1) for z in range(K)]
+
     if field:
-        # AcceptTable: t4k, t8k, draw-class bits, 10 always-words, then
-        # TABLE_KBITS bit-words per class
         tvals10, always10 = acc["tvals10"], acc["always10"]
         draws = [c for c in range(10)
                  if not always10 >> c & 1 and tvals10[c]]
-        assert table[2] == sum(1 << c for c in draws)
-        assert table[3:13] == [0xFFFFFFFF * (always10 >> c & 1)
-                               for c in range(10)]
-        bits = table[13:]
+        assert table[:2 * K] == [0] * (2 * K)
+        assert table[2 * K] == sum(1 << c for c in draws)
+        assert table[2 * K + 1:2 * K + 11] == [0xFFFFFFFF * (always10 >> c & 1)
+                                               for c in range(10)]
+        bits = table[2 * K + 11:]
         for c in range(10):
-            row = bits[c * kernel_lib.TABLE_KBITS:
-                       (c + 1) * kernel_lib.TABLE_KBITS]
             want = tvals10[c] if c in draws else 0
-            assert row == [0xFFFFFFFF * (want >> z & 1)
-                           for z in range(kernel_lib.TABLE_KBITS)]
+            assert bits[c * K:(c + 1) * K] == bit_words(want)
     else:
-        assert table[:2] == [acc["t4k"], acc["t8k"]]
+        assert table[:K] == bit_words(acc["t4k"])
+        assert table[K:2 * K] == bit_words(acc["t8k"])
+        assert table[2 * K:] == [0] * (kernel_lib.TABLE_WORDS - 2 * K)
+        assert max(acc["t4k"], acc["t8k"]) < 1 << kbits
     assert args[18:] == (0, 0, 0, 0, bit1.LINKS_NONE, 0, 0, 1234)
 
 

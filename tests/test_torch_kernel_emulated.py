@@ -192,7 +192,7 @@ FIBER_EDITS = (
 
 # kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
-EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 2, "bit1_planes.cu": 3,
+EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 1, "bit1_planes.cu": 1,
                          "packed_sweep.cu": 1, "dense_sweep.cu": 1,
                          "packed_fused.cu": 1}
 # Sources whose threads meet at barriers, run by FIBER_SHIM: packed_fused.cu's
@@ -228,9 +228,8 @@ def emulated_lib(tmp_path_factory):
         if cu.name in NOT_EMULATED:
             continue
         src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ", cu.read_text())
-        # the greedy and the plain instantiation; the planes kernel's field;
-        # the packed kernel's one templated launch; the dense kernel's words
-        # of four sites and of one
+        # the bit1 and packed kernels' one templated launch each; the dense
+        # kernel's words of four sites and of one
         assert n == EMULATED_LAUNCH_SITES[cu.name]
         sources.append(d / (cu.stem + ".cpp"))
         sources[-1].write_text(src)
@@ -397,6 +396,206 @@ def test_kernel_source_matches_plain_version_geometry(geometry, emulated_lib,
         np.testing.assert_array_equal(
             d.a, want.numpy().view(np.uint32),
             err_msg=f"{geometry} {mode} T={temp} h={field} color={color}")
+
+
+# bit1's row walk (csrc/bit1_common.cuh): a thread walks a band of rows down
+# its word column. (path, (H, W1), csl, ysl): heights 1 and 2 (lone rows,
+# both edge rows from src_up and src_dn), 13 and 21 (odd: cross the band and
+# do not divide it) and 48, at widths 1 (the 1-bit rotation at a lane that
+# is both the first and the last), 3 and 33; the split link store across a
+# band edge and at rows 0 and H - 1; J planes; replicas of 6, 12 and 16 rows
+# in 48 (one of them neither divides the band nor is a multiple of it) and
+# ysl == H, alone and with J planes. Every mode runs on each, in an accept,
+# a color and a row0 (0 or 2^32 - 2: a global row that wraps and counters
+# that carry) that turn with the mode and the geometry.
+def bit1_band() -> int:
+    """The rows a bit1 thread walks (csrc/bit1_common.cuh: BAND_ROWS)."""
+    src = (kernel_lib.CSRC_DIR / "bit1_common.cuh").read_text()
+    return int(re.search(r"constexpr int BAND_ROWS = (\d+);", src)[1])
+
+
+BIT1_BAND = bit1_band()
+BIT1_WALK_GEOMETRIES = [
+    *(("ordered", (H, W1), None, None) for H in (1, 2, 13, 21, 48)
+      for W1 in (1, 3, 33)),
+    ("ordered", (2 * BIT1_BAND + 3, 2), None, None),
+    ("split", (1, 3), None, None), ("split", (2, 33), None, None),
+    ("split", (13, 1), None, None), ("split", (21, 33), None, None),
+    ("split", (2 * BIT1_BAND + 1, 3), None, None),
+    ("jplanes", (1, 33), None, None), ("jplanes", (13, 3), None, None),
+    ("jplanes", (48, 33), None, None), ("jplanes", (21, 3), None, None),
+    ("jplanes", (2 * BIT1_BAND + 1, 33), None, None),
+    ("replicas", (48, 33), 11, 6), ("replicas", (48, 3), 1, 12),
+    ("replicas", (48, 33), 33, 48), ("replicas", (21, 3), 3, 21),
+    ("replicas", (13, 1), 1, 13), ("replicas", (2, 3), 3, 2),
+    ("replicas", (48, 3), 3, 16),
+    ("replicas+J", (48, 3), 3, 6), ("replicas+J", (48, 33), 1, 12),
+    ("replicas+J", (48, 33), 33, 16),
+    ("replicas+J", (21, 33), 11, 21), ("replicas+J", (1, 3), 1, 1),
+]
+
+
+@pytest.mark.parametrize("geometry", BIT1_WALK_GEOMETRIES,
+                         ids=[f"{g[0]}-{g[1][0]}x{g[1][1]}-{g[2]}-{g[3]}"
+                              for g in BIT1_WALK_GEOMETRIES])
+def test_bit1_walk_matches_plain_version(geometry, emulated_lib, monkeypatch):
+    monkeypatch.setattr(kernel_lib, "load", lambda: (emulated_lib, None))
+    monkeypatch.setattr(bit1, "_cuda_stream", lambda device: None)
+    path, (H, W1), csl, ysl = geometry
+    g = BIT1_WALK_GEOMETRIES.index(geometry)
+    gen = np.random.default_rng(400 + g)
+    for i, mode in enumerate(PORTED_MODES):
+        # the accept, then the color, then row0 turn with the mode and the
+        # geometry both, so that each mode meets each of them on the walk
+        accepts = [a for a in ACCEPTS if not a[1] or bit1.accept_bits(mode)]
+        k = i + g
+        temp, field = accepts[k % len(accepts)]
+        color = k // len(accepts) % 2
+        row0 = (0, (1 << 32) - 2)[k // (2 * len(accepts)) % 2]
+        dst, src = _random(gen, (H, W1)), _random(gen, (H, W1))
+        up, dn = _random(gen, (1, W1)), _random(gen, (1, W1))
+        links = None if path in ("ordered", "replicas") else [
+            _random(gen, (H, W1)) for _ in range(4)]
+        kw = dict(color=color, seed=int(gen.integers(0, 1 << 63)),
+                  rng_mode=mode, greedy=temp <= 0, csl=csl, ysl=ysl,
+                  split_links=path == "split",
+                  **bit1.plane_accept_args(mode, temp, field))
+        thr = ising.threshold_table(temp, field)
+        step = int(gen.integers(0, 1 << 32))
+        want = bit1.bit1_sweep_reference(
+            _torch(dst), _torch(src), _torch(up), _torch(dn), thr, row0, step,
+            None if links is None else [_torch(p) for p in links], **kw)
+        d = HostWords(dst)
+        bit1.bit1_sweep(d, HostWords(src), HostWords(up), HostWords(dn), thr,
+                        row0, step,
+                        None if links is None else [HostWords(p) for p in links],
+                        **kw)
+        np.testing.assert_array_equal(
+            d.a, want.numpy().view(np.uint32),
+            err_msg=f"{geometry} {mode} T={temp} h={field} color={color} "
+                    f"row0={row0}")
+
+
+def test_bit1_walk_geometries_cover_the_edges():
+    assert len(set(BIT1_WALK_GEOMETRIES)) == len(BIT1_WALK_GEOMETRIES)
+    band = BIT1_BAND
+    assert band % 2 == 0
+    ordered = {g[1] for g in BIT1_WALK_GEOMETRIES if g[0] == "ordered"}
+    assert {(h, w) for h in (1, 2, 13, 21, 48) for w in (1, 3, 33)} <= ordered
+    # heights that cross the band and do not divide it, odd (a lone last
+    # row), on every path
+    for path in ("ordered", "split", "jplanes", "replicas", "replicas+J"):
+        heights = {g[1][0] for g in BIT1_WALK_GEOMETRIES if g[0] == path}
+        assert any(h > band and h % band and h % 2 for h in heights), path
+    assert {1, 2} <= {g[1][0] for g in BIT1_WALK_GEOMETRIES if g[0] == "split"}
+    rep = [g for g in BIT1_WALK_GEOMETRIES if g[0].startswith("replicas")]
+    for path in ("replicas", "replicas+J"):
+        ysls = [(g[1][0], g[3]) for g in rep if g[0] == path]
+        assert any(y % band and band % y and h > y for h, y in ysls), path
+        assert any(h == y for h, y in ysls)
+    assert {6, 12} <= {g[3] for g in rep}
+    assert {g[2] == g[1][1] for g in rep} == {True, False}
+    # each geometry runs every mode: both colors and both row0 among them
+    assert len(PORTED_MODES) >= 4
+
+
+def _jax_bit1():
+    """The JAX package's bit1 helpers and jnp (plain jnp functions on the
+    CPU: no Pallas kernel runs)."""
+    import jax.numpy as jnp
+    from ising_tpu.ops import pallas_bit1
+    return pallas_bit1, jnp
+
+
+def _kernel_lt_chain(planes, words, kbits):
+    """The planes kernel's strict less-than recurrence (bit1_planes.cu:
+    lt_step): a' = majority(T_z, ~u, a) over the planes LSB-first, T_z the
+    table's whole word for bit z of the threshold."""
+    a = np.zeros_like(planes[0])
+    for z in range(kbits):
+        nu = ~planes[z]
+        a = (words[z] & (nu | a)) | (nu & a)
+    return a
+
+
+def _bitsliced_counts(gen, shape):
+    """(me, n0, n1, n2) of random words: n the bit-sliced count of four
+    random neighbour words (bit1.py:_neighbor_adder)."""
+    me, up, dn, same, off = (_random(gen, shape) for _ in range(5))
+    n0, n1, n2 = bit1._neighbor_adder(up, dn, same, off)
+    return me, n0, n1, n2
+
+
+@pytest.mark.parametrize("kbits", [16, 24])
+def test_plane_step_is_the_jax_lt_chain(kbits):
+    """One LOP3 a plane and threshold, reading the T_z words that
+    accept_table lays out, equals the JAX helper _bitserial_lt_planes
+    (pallas_bit1.py:146) on random planes, at real and edge thresholds."""
+    jbit1, jnp = _jax_bit1()
+    gen = np.random.default_rng(500 + kbits)
+    K = kernel_lib.TABLE_KBITS
+    pairs = [ising.bernoulli_kbit_thresholds(t, kbits)
+             for t in (0.5, 1.0, 1.5, 2.269, 3.0, 10.0)]
+    pairs += [(0, 0), ((1 << kbits) - 1, 0), (1, (1 << kbits) - 1)]
+    pairs += [tuple(int(x) for x in gen.integers(0, 1 << kbits, 2))
+              for _ in range(6)]
+    planes = [_random(gen, (3, 40)) for _ in range(kbits)]
+    for t4k, t8k in pairs:
+        table = np.array(list(bit1.accept_table(kbits, t4k, t8k, None, 0)),
+                         np.uint32)
+        a4 = _kernel_lt_chain(planes, table[:K], kbits)
+        a8 = _kernel_lt_chain(planes, table[K:2 * K], kbits)
+        want = jbit1._bitserial_lt_planes([jnp.asarray(p) for p in planes],
+                                          40, kbits, t4k, t8k)
+        np.testing.assert_array_equal(a4, np.asarray(want[0]),
+                                      err_msg=f"t4k={t4k}")
+        np.testing.assert_array_equal(a8, np.asarray(want[1]),
+                                      err_msg=f"t8k={t8k}")
+        np.testing.assert_array_equal(planes[0], np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("kbits", [16, 24])
+def test_field_chains_are_the_jax_field_flip(kbits):
+    """The planes kernel's field accept (bit1_planes.cu: always-classes
+    flip, each class that draws its own chain of one LOP3 a plane on the
+    table's bit-words) equals the JAX helper _bitserial_field_flip on
+    random planes and counts, at real thresholds and at random tables in
+    which every class in turn always flips, draws, or never flips."""
+    jbit1, jnp = _jax_bit1()
+    gen = np.random.default_rng(600 + kbits)
+    K = kernel_lib.TABLE_KBITS
+    tables = [ising.field_kbit_thresholds(t, h, kbits)
+              for t, h in ((1.5, 0.3), (1.5, -0.2), (0.0, 0.2), (0.0, -0.2),
+                           (2.269, 1.5), (0.7, 0.05))]
+    for _ in range(12):
+        kind = gen.integers(0, 3, 10)   # 0 never, 1 draws, 2 always
+        tvals = tuple(int(gen.integers(1, 1 << kbits)) if k == 1 else 0
+                      for k in kind)
+        tables.append((tvals, sum(1 << c for c in range(10) if kind[c] == 2)))
+    kinds = set()
+    me, n0, n1, n2 = _bitsliced_counts(gen, (3, 40))
+    planes = [_random(gen, (3, 40)) for _ in range(kbits)]
+    n_eq = (~(n2 | n1 | n0), ~(n2 | n1) & n0, ~(n2 | n0) & n1, n1 & n0, n2)
+    for tvals10, always10 in tables:
+        table = np.array(list(bit1.accept_table(kbits, 0, 0, tuple(tvals10),
+                                                always10)), np.uint32)
+        draws, always = int(table[2 * K]), table[2 * K + 1:2 * K + 11]
+        bits = table[2 * K + 11:].reshape(10, K)
+        flip = np.zeros_like(me)
+        for c in range(10):
+            cls = (me if c >= 5 else ~me) & n_eq[c % 5]
+            flip |= cls & always[c]
+            if draws >> c & 1:
+                flip |= cls & _kernel_lt_chain(planes, bits[c], kbits)
+            kinds.add((c, 2 if always10 >> c & 1 else 1 if draws >> c & 1
+                       else 0))
+        want = jbit1._bitserial_field_flip(
+            [jnp.asarray(p) for p in planes], jnp.asarray(me),
+            jnp.asarray(n0), jnp.asarray(n1), jnp.asarray(n2), 40, kbits,
+            tuple(tvals10), always10)
+        np.testing.assert_array_equal(flip, np.asarray(want),
+                                      err_msg=f"{tvals10} {always10:#x}")
+    assert kinds == {(c, k) for c in range(10) for k in range(3)}
 
 
 def test_cases_cover_every_mode_and_accept():

@@ -87,3 +87,39 @@ def test_groups_and_sites_per_pass(tmp_path, capsys):
     assert ("per site (2 a pass of the loop) accept: alu 1, control/other "
             "0.5, memory 0.5\n") in out
     assert "function other: alu 2, control/other 2, memory 1\n" in out
+
+
+# Kernel names as a real cubin gives them (the anonymous namespace holds the
+# source file's name, so a lazy pattern from the first "bit1_" runs into it).
+REAL_NAMES = {
+    "_ZN47_GLOBAL__N__bfe8ef1a_14_bit1_planes_cu_78d8582718bit1_planes_kernel"
+    "ILi0ELi10ELi24ELi0EEEvPjPKjS3_S3_iijjjijjNS_11AcceptTableEN5ising8"
+    "GeometryE": ("bit1_planes", (0, 10, 24, 0)),
+    "_ZN46_GLOBAL__N__82535ee7_13_bit1_sweep_cu_0a40ac5717bit1_sweep_kernel"
+    "ILi1ELi13ELb0EEEvPjPKjS3_S3_iijjjijjjjjN5ising8GeometryE":
+        ("bit1_sweep", (1, 13, 0)),
+    "_ZN48_GLOBAL__N__5079c90d_15_packed_sweep_cu_37c7447519packed_sweep_"
+    "kernelILi2ELi4ELi2ELb0ELb0EEEvNS_5SweepEN5ising10ThresholdsE":
+        ("packed_sweep", (2, 4, 2, 0, 0)),
+    "_ZN47_GLOBAL__N__4ee53239_14_dense_sweep_cu_301a425318dense_sweep_kernel"
+    "ILi2ELi4ELi1ELb0EEEvPhPKhS3_S3_iiijjjiN5ising7Table10EjjjNS_7JPlanesE":
+        ("dense_sweep", (2, 4, 1, 0)),
+    "_ZN48_GLOBAL__N__f949c625_15_packed_fused_cu_eb910fd419packed_fused_"
+    "kernelILi2ELi4ELi2ELb0EEEvNS_9FusedArgsE": ("packed_fused", (2, 4, 2, 0)),
+    "_ZN45_GLOBAL__N__962133e3_12_mxu_sweep_cu_411c4cff16mxu_sweep_kernel"
+    "ILi2ELi4ELi2EEEvPhPKhS3_S3_iijjjiN5ising7Table10Ejj":
+        ("mxu_sweep", (2, 4, 2)),
+    NAME: ("dense_sweep", (1, 13, 4, 0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REAL_NAMES))
+def test_kernel_key_reads_the_kernels_own_name(name):
+    assert sass.kernel_key(name) == REAL_NAMES[name]
+
+
+def test_kernel_key_skips_other_functions():
+    assert sass.kernel_key("_ZN5ising6philoxILi10EEE5uint4jjjjjj") is None
+    # a file name with a kernel's stem, without the kernel's own name
+    assert sass.kernel_key("_ZN46_GLOBAL__N__82535ee7_13_bit1_sweep_cu_0a40ac57"
+                           "4walkILi0ELb0EEEvv") is None
