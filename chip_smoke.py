@@ -90,7 +90,17 @@ Phases, each printed as it ends:
                whose tiles cut the lattice; their sum the launches the
                run counted); at 256^2 the card's lattice and launches
                after 8 updates equal the CPU's, also in replicas that the
-               tiles cut;
+               tiles cut. Then the output files (phase_io): the CLI at
+               16384^2 on bit1 in threefry13 with -o -c --checkpoint A,
+               then --resume A --checkpoint B, against one straight run
+               to the same step (B's checkpoint body, the final dumps, the
+               dumps and -c lines of the shared iterations equal), each
+               run's bit1_sweep launches counted; A resumed on packed and
+               on dense to the files of bit1's continuation; on one state
+               bit1's word-domain paths (pack_storage_rows,
+               encode_packed_rows, corr_rows) equal to the decode paths;
+               the IO goldens (golden.IO_GOLDEN); and the times of a -c
+               measurement (bit1, dense), a save, a resume and a dump;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
@@ -152,6 +162,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -161,7 +172,7 @@ import torch
 from ising_tpu_torch import (SimConfig, cli, cli_turns, cluster, device_trace,
                              golden)
 from ising_tpu_torch import observables, sass
-from ising_tpu_torch.constants import TCRIT
+from ising_tpu_torch.constants import MAX_CORR_LEN, TCRIT
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
 from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
@@ -318,6 +329,19 @@ LABEL_CASES = ((SW_SHAPE, SW_SHAPE, None, None), (1024, 1024, None, None),
 LABEL_PROBS = (0.0, 0.585, 1.0)
 # A labeling reads the two bond planes and writes the labels: 6 B a site.
 LABEL_BYTES_PER_SITE = 6
+
+# The output files (dumps, -c files, the v2 checkpoint) at the main path's
+# 16384^2 on bit1 in threefry13, a u32 counter mode, so that packed and
+# dense continue the stream of a bit1 checkpoint. The first run's flags; the resumed run
+# repeats the warmup (the JAX CLI's run loop does), so the straight run
+# that ends at the same step takes IO_STRAIGHT_ITERS iterations.
+IO_MODE = "threefry13"
+IO_WARMUP, IO_ITERS, IO_PRINT = 8, 8, 8
+IO_STRAIGHT_ITERS = IO_WARMUP + 2 * IO_ITERS
+IO_FLAGS = ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y", str(MAIN_SHAPE),
+            "-w", str(IO_WARMUP), "-p", str(IO_PRINT), "-t", "1.5", "--rng",
+            IO_MODE, "-o", "-c"]
+IO_RESUME_BACKENDS = ("packed", "dense")
 LABEL_TILES = ((64, 128), (128, 128), (32, 128))
 LABEL_KERNEL = {"source": "ising_tpu_torch/csrc/cluster_label.cu",
                 "replaces": "ising_tpu/cluster.py:168"}
@@ -1999,6 +2023,180 @@ def phase_sw_main(card):
     return out
 
 
+def io_cli(directory: Path, argv, kernel, steps: int):
+    """cli.main(argv) run in `directory` (where -o and -c write), every
+    launch count set to 0 just before and read just after: `kernel` must
+    launch twice a step for `steps` steps, and nothing else launch."""
+    for f in COUNTERS:
+        f.launches = 0
+    with contextlib.chdir(directory):
+        code = cli.main(argv)
+    require(code == 0, f"the CLI exited {code} on {argv}")
+    require(kernel.launches == 2 * steps,
+            f"{kernel.__name__} launched {kernel.launches} times on {argv}, "
+            f"expected {2 * steps}")
+    require(not any(f.launches for f in COUNTERS if f is not kernel),
+            f"another kernel launched on {argv}")
+    return kernel.launches
+
+
+def corr_lines(directory: Path) -> dict:
+    """{iteration: the rest of its line} of the one corr_* file there."""
+    paths = list(directory.glob("corr_*"))
+    require(len(paths) == 1, f"{len(paths)} corr_* files in {directory}")
+    lines = paths[0].read_text().splitlines()
+    return {int(ln[:10]): ln[10:] for ln in lines}
+
+
+def same_file(a: Path, b: Path, what: str):
+    require(a.read_bytes() == b.read_bytes(), f"{what}: {a} != {b}")
+
+
+def ck_body(path: Path) -> bytes:
+    from ising_tpu_torch.checkpoint import read_checkpoint_meta
+    return path.read_bytes()[read_checkpoint_meta(path)["_body_offset"]:]
+
+
+def sync_s(fn):
+    """(result, seconds) of fn() ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_io(card):
+    """The output files on the card, written into a temporary directory
+    that is removed. Resume equals uninterrupted: the CLI's IO_FLAGS run with --checkpoint
+    A, then --resume A --checkpoint B, against one straight run to the
+    same step: B's body equals the straight run's, the final dumps are
+    equal, and the -c lines and dumps of the shared iterations. The bit1
+    checkpoint resumed on packed and on dense continues to the same
+    files. On the same words, bit1's word-domain paths equal the decode
+    paths. The IO goldens written on the card match the JAX package's
+    checksums. Prints the times of a -c measurement (bit1, dense), a
+    checkpoint save and resume, and a dump with its size."""
+    from ising_tpu_torch.checkpoint import (_chunk_schedule, _pack_rows,
+                                            _unpack_rows_device)
+    from ising_tpu_torch.driver import Simulation
+    with tempfile.TemporaryDirectory() as tmp:
+        d = {k: Path(tmp) / k for k in ("A", "B", "S", "packed", "dense", "g")}
+        for p in d.values():
+            p.mkdir()
+        ck = {k: d[k] / "run.ck" for k in ("A", "B", "S")}
+        n = io_cli(d["A"], IO_FLAGS + ["-n", str(IO_ITERS), "--checkpoint",
+                                       str(ck["A"])],
+                   bit1.bit1_sweep, IO_WARMUP + IO_ITERS)
+        n += io_cli(d["B"], ["--resume", str(ck["A"]), "--checkpoint",
+                             str(ck["B"])],
+                    bit1.bit1_sweep, IO_WARMUP + IO_ITERS)
+        n += io_cli(d["S"], IO_FLAGS + ["-n", str(IO_STRAIGHT_ITERS),
+                                        "--checkpoint", str(ck["S"])],
+                    bit1.bit1_sweep, IO_WARMUP + IO_STRAIGHT_ITERS)
+        require(ck_body(ck["B"]) == ck_body(ck["S"]),
+                "the resumed run's checkpoint body differs from the straight "
+                "run's")
+        final = f"final_{MAIN_SHAPE}x{MAIN_SHAPE}.txt"
+        same_file(d["B"] / final, d["S"] / final, "final dump")
+        dump = lambda it: (f"lattice_{MAIN_SHAPE}x{MAIN_SHAPE}_T_1.500000_"
+                           f"IT_{it:08d}.txt")
+        same_file(d["A"] / dump(IO_PRINT), d["S"] / dump(IO_PRINT),
+                  "dump of the first run's measurement")
+        same_file(d["B"] / dump(IO_PRINT), d["S"] / dump(IO_STRAIGHT_ITERS),
+                  "dump of the last step")
+        a, b, s = (corr_lines(d[k]) for k in "ABS")
+        require(a[IO_PRINT] == s[IO_PRINT]
+                and b[IO_PRINT] == s[IO_STRAIGHT_ITERS],
+                "-c lines differ from the straight run's")
+        say(f"[io] {MAIN_SHAPE}^2 bit1 {IO_MODE}: -w {IO_WARMUP} -n "
+            f"{IO_ITERS} --checkpoint, then --resume: checkpoint body, final "
+            f"dump, dumps and -c lines equal to one run of -n "
+            f"{IO_STRAIGHT_ITERS}; bit1_sweep launches {n}")
+        resumed = {}
+        for be in IO_RESUME_BACKENDS:
+            sim = resumed[be] = Simulation.from_checkpoint(
+                str(ck["A"]), backend=be, device="cuda")
+            for f in COUNTERS:
+                f.launches = 0
+            with contextlib.chdir(d[be]):
+                sim.run()
+                sim.dump(final)
+            kernel = SWEEPS[be]
+            require(kernel.launches == 2 * (IO_WARMUP + IO_ITERS)
+                    and not any(f.launches for f in COUNTERS
+                                if f is not kernel),
+                    f"{be} resume: {kernel.__name__} launched "
+                    f"{kernel.launches} times")
+            same_file(d[be] / final, d["B"] / final, f"{be} resume")
+            same_file(d[be] / dump(IO_PRINT), d["B"] / dump(IO_PRINT),
+                      f"{be} resume's dump")
+            require(corr_lines(d[be]) == b, f"{be} resume's -c lines")
+            say(f"[io] bit1 checkpoint resumed on {be}: final dump, dump "
+                f"and -c line equal to bit1's continuation; "
+                f"{kernel.__name__} launches {kernel.launches}")
+        for k in "ABS":
+            for p in d[k].glob("*.txt"):
+                p.unlink()
+        # bit1's word-domain paths against the decode paths, on one state
+        sim, t_resume = sync_s(lambda: Simulation.from_checkpoint(
+            str(ck["B"]), device="cuda"))
+        be, bw, ww = sim.backend, sim.black, sim.white
+        ch = MAIN_SHAPE // 2
+        for r0, r1 in _chunk_schedule(MAIN_SHAPE, 8192)[0]:
+            pb, pw = (p.cpu().numpy()
+                      for p in be.pack_storage_rows(bw, ww, r0, r1))
+            db, dw = be.decode(bw[r0:r1], ww[r0:r1])
+            require(np.array_equal(pb, _pack_rows(db))
+                    and np.array_equal(pw, _pack_rows(dw)),
+                    f"pack_storage_rows != packed decode at rows {r0}-{r1}")
+            eb, ew = be.encode_packed_rows(pb, pw)
+            ub, uw = be.encode(_unpack_rows_device(pb, ch, "cuda"),
+                               _unpack_rows_device(pw, ch, "cuda"))
+            require(torch.equal(eb, ub) and torch.equal(ew, uw)
+                    and torch.equal(eb, bw[r0:r1])
+                    and torch.equal(ew, ww[r0:r1]),
+                    f"encode_packed_rows != encode of the unpacked bytes at "
+                    f"rows {r0}-{r1}")
+        words, t_words = sync_s(lambda: be.corr_rows(bw, ww, MAX_CORR_LEN))
+        via, t_via = sync_s(lambda: observables.correlation_rows_via(
+            sim._decode_rows, MAIN_SHAPE, MAX_CORR_LEN))
+        require(torch.equal(words, via), "corr_rows != correlation_rows_via "
+                "over decoded rows")
+        say(f"[io] {MAIN_SHAPE}^2 bit1: pack_storage_rows, encode_packed_rows "
+            f"and corr_rows ({tuple(words.shape)} int64 row sums) equal to "
+            f"the decode paths on the card")
+        # the times, at 16384^2
+        with contextlib.chdir(d["g"]):
+            t_corr = [sync_s(lambda: sim._append_corr(0))[1]
+                      for _ in range(2)]
+            t_dense = [sync_s(lambda: resumed["dense"]._append_corr(0))[1]
+                       for _ in range(2)]
+            t_save = [sync_s(lambda: sim.checkpoint("t.ck"))[1]
+                      for _ in range(2)]
+            t_dump = [sync_s(lambda: sim.dump("t.txt"))[1]
+                      for _ in range(2)]
+            size = os.path.getsize("t.txt")
+            os.unlink("t.txt")
+        say(f"[io] {MAIN_SHAPE}^2 times on {card['smi']}: one -c measurement "
+            f"bit1 (words) {t_corr[0]:.4f}, {t_corr[1]:.4f} s, dense "
+            f"(decode path) {t_dense[0]:.4f}, {t_dense[1]:.4f} s; "
+            f"corr_rows alone {t_words:.4f} s, correlation_rows_via on bit1 "
+            f"{t_via:.4f} s; checkpoint save {t_save[0]:.4f}, "
+            f"{t_save[1]:.4f} s ({os.path.getsize(ck['B'])} bytes), resume "
+            f"(from_checkpoint) {t_resume:.4f} s; hex dump {t_dump[0]:.4f}, "
+            f"{t_dump[1]:.4f} s, {size} bytes")
+        del sim, resumed
+        torch.cuda.empty_cache()
+        for i, (case, want) in enumerate(golden.IO_GOLDEN.items()):
+            (d["g"] / str(i)).mkdir()
+            got = golden.port_io_files(case, d["g"] / str(i), device="cuda")
+            require(got == want, f"IO golden {case}: got {got}, want {want}")
+            say(f"[io] golden {case}: -c line, dump and checkpoint crc32 "
+                + ", ".join(f"{k} {v:08X}" for k, v in got.items())
+                + " match the JAX package's files")
+
+
 def event_ms(fn, n: int = 1) -> float:
     """ms per call of fn() over n calls (time_launches), after one warm-up
     call."""
@@ -2481,6 +2679,8 @@ def main(argv=None) -> int:
         phase_plane_equality(card)
         say(f"[time] {elapsed():.1f} s")
         sw_main = phase_sw_main(card)
+        say(f"[time] {elapsed():.1f} s")
+        phase_io(card)
         say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, loops)
         cases, max_err = cases + full_cases, max(max_err, full_err)

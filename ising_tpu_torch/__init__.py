@@ -7,8 +7,9 @@ half-sweep as hand-written CUDA kernels, csrc/) and the xla backend
 spin, its own CUDA kernel) in the u32 modes and hw, at T > 0 and in the
 greedy quench, with the external field, quenched +-J disorder and
 sub-lattice replicas; and Swendsen-Wang cluster updates (cluster.py), whose
-labeler's passes are a CUDA kernel too. It
-imports torch and never jax or ising_tpu. Entry points run on CUDA unless
+labeler's passes are a CUDA kernel too. It writes and reads the JAX
+package's lattice dumps, correlation files and checkpoints byte for byte
+(io.py, checkpoint.py). It imports torch and never jax or ising_tpu. Entry points run on CUDA unless
 the caller passes device="cpu".
 """
 

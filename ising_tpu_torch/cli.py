@@ -7,8 +7,10 @@
 Without --backend it runs the xla backend (plain torch), as the JAX
 package's CLI does; --algo sw runs Swendsen-Wang cluster updates on it.
 
-Flags of features the port does not run yet exit 1 with the ROADMAP.md
-queue-1 item that ports them.
+-o dumps the lattice and -c appends correlation rows at each measurement,
+--checkpoint saves the run at its end and --resume continues one, in the
+JAX package's file formats. Flags of features the port does not run yet
+exit 1 with the ROADMAP.md queue-1 item that ports them.
 """
 
 from __future__ import annotations
@@ -69,9 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--halo-overlap", action="store_true",
                    help="overlap the halo exchange (no effect on one device)")
     p.add_argument("-o", "--out", action="store_true",
-                   help="dump the lattice (not yet ported)")
+                   help="dump lattice at each measurement and at the end")
     p.add_argument("-c", "--corr", action="store_true",
-                   help="correlation output (not yet ported)")
+                   help="append 2-point correlation rows to a corr_* file")
     p.add_argument("--backend", default="xla",
                    choices=("xla", "dense", "packed", "bit1", "mxu"),
                    help="update backend")
@@ -92,9 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="profiler trace (not yet ported)")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
-                   help="write a checkpoint (not yet ported)")
+                   help="write a checkpoint at the end of the run")
     p.add_argument("--resume", default=None, metavar="PATH",
-                   help="resume from a checkpoint (not yet ported)")
+                   help="resume from a checkpoint (its config; the other "
+                        "flags but --device are ignored)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     return p
@@ -103,11 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flag(args):
     """(flag, ROADMAP item) of the first flag the port does not run yet."""
     checks = (
-        ("--devs > 1", args.devs != 1, 7),
-        ("-o/--out", args.out, 6),
-        ("-c/--corr", args.corr, 6),
-        ("--resume", args.resume is not None, 6),
-        ("--checkpoint", args.checkpoint is not None, 6),
+        # a resumed run takes the file's device count, as in the JAX CLI
+        ("--devs > 1", args.devs != 1 and args.resume is None, 7),
         ("--pt", args.pt is not None, 11),
         ("--profile", args.profile is not None, 12),
     )
@@ -138,8 +138,12 @@ def config_from_args(args) -> SimConfig:
 
 
 def build_simulation(args):
-    """The run that cli.main drives: SwendsenWang for --algo sw, else
-    Simulation, from config_from_args(args)."""
+    """The run that cli.main drives: the checkpoint's under --resume (on
+    --device), else SwendsenWang for --algo sw or Simulation, from
+    config_from_args(args)."""
+    if args.resume:
+        from .driver import Simulation
+        return Simulation.from_checkpoint(args.resume, device=args.device)
     cfg = config_from_args(args)
     if args.algo == "sw":
         from .cluster import SwendsenWang
@@ -161,10 +165,14 @@ def main(argv=None) -> int:
         print(f"ERROR: {flag} is not yet ported (ROADMAP item {item})",
               file=sys.stderr)
         return 1
+    errors = (ValueError, NotImplementedError)
+    if args.resume:
+        errors += (OSError,)   # a missing or unreadable file
     try:
         sim = build_simulation(args)
-    except (ValueError, NotImplementedError) as e:
-        print(f"ERROR: {e}", file=sys.stderr)
+    except errors as e:
+        where = f"cannot resume from {args.resume}: " if args.resume else ""
+        print(f"ERROR: {where}{e}", file=sys.stderr)
         return 1
     cfg = sim.cfg
 
@@ -184,6 +192,13 @@ def main(argv=None) -> int:
         print(f"\texternal field: h = {cfg.field}")
     print(f"\titerations: {cfg.niters} (+{cfg.nwarmup} warmup)")
     result = sim.run()
+    if cfg.dump_lattice:
+        name = f"final_{cfg.nrows}x{cfg.ncols}.txt"
+        sim.dump(name)
+        print(f"Wrote final lattice to {name}")
+    if args.checkpoint:
+        sim.checkpoint(args.checkpoint)
+        print(f"Wrote checkpoint to {args.checkpoint}")
     return 0 if result["steps"] else 1
 
 

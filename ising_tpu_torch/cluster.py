@@ -53,6 +53,7 @@ import math
 import numpy as np
 import torch
 
+from . import io as lio
 from . import observables
 from .config import SimConfig, not_ported, resolve_device
 from .lattice import compact_to_full, full_to_compact, init_bits
@@ -594,6 +595,25 @@ class SwendsenWang:
         report) over SW updates: the CLI's --algo sw."""
         from .driver import run_loop
         return run_loop(self, log=log)
+
+    def _corr_path(self):
+        return (f"corr_{self.cfg.nrows}x{self.cfg.ncols}"
+                f"_T_{self.temp:f}_{self.cfg.seed}")
+
+    def _append_corr(self, it: int):
+        """One -c line of the full-lattice correlation. In replica mode
+        too: the JAX package's SwendsenWang passes no xsl/ysl here
+        (cluster.py:586-593), unlike its Simulation, and the port writes
+        the same file."""
+        lio.append_corr_line(self._corr_path(), it,
+                             observables.correlation(*self.bits()))
+
+    def dump(self, name: str):
+        lio.dump_lattice(name, *self.bits(), fmt="hex")
+
+    def _dump(self, it: int):
+        self.dump(f"lattice_{self.cfg.nrows}x{self.cfg.ncols}"
+                  f"_T_{self.temp:f}_IT_{it:08d}.txt")
 
     def bits(self):
         """Compact (black, white) uint8 planes of the current state."""

@@ -86,11 +86,12 @@ class SimConfig:
     ndev: int = 1
     halo_overlap: bool = False
 
-    # Output toggles (-o / -c; not yet ported).
+    # Output toggles: lattice dumps (-o) and correlation files (-c).
     dump_lattice: bool = False
     corr_out: bool = False
 
-    # Torch device of the state: "cuda" (default) or "cpu".
+    # Torch device of the state: "cuda" (default) or "cpu". The one field
+    # the JAX package's config lacks: its JSON form leaves it out.
     device: str = "cuda"
 
     def __post_init__(self):
@@ -160,8 +161,6 @@ class SimConfig:
             # 10-class bit-serial accept as bit1; the u32 modes and hw
             # compare u32 draws against the full 2 x 5 table.
         # What this port does not run yet (ROADMAP.md queue 1).
-        if self.dump_lattice or self.corr_out:
-            raise not_ported("lattice dumps and correlation output", 6)
         if self.ndev != 1:
             raise not_ported("more than one device", 7)
 
@@ -181,8 +180,13 @@ class SimConfig:
         return self.nrows * self.ncols
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self))
+        """The JAX package's SimConfig JSON of this config: its fields in
+        its order, without `device` (the checkpoint header's config)."""
+        fields = dataclasses.asdict(self)
+        del fields["device"]
+        return json.dumps(fields)
 
     @classmethod
-    def from_json(cls, s: str) -> "SimConfig":
-        return cls(**json.loads(s))
+    def from_json(cls, s: str, device: str = "cuda") -> "SimConfig":
+        """The config of a JAX-format JSON string, on `device`."""
+        return cls(**json.loads(s), device=device)

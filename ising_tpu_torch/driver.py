@@ -3,7 +3,9 @@
 The port of ``ising_tpu/driver.py`` for one device: the same print
 schedules, the same log lines, the same flips/ns and bandwidth formula,
 the temperature ramp, the external field, quenched +-J disorder and
-sub-lattice replicas. Steps run as host-issued launches; the host
+sub-lattice replicas, the lattice dumps (-o) and correlation files (-c)
+written at each measurement, and checkpoint and resume in the JAX
+package's file format. Steps run as host-issued launches; the host
 synchronises only at measurement events.
 """
 
@@ -14,9 +16,11 @@ import time
 
 import torch
 
+from . import io as lio
 from . import observables
 from .config import SimConfig, resolve_device
-from .constants import BLACK, MIN_TEMP, TGT_MAGN_MAX_DIFF, WHITE
+from .constants import (BLACK, MAX_CORR_LEN, MIN_TEMP, TGT_MAGN_MAX_DIFF,
+                        WHITE)
 from .lattice import init_store, links_to_color_planes
 from .models import ising
 from .ops import get_backend
@@ -116,14 +120,24 @@ def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu"):
 
 
 class Simulation:
-    """One Ising MC run: state on `cfg.device`, stepper, measurements."""
+    """One Ising MC run: state on `cfg.device`, stepper, measurements.
 
-    def __init__(self, cfg: SimConfig):
+    state: compact (black, white) uint8 planes to start from (torch or
+    numpy); storage: planes already in this backend's storage on the
+    device (a resume); step0: the step reached; temp: the temperature
+    reached, where a ramp has moved it from cfg's."""
+
+    def __init__(self, cfg: SimConfig, *, state=None, storage=None,
+                 step0: int = 0, temp: float | None = None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.temp = cfg.temperature
-        self.step = 0
+        self.temp = float(temp) if temp is not None else cfg.temperature
+        self.step = int(step0)
         self.backend = get_backend(cfg)
+        if self.temp != cfg.temperature:
+            # The accept follows the temperature reached: the greedy
+            # quench at T <= 0, the k-bit thresholds of the plane modes.
+            self.backend.retune(self.temp, cfg.field)
         # Quenched disorder: the link store (bit-packed and parity-split
         # when ncols % 64 == 0; links() gives the uint8 planes) and the
         # stepper's J planes.
@@ -132,9 +146,16 @@ class Simulation:
             self._links_store, self._links_packed, jplanes = build_disorder(
                 cfg, self.backend, device=self.device)
         self._step_n = make_stepper(cfg, self.backend, jplanes=jplanes)
-        self.black, self.white = init_store(cfg.seed, cfg.nrows, cfg.ncols,
-                                            self.backend.encode,
-                                            device=self.device)
+        if storage is not None:
+            self.black, self.white = storage
+        elif state is None:
+            self.black, self.white = init_store(
+                cfg.seed, cfg.nrows, cfg.ncols, self.backend.encode,
+                device=self.device)
+        else:
+            self.black, self.white = self.backend.encode(*(
+                torch.as_tensor(p).to(self.device, torch.uint8)
+                for p in state))
         self._thr = ising.threshold_table(self.temp, cfg.field)
 
     def bits(self):
@@ -250,10 +271,97 @@ class Simulation:
     def run(self, log=print):
         return run_loop(self, log=log)
 
+    # -- event actions and files --------------------------------------------
+
+    def _corr_path(self):
+        return (f"corr_{self.cfg.nrows}x{self.cfg.ncols}"
+                f"_T_{self.temp:f}_{self.cfg.seed}")
+
+    def _decode_rows(self, r: int, n: int):
+        """Decoded compact planes of the wrapped rows [r, r+n)."""
+        return self.backend.decode(observables._rows_wrap(self.black, r, n),
+                                   observables._rows_wrap(self.white, r, n))
+
+    def _append_corr(self, it: int):
+        """One -c line: c(d), d = 1..MAX_CORR_LEN, on the words where the
+        backend can (bit1), else from rows decoded slab by slab; in replica
+        mode inside the replicas, from the decoded planes."""
+        if self.cfg.xsl is None:
+            if hasattr(self.backend, "corr_rows"):
+                rows = self.backend.corr_rows(self.black, self.white,
+                                              MAX_CORR_LEN)
+            else:
+                rows = observables.correlation_rows_via(
+                    self._decode_rows, self.cfg.nrows, MAX_CORR_LEN)
+            c = rows.cpu().numpy().sum(axis=1) / (2.0 * self.cfg.nspins)
+        else:
+            c = observables.correlation(*self.bits(), xsl=self.cfg.xsl,
+                                        ysl=self.cfg.ysl)
+        lio.append_corr_line(self._corr_path(), it, c)
+
+    # Lattices of at least this many spins dump row chunk by row chunk, so
+    # the decoded planes are never whole on the host. A class attribute, so
+    # that a test can lower it.
+    STREAM_DUMP_SPINS = 1 << 30
+
+    def dump(self, name: str):
+        """Write the lattice to `name` in the hex format: streamed at or
+        above STREAM_DUMP_SPINS spins (the same bytes), in one piece
+        below."""
+        if self.cfg.nspins >= self.STREAM_DUMP_SPINS:
+            lio.dump_lattice_streamed(
+                name, lambda r0, r1: self.backend.decode(self.black[r0:r1],
+                                                         self.white[r0:r1]),
+                self.cfg.nrows)
+        else:
+            lio.dump_lattice(name, *self.bits(), fmt="hex")
+
+    def _dump(self, it: int):
+        self.dump(f"lattice_{self.cfg.nrows}x{self.cfg.ncols}"
+                  f"_T_{self.temp:f}_IT_{it:08d}.txt")
+
+    def checkpoint(self, path: str):
+        """Save the state, one row chunk at a time: bit1 shuffles its
+        words straight into the file's bytes, the other backends decode a
+        chunk and pack it on the device (the same bytes)."""
+        from .checkpoint import save_checkpoint_streamed
+        be = self.backend
+        packed_rows = None
+        if hasattr(be, "pack_storage_rows") and \
+                be.storage_pack_supported(self.black):
+            packed_rows = lambda r0, r1: be.pack_storage_rows(
+                self.black, self.white, r0, r1)
+        save_checkpoint_streamed(
+            path,
+            lambda r0, r1: be.decode(self.black[r0:r1], self.white[r0:r1]),
+            self.cfg.nrows, self.cfg.ncols, step=self.step, temp=self.temp,
+            cfg=self.cfg, packed_rows=packed_rows)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, **overrides):
+        """Resume a checkpoint (the port's or the JAX package's), possibly
+        into another backend or onto the device that `device=` names
+        (default cuda): each row chunk becomes the target backend's
+        storage as it is read."""
+        from .checkpoint import load_checkpoint_state, read_checkpoint_meta
+        device = overrides.get("device", "cuda")
+        cfg = read_checkpoint_meta(path, device=device)["cfg"]
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        be = get_backend(cfg)
+        (b, w), meta = load_checkpoint_state(
+            path, be.encode, getattr(be, "encode_packed_rows", None),
+            device=cfg.device)
+        return cls(cfg, storage=(b, w), step0=meta["step"],
+                   temp=meta["temp"])
+
 
 def run_loop(self, log=print):
-    """The measurement loop: warmup, events on the -p / -e / -E schedule,
-    early exit (-m), temperature ramp (-u), final report with flips/ns."""
+    """The measurement loop: warmup, events on the -p / -e / -E schedule
+    (each may append a -c line and dump the lattice, -o, inside the timed
+    window as in the JAX package), early exit (-m), temperature ramp (-u),
+    final report with flips/ns. Duck-typed over Simulation and
+    cluster.SwendsenWang."""
     cfg = self.cfg
     t_unit = cfg.temperature
 
@@ -298,6 +406,10 @@ def run_loop(self, log=print):
                 log(f"        magnetization: {mm['magnetization']:9.6f}, "
                     f"up_s: {mm['up']:12d}, dw_s: {mm['down']:12d} "
                     f"(iter: {ev:8d})")
+                if cfg.corr_out:
+                    self._append_corr(ev)
+                if cfg.dump_lattice:
+                    self._dump(ev)
                 if cfg.tgt_magn is not None and \
                         abs(mm["magnetization"] - cfg.tgt_magn) \
                         < TGT_MAGN_MAX_DIFF:

@@ -21,15 +21,22 @@ SW_GOLDEN holds Swendsen-Wang trajectories (--algo sw), keyed (temperature,
 field, xsl, ysl): a 256 x 1024 lattice from seed SEED_DEF at T = Tc, with
 h = 0.1, and in 64 x 64 replicas, NSTEPS updates each, recorded from the
 JAX package's SwendsenWang on the CPU, with the same "up" and "crc32".
+IO_GOLDEN holds the output files (-c, -o, --checkpoint), keyed (backend,
+rng mode, nrows, ncols): from seed SEED_DEF at T = 1.5 after IO_NSTEPS
+steps, the zlib.crc32 of the -c line written for that iteration, of the
+hex dump and of the checkpoint (io_crcs), as the JAX package writes them
+for that backend (bit1's from its words, packed's through its decode).
 
-tests/test_torch_golden.py derives every case again and checks it is
-equal, and chip_smoke.py checks the port's CUDA kernels reproduce them on
-the card.
+tests/test_torch_golden.py (tests/test_torch_io.py for IO_GOLDEN) derives
+every case again and checks it is equal, and chip_smoke.py checks the
+port's CUDA kernels reproduce them on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -108,6 +115,15 @@ SW_GOLDEN = {
         "up": (130911, 130574, 130160, 128070, 127755), "crc32": 0x6E54B1D6},
 }
 
+IO_NSTEPS = 4
+
+IO_GOLDEN = {
+    ("bit1", "threefry13", 64, 512): {
+        "corr": 0x0D0FBA72, "dump": 0xB247FB23, "checkpoint": 0x208751C3},
+    ("packed", "chacha8", 64, 512): {
+        "corr": 0xA6550C67, "dump": 0xE318A99C, "checkpoint": 0xC389C0F7},
+}
+
 BACKENDS = ("bit1", "xla", "packed", "dense")
 
 
@@ -183,3 +199,35 @@ def port_sw_trajectory(temp: float, field: float = 0.0,
     return _trajectory(SwendsenWang(SimConfig(
         nrows=SW_NROWS, ncols=SW_NCOLS, temp=temp, field=field, xsl=xsl,
         ysl=ysl, seed=SEED, device=str(device))))
+
+
+def io_config(case) -> dict:
+    """SimConfig keywords of an IO_GOLDEN case (the same in both
+    packages)."""
+    backend, rng, nrows, ncols = case
+    return dict(nrows=nrows, ncols=ncols, temp=1.5, seed=SEED,
+                backend=backend, rng=rng)
+
+
+def io_crcs(sim, directory) -> dict:
+    """Write the three files of IO_GOLDEN from sim's current state into
+    `directory`, which holds none of them yet (the -c line of iteration IO_NSTEPS, the hex dump, the
+    checkpoint) and return their crc32. sim is a Simulation of either
+    package: both name these methods alike."""
+    with contextlib.chdir(directory):
+        sim._append_corr(IO_NSTEPS)
+        sim.dump("lattice.txt")
+        sim.checkpoint("state.ck")
+        files = {"corr": sim._corr_path(), "dump": "lattice.txt",
+                 "checkpoint": "state.ck"}
+        return {k: zlib.crc32(Path(p).read_bytes()) for k, p in files.items()}
+
+
+def port_io_files(case, directory, *, device="cuda") -> dict:
+    """io_crcs of the port's Simulation after IO_NSTEPS steps of an
+    IO_GOLDEN case on `device`."""
+    from .config import SimConfig
+    from .driver import Simulation
+    sim = Simulation(SimConfig(**io_config(case), device=str(device)))
+    sim.advance(IO_NSTEPS)
+    return io_crcs(sim, directory)

@@ -1,0 +1,93 @@
+"""Lattice dumps and loads in the reference's text formats (torch).
+
+The port of the single-device part of ``ising_tpu/io.py``, writing the
+same bytes:
+
+  * "hex": one line per row, one character '0' or '1' per spin in
+    full-lattice column order, each line ended by a newline;
+  * "txt": space-separated -1/1 integers, one row per line (numpy's
+    savetxt with "%d", as the JAX package writes them).
+
+Both are written with numpy alone, and ``load_lattice`` reads them back.
+The correlation files of -c take one line per measurement
+(``append_corr_line``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import resolve_device
+from .lattice import bits_to_spins, compact_to_full, full_to_compact
+
+FORMATS = ("hex", "txt")
+
+
+def _check_format(fmt: str):
+    if fmt not in FORMATS:
+        raise ValueError(f"unknown dump format {fmt!r}")
+
+
+def full_bits_host(black, white) -> np.ndarray:
+    """Compact planes (on any device) -> full {0,1} uint8 lattice on the
+    host."""
+    return compact_to_full(black, white).cpu().numpy()
+
+
+def _write_rows(f, full: np.ndarray, fmt: str):
+    if fmt == "hex":
+        lines = np.empty((full.shape[0], full.shape[1] + 1), np.uint8)
+        lines[:, :-1] = full + ord("0")
+        lines[:, -1] = ord("\n")
+        f.write(lines.tobytes())
+    else:
+        np.savetxt(f, 2 * full.astype(np.int8) - 1, fmt="%d")
+
+
+def dump_lattice(path: str, black, white, fmt: str = "hex") -> None:
+    """Write compact (black, white) planes to `path` in `fmt`."""
+    _check_format(fmt)
+    full = full_bits_host(black, white)
+    with open(path, "wb") as f:
+        _write_rows(f, full, fmt)
+
+
+def dump_lattice_streamed(path: str, decode_rows, nrows: int,
+                          fmt: str = "hex", row_chunk: int = 8192) -> None:
+    """dump_lattice's bytes, one row chunk at a time: decode_rows(r0, r1)
+    -> compact (black, white) planes of rows [r0, r1), so the host holds
+    one chunk however tall the lattice."""
+    _check_format(fmt)
+    with open(path, "wb") as f:
+        for r in range(0, nrows, row_chunk):
+            _write_rows(f, full_bits_host(
+                *decode_rows(r, min(nrows, r + row_chunk))), fmt)
+
+
+def load_lattice(path: str, fmt: str = "hex", device="cuda"):
+    """Read a dump back into compact (black, white) uint8 planes on
+    `device`."""
+    _check_format(fmt)
+    if fmt == "hex":
+        with open(path, "rb") as f:
+            rows = [np.frombuffer(line, np.uint8) - ord("0")
+                    for line in (ln.strip() for ln in f) if line]
+        full = np.stack(rows)
+    else:
+        full = ((np.loadtxt(path, dtype=np.int8) + 1) // 2).astype(np.uint8)
+    return full_to_compact(torch.from_numpy(full).to(resolve_device(device)))
+
+
+def lattice_image(black, white) -> np.ndarray:
+    """The full lattice as int8 -1/+1 spins on the host, for plotting."""
+    return bits_to_spins(compact_to_full(black, white)).cpu().numpy()
+
+
+def append_corr_line(path: str, it: int, c) -> None:
+    """Append one -c line: the iteration, then each c(d) as `{:< 12G}`."""
+    with open(path, "a") as f:
+        f.write(f"{it:10d}")
+        for val in c:
+            f.write(f" {val:< 12G}")
+        f.write("\n")

@@ -71,6 +71,11 @@ def full_to_compact(full):
             torch.where(odd, even_cols, odd_cols))
 
 
+def bits_to_spins(bits):
+    """{0,1} bits -> {-1,+1} int8 spins."""
+    return 2 * bits.to(torch.int8) - 1
+
+
 def links_to_color_planes(v, h, color: int, v_up=None):
     """Project full-lattice disorder links onto one color's neighbour planes.
 

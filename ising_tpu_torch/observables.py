@@ -1,12 +1,14 @@
 """Exact integer observables (plain torch).
 
-The port of ``ising_tpu/observables.py``: per-row up-spin counts and bond
-sums, on uint8 bit planes (the xla backend's storage) and straight on the
-bit1 backend's (Y, W1) words, without a decode to byte planes, with or
-without quenched disorder links; up counts on the packed backend's words
-too; and the per-replica |m| of replica mode. torch has no popcount, so
-words are counted with the SWAR bit-count on int64 copies; every sum is
-exact in int64.
+The port of ``ising_tpu/observables.py``: per-row up-spin counts, bond
+sums and the 2-point correlation's per-(offset, row) sums, on uint8 bit
+planes (the xla backend's storage) and straight on the bit1 backend's
+(Y, W1) words, without a decode to byte planes; bond sums with or without
+quenched disorder links, the correlation over the full lattice or inside
+sub-lattice replicas; up counts on the packed backend's words too; and the
+per-replica |m| of replica mode. torch has no popcount, so words are
+counted with the SWAR bit-count on int64 copies; every sum is exact in
+int64.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .constants import MAX_CORR_LEN
 from .rng import MASK
 
 
@@ -205,6 +208,137 @@ def bit1_energy_row_sums(black_w, white_w, links_words=None,
                  else [p[r:r + R] for p in links_words])
         parts.append(_bit1_energy_block(e_ext, o_ext, links))
     return torch.cat(parts)
+
+
+def _tile_roll(x, shift: int, tile: int, axis: int):
+    """Roll by `shift` within consecutive `tile`-sized groups along axis
+    (the periodic wrap inside each sub-lattice replica)."""
+    if tile == x.shape[axis]:
+        return torch.roll(x, -shift, dims=axis)
+    shp = x.shape
+    new = shp[:axis] + (shp[axis] // tile, tile) + shp[axis + 1:]
+    return torch.roll(x.reshape(new), -shift, dims=axis + 1).reshape(shp)
+
+
+def _corr_block(e_ext, o_ext, corr_len: int, csl: int, ytile: int | None):
+    """Per-(offset, row) correlation sums, (corr_len, R) int64, of one row
+    slab of column-parity planes. Over the full lattice (ytile None) the
+    slab carries corr_len wrap rows below its R rows and the vertical
+    shift is a slice; in replica mode the slab is whole ysl-row replicas
+    and both shifts wrap inside the tiles."""
+    R = e_ext.shape[0] - (0 if ytile is not None else corr_len)
+    e0, o0 = e_ext[:R], o_ext[:R]
+    out = torch.empty((corr_len, R), dtype=torch.int64, device=e0.device)
+    for d in range(1, corr_len + 1):
+        # Horizontal offset d: even d pairs the same column parity, odd d
+        # crosses parity with a half-offset split.
+        dh = d // 2
+        if d % 2 == 0:
+            hx1 = e0 ^ _tile_roll(e0, dh, csl, 1)
+            hx2 = o0 ^ _tile_roll(o0, dh, csl, 1)
+        else:
+            hx1 = e0 ^ _tile_roll(o0, dh, csl, 1)
+            hx2 = o0 ^ _tile_roll(e0, dh + 1, csl, 1)
+        if ytile is not None:
+            vx1 = e0 ^ _tile_roll(e0, d, ytile, 0)
+            vx2 = o0 ^ _tile_roll(o0, d, ytile, 0)
+        else:
+            vx1 = e0 ^ e_ext[d:R + d]
+            vx2 = o0 ^ o_ext[d:R + d]
+        anti = (hx1 + hx2 + vx1 + vx2).sum(dim=1, dtype=torch.int64)
+        out[d - 1] = 4 * e0.shape[1] - 2 * anti
+    return out
+
+
+def correlation_rows_via(decode_rows, nrows: int,
+                         corr_len: int = MAX_CORR_LEN,
+                         row_chunk: int = 8192):
+    """Per-(offset, row) correlation sums over the full lattice from
+    storage via a row decoder: decode_rows(r, n) -> compact (black, white)
+    uint8 planes of the wrapped rows [r, r+n). Row slabs with corr_len wrap
+    rows each, so no full-lattice decode is made."""
+    R = _row_block(nrows, row_chunk)
+    parts = []
+    for r in range(0, nrows, R):
+        e_ext, o_ext = _col_parity_planes(*decode_rows(r, R + corr_len))
+        parts.append(_corr_block(e_ext, o_ext, corr_len, e_ext.shape[1],
+                                 None))
+    return torch.cat(parts, dim=1)
+
+
+def correlation_row_sums(black, white, corr_len: int = MAX_CORR_LEN,
+                         xsl: int | None = None, ysl: int | None = None,
+                         row_chunk: int = 8192):
+    """Exact per-(offset, row) correlation sums, int64 of shape
+    (corr_len, Y): entry [d-1, y] = sum_x [s(y,x) s(y,x+d) + s(y,x)
+    s(y+d,x)], with periodic shifts over the full lattice, or wrapping
+    inside xsl x ysl replicas when given."""
+    Y, ch = black.shape
+    if xsl is None and ysl is None:
+        return correlation_rows_via(
+            lambda r, n: (_rows_wrap(black, r, n), _rows_wrap(white, r, n)),
+            Y, corr_len, row_chunk=row_chunk)
+    # Replica mode: slabs of whole replicas (their vertical wrap stays in
+    # the slab), of even height (the slab's row parity is the lattice's).
+    csl = (xsl // 2) if xsl is not None else ch
+    ytile = ysl if ysl is not None else Y
+    R = (row_chunk // ytile) * ytile if ytile <= row_chunk else Y
+    R = R or Y
+    while Y % R:
+        R -= ytile
+    if R % 2:
+        R = Y
+    parts = []
+    for r in range(0, Y, R):
+        e_ext, o_ext = _col_parity_planes(black[r:r + R], white[r:r + R])
+        parts.append(_corr_block(e_ext, o_ext, corr_len, csl, ytile))
+    return torch.cat(parts, dim=1)
+
+
+def correlation(black, white, corr_len: int = MAX_CORR_LEN,
+                xsl: int | None = None, ysl: int | None = None) -> np.ndarray:
+    """c(d) for d = 1..corr_len, normalised by 2N, as float64 numpy: the
+    int64 row sums are added on the host, as the JAX package does, so the
+    values are the same floats."""
+    rows = correlation_row_sums(black, white, corr_len, xsl,
+                                ysl).cpu().numpy()
+    return rows.sum(axis=1) / (2.0 * (black.numel() + white.numel()))
+
+
+def _bit1_corr_block(e_ext, o_ext, corr_len: int):
+    """_corr_block on E/O words (int64 holding uint32) over the full
+    lattice: each bond class an XOR of words, counted by popcount."""
+    R = e_ext.shape[0] - corr_len
+    ncols = 2 * 32 * e_ext.shape[1]
+    e0, o0 = e_ext[:R], o_ext[:R]
+    out = torch.empty((corr_len, R), dtype=torch.int64, device=e0.device)
+    for d in range(1, corr_len + 1):
+        dh = d // 2
+        if d % 2 == 0:
+            hx1 = e0 ^ _col_shift_words(e0, dh)
+            hx2 = o0 ^ _col_shift_words(o0, dh)
+        else:
+            hx1 = e0 ^ _col_shift_words(o0, dh)
+            hx2 = o0 ^ _col_shift_words(e0, dh + 1)
+        bonds = (hx1, hx2, e0 ^ e_ext[d:R + d], o0 ^ o_ext[d:R + d])
+        out[d - 1] = 2 * ncols - 2 * sum(_popcount_rows(b) for b in bonds)
+    return out
+
+
+def bit1_correlation_row_sums(black_w, white_w,
+                              corr_len: int = MAX_CORR_LEN,
+                              row_chunk: int = 8192):
+    """correlation_row_sums over the full lattice, straight on bit1's
+    (Y, W1) int32 words (no decode)."""
+    Y = black_w.shape[0]
+    R = _row_block(Y, row_chunk)
+    parts = []
+    for r in range(0, Y, R):
+        e_ext, o_ext = _col_parity_planes(
+            _rows_wrap(black_w, r, R + corr_len).to(torch.int64) & MASK,
+            _rows_wrap(white_w, r, R + corr_len).to(torch.int64) & MASK)
+        parts.append(_bit1_corr_block(e_ext, o_ext, corr_len))
+    return torch.cat(parts, dim=1)
 
 
 def replica_magnetizations(black, white, xsl: int, ysl: int) -> np.ndarray:

@@ -104,6 +104,40 @@ def unpack_rows(store, chunk: int = 8192, unpack=unpack_bits1,
     return out
 
 
+def words_to_packed_rows(words):
+    """(Y, W1) int32 bit1 words -> (Y, 4*W1) uint8 in np.packbits byte
+    order: the bytes the checkpoint's packing of unpack_bits1(words) gives,
+    without the 8x larger byte plane. With W1 % 8 == 0 byte k of bit group
+    g holds bit g of words 8k..8k+7, the first word in its top bit."""
+    Y, W1 = words.shape
+    if W1 % 8:
+        raise ValueError("word-domain packing needs W1 % 8 == 0 "
+                         "(ncols % 512)")
+    gw = words.reshape(Y, 1, W1 // 8, 8)
+    shifts = torch.arange(SPW, dtype=torch.int32,
+                          device=words.device)[None, :, None]
+    acc = torch.zeros((Y, SPW, W1 // 8), dtype=torch.int32,
+                      device=words.device)
+    for i in range(8):
+        acc |= ((gw[..., i] >> shifts) & 1) << (7 - i)
+    return acc.to(torch.uint8).reshape(Y, 4 * W1)
+
+
+def packed_rows_to_words(packed, W1: int):
+    """(Y, 4*W1) uint8 bytes in np.packbits order -> (Y, W1) int32 bit1
+    words on packed's device: the inverse of words_to_packed_rows."""
+    Y = packed.shape[0]
+    if W1 % 8:
+        raise ValueError("word-domain unpacking needs W1 % 8 == 0")
+    pg = packed.reshape(Y, SPW, W1 // 8).to(torch.int64)
+    weights = _bit_weights(packed.device)[None]        # (1, 32, 1)
+    words = torch.empty((Y, W1 // 8, 8), dtype=torch.int64,
+                        device=packed.device)
+    for i in range(8):
+        words[..., i] = (((pg >> (7 - i)) & 1) * weights).sum(dim=1)
+    return _s(words.reshape(Y, W1))
+
+
 def _neighbor_adder(up, dn, same, off):
     """4-input bit-sliced carry-save adder: the neighbor-up count
     n = n2 n1 n0 as three bit planes (11 bitwise ops per 32 spins)."""
@@ -570,6 +604,35 @@ class Bit1Backend:
         """uint8 bit planes, unpacked in row chunks (pallas_bit1.py:648)."""
         return (unpack_rows(black_store, chunk),
                 unpack_rows(white_store, chunk))
+
+    def storage_pack_supported(self, black_store) -> bool:
+        """Whether the checkpoint can take its bytes straight from the
+        words (W1 % 8 == 0); the decode path writes the same bytes
+        otherwise."""
+        return black_store.shape[1] % 8 == 0
+
+    def pack_storage_rows(self, black_store, white_store, r0: int, r1: int):
+        """Rows [r0, r1) of both planes as checkpoint bytes, straight from
+        the words; None where W1 % 8 != 0."""
+        if not self.storage_pack_supported(black_store):
+            return None
+        return (words_to_packed_rows(black_store[r0:r1]),
+                words_to_packed_rows(white_store[r0:r1]))
+
+    def encode_packed_rows(self, pb, pw):
+        """Checkpoint bytes (numpy or a tensor) -> storage words on the
+        config's device, without a byte plane; None where W1 % 8 != 0."""
+        W1 = self.cfg.ncols // (2 * SPW)
+        if W1 % 8:
+            return None
+        dev = torch.device(self.cfg.device)
+        return tuple(packed_rows_to_words(torch.as_tensor(p).to(dev), W1)
+                     for p in (pb, pw))
+
+    def corr_rows(self, black_store, white_store, corr_len: int):
+        """Per-(offset, row) correlation sums on the words (no decode)."""
+        from ..observables import bit1_correlation_row_sums
+        return bit1_correlation_row_sums(black_store, white_store, corr_len)
 
     def row_up_counts(self, black_store, white_store):
         """Per-row up-spin counts by popcount on the words."""

@@ -291,12 +291,11 @@ def test_cli_passes_every_field():
             "-c", "--device", "cpu"]
     args = cli.build_parser().parse_args(argv)
     want = jcli.config_from_args(jcli.build_parser().parse_args(argv[:-2]))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        cli.config_from_args(args)   # -o / -c reach SimConfig, which refuses
-    args.out = args.corr = False
-    cfg = cli.config_from_args(args)
-    for field in ("j_prob", "j_seed", "xsl", "ysl", "ndev"):
+    cfg = cli.config_from_args(args)   # -o / -c reach SimConfig
+    for field in ("j_prob", "j_seed", "xsl", "ysl", "ndev", "dump_lattice",
+                  "corr_out"):
         assert getattr(cfg, field) == getattr(want, field)
+    assert cfg.dump_lattice and cfg.corr_out
     base = ["--backend", "bit1", "-x", "128", "-y", "16", "-n", "3", "-t",
             "1.5", "--device", "cpu"]
     finals = []

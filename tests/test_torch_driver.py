@@ -126,15 +126,17 @@ def test_cli_prints_jax_magnetization_lines(rng, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["-J", "0.1"], ["--backend", "dense"], ["--xsl", "32", "--ysl", "8"],
-    ["--devs", "2"], ["-o"], ["-c"], ["--resume", "x.ck"],
-    ["--checkpoint", "x.ck"], ["--algo", "sw"], ["--algo", "sw", "--backend",
-                                                 "xla"], ["--pt", "1.0,2.0"],
+    ["--devs", "2"], ["-o", "-p", "1"], ["-c", "-p", "1"],
+    ["--resume", "x.ck"], ["--checkpoint", "x.ck"], ["--algo", "sw"],
+    ["--algo", "sw", "--backend", "xla"], ["--pt", "1.0,2.0"],
     ["--profile", "tracedir"], ["--backend", "mxu", "-x", "256", "-y", "128"],
     ["-J", "0.5", "--j-seed", "3", "--rng", "hw"],
     ["--backend", "packed"],
 ])
-def test_cli_unported_flags_exit_1(extra, capsys):
+def test_cli_unported_flags_exit_1(extra, capsys, tmp_path, monkeypatch):
     """Flags of features still to port exit 1 naming their ROADMAP item.
+    -o, -c and --checkpoint run now and write their files; --resume
+    of a file that is not there exits 1 with the JAX CLI's message.
     -J and --xsl/--ysl (item 4) run now: -J takes effect, as the JAX
     package's CLI shows with the same flags, and a replica geometry that
     bit1's words cannot tile (xsl/2 = 16 against W1 = 1) exits 1 with the
@@ -142,11 +144,24 @@ def test_cli_unported_flags_exit_1(extra, capsys):
     mxu backends (item 9) run now, and print the JAX package's
     magnetization lines. --algo sw (item 10) runs on xla, with the JAX
     package's lines, and exits 1 on bit1 with the JAX package's wording."""
+    monkeypatch.chdir(tmp_path)
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
     code = cli.main(argv + extra)
     out, err = capsys.readouterr()
-    if extra[0] == "--backend":
+    if extra[0] in ("-o", "-c", "--checkpoint"):
+        assert code == 0 and "not yet ported" not in err
+        want = {"-o": ["final_8x64.txt",
+                       "lattice_8x64_T_0.226919_IT_00000001.txt"],
+                "-c": [f"corr_8x64_T_0.226919_{tconfig.SEED_DEF}"],
+                "--checkpoint": ["x.ck"]}[extra[0]]
+        assert sorted(p.name for p in tmp_path.iterdir()) == want
+    elif extra[0] == "--resume":
+        assert code == 1
+        assert jcli.main(extra) == 1
+        assert capsys.readouterr().err == err
+        assert err.startswith("ERROR: cannot resume from x.ck: ")
+    elif extra[0] == "--backend":
         assert code == 0
         assert f"\tbackend: {extra[1]} (rng: threefry13)" in out
         assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
@@ -207,10 +222,15 @@ def test_registry_and_config_fences():
                       MxuBackend)
     assert isinstance(get_backend(SimConfig(backend="bit1", ncols=64)),
                       Bit1Backend)
-    for kw, item in ((dict(ndev=2), 7), (dict(dump_lattice=True), 6),
-                     (dict(corr_out=True, rng="chacha6b"), 6)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            SimConfig(backend="bit1", nrows=16, ncols=64, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        SimConfig(backend="bit1", nrows=16, ncols=64, ndev=2)
+    # Dumps and correlation output are ported: they construct, as the JAX
+    # package's configs do.
+    for kw in (dict(dump_lattice=True), dict(corr_out=True, rng="chacha6b")):
+        cfg = SimConfig(backend="bit1", nrows=16, ncols=64, **kw)
+        want = JaxConfig(backend="bit1", nrows=16, ncols=64, **kw)
+        assert (cfg.dump_lattice, cfg.corr_out) == (want.dump_lattice,
+                                                    want.corr_out)
     # Item 4 is ported: disorder and replicas construct, and the JAX
     # package's own checks of them still hold.
     cfg = SimConfig(backend="bit1", nrows=16, ncols=64, j_prob=0.1,
