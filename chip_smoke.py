@@ -100,7 +100,20 @@ Phases, each printed as it ends:
                bit1's word-domain paths (pack_storage_rows,
                encode_packed_rows, corr_rows) equal to the decode paths;
                the IO goldens (golden.IO_GOLDEN); and the times of a -c
-               measurement (bit1, dense), a save, a resume and a dump;
+               measurement (bit1, dense), a save, a resume and a dump.
+               Then parallel tempering (phase_pt): the README's --pt
+               command (1024^2, -J 0.5, 4 rungs, 200 rounds) on xla, bit1
+               and packed, whose per-rung, acceptance and round-trip lines
+               must be equal, bit1_sweep's and packed_sweep's launches
+               counted (4 rungs x 8 sweeps x 2 x 200 rounds); the PT golden
+               (golden.PT_GOLDEN) on bit1, packed and dense; at
+               bench_pt.py's ladder (16 rungs at 4096^2, packed) batched
+               rounds against per-rung rounds, their H, up counts, accepts
+               and replica_at equal, one rung's sweeps and both rounds
+               timed; at 16384^2 on bit1 the Fourier partials and the
+               overlap of two seeds on the words against the decode path,
+               and the overlap on packed's words and across backends,
+               each timed;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
@@ -154,6 +167,7 @@ import contextlib
 import ctypes
 import faulthandler
 import functools
+import io
 import json
 import math
 import os
@@ -342,6 +356,24 @@ IO_FLAGS = ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y", str(MAIN_SHAPE),
             "-w", str(IO_WARMUP), "-p", str(IO_PRINT), "-t", "1.5", "--rng",
             IO_MODE, "-o", "-c"]
 IO_RESUME_BACKENDS = ("packed", "dense")
+# Parallel tempering (--pt, phase_pt): the README's command (README.md:63)
+# on three backends, whose lines must be equal, bit1's and packed's
+# sweeps counted (rungs x sweeps a swap x 2 x rounds); the PT golden on
+# three backends; bench_pt.py's ladder (scripts/experiments/bench_pt.py:
+# 16 rungs at 4096^2 on packed in threefry13, 4 sweeps a swap, a
+# geometric ladder from 1.5 to 3.5) batched against per rung; and at
+# 16384^2 on bit1 in threefry13 the Fourier partials and the overlap on
+# the words against the decode path.
+PT_FLAGS = ["-x", "1024", "-y", "1024", "-J", "0.5", "--pt",
+            "0.8,1.0,1.3,1.7", "-n", "200", "-p", "50"]
+PT_LAUNCHES = 4 * 8 * 2 * 200
+PT_BACKENDS = ("xla", "bit1", "packed")
+PT_GOLDEN_BACKENDS = ("bit1", "packed", "dense")
+PT_BENCH_SIZE, PT_BENCH_RUNGS, PT_BENCH_SWEEPS = 4096, 16, 4
+PT_BENCH_TEMPS = (1.5, 3.5)
+PT_BENCH_SEED = 463463564571
+PT_BENCH_ROUNDS = 5
+PT_WORDS_MODE, PT_WORDS_STEPS = "threefry13", 4
 LABEL_TILES = ((64, 128), (128, 128), (32, 128))
 LABEL_KERNEL = {"source": "ising_tpu_torch/csrc/cluster_label.cu",
                 "replaces": "ising_tpu/cluster.py:168"}
@@ -2197,6 +2229,164 @@ def phase_io(card):
                 + " match the JAX package's files")
 
 
+def pt_lines(text: str) -> list:
+    """The --pt output lines that the JAX CLI's must equal: each rung's
+    T / magnetization / E/N line, the acceptance and round-trip lines."""
+    return [ln for ln in text.splitlines()
+            if "T = " in ln or ln.startswith(("Pair acceptance",
+                                              "Completed round trips"))]
+
+
+def pt_cli(argv):
+    """(stdout, seconds, launches by kernel) of cli.main(argv), every launch
+    count set to 0 just before and read just after."""
+    for f in COUNTERS:
+        f.launches = 0
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(code == 0, f"the CLI exited {code} on {argv}")
+    return out.getvalue(), seconds, {f.__name__: f.launches
+                                     for f in COUNTERS if f.launches}
+
+
+def pt_records(pt):
+    m = pt.measure()
+    return (tuple(r["hamiltonian"] for r in m), tuple(r["up"] for r in m),
+            tuple(pt.accepts), tuple(pt.replica_at))
+
+
+def phase_pt(card):
+    """Parallel tempering on the card. (a) The README's --pt command on
+    xla, bit1 and packed: the per-rung, acceptance and round-trip lines
+    equal, bit1_sweep's and packed_sweep's launches counted. (b) The PT
+    golden (golden.PT_GOLDEN) on bit1, packed and dense. (c) At
+    bench_pt.py's ladder, batched rounds against per-rung rounds: H, up
+    counts, accepts and replica_at equal round by round; one rung's sweeps
+    and both rounds timed. (d) At 16384^2 on bit1, the Fourier partials
+    and the overlap of two seeds on the words against the decode path,
+    and on packed's words and across backends, each timed."""
+    from ising_tpu_torch.driver import Simulation
+    from ising_tpu_torch.tempering import ParallelTempering
+    lines = {}
+    for be in PT_BACKENDS:
+        out, seconds, launches = pt_cli(PT_FLAGS + ["--backend", be])
+        lines[be] = pt_lines(out)
+        want = {} if be == "xla" else {SWEEPS[be].__name__: PT_LAUNCHES}
+        require(launches == want, f"--pt on {be}: launches {launches}, "
+                f"expected {want}")
+        require(len(lines[be]) == 4 * 4 + 2, f"--pt on {be}: "
+                f"{len(lines[be])} result lines")
+        say(f"[pt] README --pt on {be}: {seconds:.3f} s, launches "
+            f"{launches or 'none (plain torch)'}; {lines[be][-2]}; "
+            f"{lines[be][-1]}")
+    require(lines["bit1"] == lines["xla"] and lines["packed"] == lines["xla"],
+            "--pt lines differ across backends")
+    say(f"[pt] README --pt: the {len(lines['xla'])} T / magnetization / E/N,"
+        f" acceptance and round-trip lines equal on "
+        f"{', '.join(PT_BACKENDS)}")
+    for be in PT_GOLDEN_BACKENDS:
+        for f in COUNTERS:
+            f.launches = 0
+        got = golden.port_pt_record(be, device="cuda")
+        n = SWEEPS[be].launches
+        want_n = 2 * len(golden.PT_TEMPS) * golden.PT_SWEEPS * 2 * \
+            golden.PT_ROUNDS
+        require(got == golden.PT_GOLDEN, f"PT golden on {be}: got {got}")
+        require(n == want_n, f"PT golden on {be}: {SWEEPS[be].__name__} "
+                f"launched {n} times, expected {want_n}")
+        say(f"[pt] golden PT_GOLDEN reproduced on {be}: accepts "
+            f"{got['accepts']}, replica_at {got['replica_at']}, crc32 "
+            + ", ".join(f"{c:08X}" for c in got["crc32"])
+            + f"; {SWEEPS[be].__name__} launches {n}")
+    # (c) batched against per-rung at bench_pt.py's ladder
+    K = PT_BENCH_RUNGS
+    r = (PT_BENCH_TEMPS[1] / PT_BENCH_TEMPS[0]) ** (1.0 / (K - 1))
+    temps = [PT_BENCH_TEMPS[0] * r ** i for i in range(K)]
+    cfg = SimConfig(nrows=PT_BENCH_SIZE, ncols=PT_BENCH_SIZE, temp=temps[0],
+                    seed=PT_BENCH_SEED, backend="packed", rng="threefry13",
+                    device="cuda")
+    sim = Simulation(cfg)
+    t_rung = event_ms(lambda: sim.advance(PT_BENCH_SWEEPS), 10)
+    del sim
+    pts = [ParallelTempering(cfg, temps, sweeps_per_swap=PT_BENCH_SWEEPS,
+                             batched=b) for b in (True, False)]
+    t_round = [[], []]
+    for _ in range(PT_BENCH_ROUNDS):
+        for i, pt in enumerate(pts):
+            t_round[i].append(host_ms(pt.advance_round))
+        require(pt_records(pts[0]) == pt_records(pts[1]),
+                f"batched and per-rung records differ at round {pts[0].round}"
+                f": {pt_records(pts[0])} against {pt_records(pts[1])}")
+    med = [sorted(t[1:])[len(t) // 2 - 1] for t in t_round]
+    m = pts[0].measure()
+    require(all(math.isfinite(x["energy"]) and -2 <= x["energy"] <= 0
+                for x in m), f"E/N out of range: {m}")
+    say(f"[pt] bench_pt ladder, {K} rungs at {PT_BENCH_SIZE}^2 packed "
+        f"threefry13, {PT_BENCH_SWEEPS} sweeps a swap: H, up counts, "
+        f"accepts {pts[0].accepts} and replica_at equal batched and per "
+        f"rung over {PT_BENCH_ROUNDS} rounds; one rung's sweeps "
+        f"{t_rung:.4f} ms (CUDA events), a batched round {med[0]:.3f} ms, a "
+        f"per-rung round {med[1]:.3f} ms (host clock, median of rounds 2-"
+        f"{PT_BENCH_ROUNDS}; all: {[round(x, 3) for x in t_round[0]]}, "
+        f"{[round(x, 3) for x in t_round[1]]}); E/N of the coldest rung "
+        f"{m[0]['energy']:.6f} on {card['smi']}")
+    del pts
+    torch.cuda.empty_cache()
+    # (d) the word paths against the decode paths at 16384^2
+    sims = {}
+    for be in ("bit1", "packed"):
+        for seed in (1, 2):
+            s = sims[be, seed] = Simulation(SimConfig(
+                nrows=MAIN_SHAPE, ncols=MAIN_SHAPE, temp=1.5, seed=seed,
+                backend=be, rng=PT_WORDS_MODE, device="cuda"))
+            s.advance(PT_WORDS_STEPS)
+    a, b = sims["bit1", 1], sims["bit1", 2]
+    t = {}
+    (rows, cols), t["fourier words"] = sync_s(a.fourier_partials)
+    (via_rows, via_cols), t["fourier decode"] = sync_s(lambda: (
+        observables.row_up_counts(*a.bits()).cpu().numpy(),
+        observables.col_up_counts_via(a._decode_rows,
+                                      MAIN_SHAPE).cpu().numpy()))
+    require(np.array_equal(rows, via_rows) and np.array_equal(cols, via_cols),
+            "fourier_partials on bit1's words != the decode path")
+    require(int(rows.sum()) == int(cols.sum()) == a.measure()["up"],
+            "row and column up counts do not sum to the up count")
+    say(f"[pt] {MAIN_SHAPE}^2 bit1 {PT_WORDS_MODE} after {PT_WORDS_STEPS} "
+        f"steps: fourier_partials on the words ({rows.size} row and "
+        f"{cols.size} column counts) equal the decode path "
+        f"(col_up_counts_via over _decode_rows)")
+    q, neq = {}, {}
+    (neq["bit1 words"], t["overlap bit1 words"]) = sync_s(
+        lambda: a._overlap_neq_rows_with(b))
+    (neq["packed words"], t["overlap packed words"]) = sync_s(
+        lambda: sims["packed", 1]._overlap_neq_rows_with(sims["packed", 2]))
+    (neq["decode"], t["overlap decode"]) = sync_s(
+        lambda: observables.overlap_neq_rows_via(a._decode_rows,
+                                                 b._decode_rows, MAIN_SHAPE))
+    neq["bit1 against packed"] = a._overlap_neq_rows_with(sims["packed", 2])
+    for k, v in neq.items():
+        require(torch.equal(v, neq["decode"]), f"overlap neq rows: {k} "
+                "!= the decode path")
+        q[k] = 1.0 - 2.0 * int(v.sum()) / (MAIN_SHAPE * MAIN_SHAPE)
+    require(len(set(q.values())) == 1 and q["bit1 words"] == a.overlap_with(b)
+            and a.overlap_with(sims["packed", 1]) == 1.0,
+            f"overlaps differ: {q}")
+    say(f"[pt] {MAIN_SHAPE}^2 overlap of seeds 1 and 2 after "
+        f"{PT_WORDS_STEPS} steps: q = {q['decode']!r} on bit1's words, "
+        f"packed's words, the decode path and bit1 against packed; a bit1 "
+        f"state against its packed twin q = 1.0")
+    say(f"[pt] {MAIN_SHAPE}^2 times on {card['smi']} (host clock around a "
+        f"synchronize, ms): " + ", ".join(f"{k} {v * 1e3:.3f}"
+                                          for k, v in t.items()))
+    del sims, a, b
+    torch.cuda.empty_cache()
+
+
 def event_ms(fn, n: int = 1) -> float:
     """ms per call of fn() over n calls (time_launches), after one warm-up
     call."""
@@ -2681,6 +2871,8 @@ def main(argv=None) -> int:
         sw_main = phase_sw_main(card)
         say(f"[time] {elapsed():.1f} s")
         phase_io(card)
+        say(f"[time] {elapsed():.1f} s")
+        phase_pt(card)
         say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, loops)
         cases, max_err = cases + full_cases, max(max_err, full_err)

@@ -9,8 +9,10 @@ greedy quench, with the external field, quenched +-J disorder and
 sub-lattice replicas; and Swendsen-Wang cluster updates (cluster.py), whose
 labeler's passes are a CUDA kernel too. It writes and reads the JAX
 package's lattice dumps, correlation files and checkpoints byte for byte
-(io.py, checkpoint.py). It imports torch and never jax or ising_tpu. Entry points run on CUDA unless
-the caller passes device="cpu".
+(io.py, checkpoint.py). Parallel tempering (tempering.py, --pt) exchanges
+configurations over a temperature ladder on any backend, with the replica
+overlap and the Fourier partials. It imports torch and never jax or
+ising_tpu. Entry points run on CUDA unless the caller passes device="cpu".
 """
 
 from .config import SimConfig  # noqa: F401

@@ -3,9 +3,12 @@
 
     python -m ising_tpu_torch --backend bit1 -y 2048 -x 2048 -n 128 -a 0.66 -p 16
     python -m ising_tpu_torch --algo sw -x 4096 -y 4096 -n 64 -a 1.0 -p 8
+    python -m ising_tpu_torch -x 1024 -y 1024 -J 0.5 --pt 0.8,1.0,1.3,1.7 -n 200 -p 50
 
 Without --backend it runs the xla backend (plain torch), as the JAX
 package's CLI does; --algo sw runs Swendsen-Wang cluster updates on it.
+--pt runs parallel tempering over a ladder on any backend (-n counts swap
+rounds).
 
 -o dumps the lattice and -c appends correlation rows at each measurement,
 --checkpoint saves the run at its end and --resume continues one, in the
@@ -86,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="update algorithm: checkerboard Metropolis, or "
                         "Swendsen-Wang cluster updates (sw; backend xla)")
     p.add_argument("--pt", default=None, metavar="T1,T2,...",
-                   help="parallel tempering (not yet ported)")
+                   help="parallel tempering over the given temperature "
+                        "ladder (-n counts swap rounds; with -J for spin "
+                        "glasses)")
     p.add_argument("--sweeps-per-swap", type=int, default=8,
                    help="Metropolis sweeps between swap phases (--pt)")
     p.add_argument("--use-common-seed", action="store_true",
@@ -108,7 +113,6 @@ def unported_flag(args):
     checks = (
         # a resumed run takes the file's device count, as in the JAX CLI
         ("--devs > 1", args.devs != 1 and args.resume is None, 7),
-        ("--pt", args.pt is not None, 11),
         ("--profile", args.profile is not None, 12),
     )
     for flag, used, item in checks:
@@ -152,17 +156,59 @@ def build_simulation(args):
     return Simulation(cfg)
 
 
+def run_pt(args) -> int:
+    """--pt: replica exchange over the given ladder
+    (tempering.ParallelTempering; -n counts swap rounds). The per-rung,
+    acceptance and round-trip lines are the JAX CLI's."""
+    try:
+        temps = [float(t) for t in args.pt.split(",") if t]
+        cfg = config_from_args(args)
+        from .tempering import ParallelTempering
+        pt = ParallelTempering(cfg, temps,
+                               sweeps_per_swap=args.sweeps_per_swap)
+    except (ValueError, NotImplementedError) as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    print("ising-tpu-torch parallel tempering:")
+    print(f"\tlattice: {cfg.nrows} x {cfg.ncols} "
+          f"({cfg.nspins / 1e6:.1f} M spins)")
+    print(f"\tladder: {', '.join(f'{t:g}' for t in temps)}")
+    print(f"\tbackend: {cfg.backend} (rng: {cfg.rng}), "
+          f"{args.sweeps_per_swap} sweeps/swap")
+    print(f"\tdevice: {pt.sims[0].device}")
+    if cfg.j_prob is not None:
+        print(f"\tdisorder: P(antiferro link) = {cfg.j_prob}")
+    print(f"\trounds: {args.nit}")
+    events = set(range(args.print_freq, args.nit + 1, args.print_freq)) \
+        if args.print_freq else set()
+    for r in range(1, args.nit + 1):
+        pt.advance_round()
+        if r in events or r == args.nit:
+            for m in pt.measure():
+                print(f"        T = {m['temp']:8.5f}  "
+                      f"magnetization: {m['magnetization']:9.6f}  "
+                      f"E/N: {m['energy']:9.6f} (round: {r:6d})")
+    st = pt.stats()
+    rates = ", ".join(f"{a:.3f}" for a in st["pair_acceptance"])
+    trips = sum(st["round_trips"])
+    print(f"Pair acceptance: [{rates}]")
+    print(f"Completed round trips: {trips} "
+          f"(replica at rung: {st['replica_at']})")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.pt is None and args.algo == "sw" and (args.resume
-                                                  or args.checkpoint):
-        print("ERROR: --algo sw does not support --resume/--checkpoint",
-              file=sys.stderr)
-        return 1
     unported = unported_flag(args)
     if unported is not None:
         flag, item = unported
         print(f"ERROR: {flag} is not yet ported (ROADMAP item {item})",
+              file=sys.stderr)
+        return 1
+    if args.pt:
+        return run_pt(args)
+    if args.algo == "sw" and (args.resume or args.checkpoint):
+        print("ERROR: --algo sw does not support --resume/--checkpoint",
               file=sys.stderr)
         return 1
     errors = (ValueError, NotImplementedError)

@@ -55,7 +55,7 @@ import torch
 
 from . import io as lio
 from . import observables
-from .config import SimConfig, not_ported, resolve_device
+from .config import SimConfig, resolve_device
 from .lattice import compact_to_full, full_to_compact, init_bits
 from .ops import kernel_lib
 from .ops.bit1 import _cuda_stream, overlaps
@@ -628,7 +628,16 @@ class SwendsenWang:
             *self.bits(), xsl=self.cfg.xsl, ysl=self.cfg.ysl)
 
     def fourier_partials(self):
-        raise not_ported("SwendsenWang.fourier_partials", 15)
+        """Exact (per-row, per-column) up counts as int64 numpy, the surface
+        of Simulation.fourier_partials. Over the full lattice in replica
+        mode too: the JAX package's SwendsenWang does not refuse it
+        (cluster.py:619-630), unlike its Simulation, and the port gives the
+        same line sums."""
+        b, w = self.bits()
+        rows = observables.row_up_counts(b, w)
+        both = torch.cat([rows, observables.col_up_counts(b, w)])
+        both = both.cpu().numpy()
+        return both[:rows.numel()], both[rows.numel():]
 
     def measure(self):
         n_up, n_dn = observables.count_spins(*self.bits())

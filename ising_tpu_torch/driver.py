@@ -5,7 +5,8 @@ schedules, the same log lines, the same flips/ns and bandwidth formula,
 the temperature ramp, the external field, quenched +-J disorder and
 sub-lattice replicas, the lattice dumps (-o) and correlation files (-c)
 written at each measurement, and checkpoint and resume in the JAX
-package's file format. Steps run as host-issued launches; the host
+package's file format; the overlap with another run's state and the
+Fourier partials. Steps run as host-issued launches; the host
 synchronises only at measurement events.
 """
 
@@ -186,15 +187,16 @@ class Simulation:
             return None
         return self._links_slab(0, self.cfg.nrows)
 
-    def _up_rows(self):
-        """Per-row up counts: the backend's own reduction where it has one
-        (bit1's popcount on words), else on the decoded planes."""
+    def _up_rows_for(self, black, white):
+        """Per-row up counts of the given storage planes, on the device: the
+        backend's own reduction where it has one (popcount on bit1's and
+        packed's words), else on the decoded planes."""
         if hasattr(self.backend, "row_up_counts"):
-            return self.backend.row_up_counts(self.black, self.white)
-        return observables.row_up_counts(*self.bits())
+            return self.backend.row_up_counts(black, white)
+        return observables.row_up_counts(*self.backend.decode(black, white))
 
     def measure(self):
-        n_up = int(self._up_rows().sum())
+        n_up = int(self._up_rows_for(self.black, self.white).sum())
         n_dn = self.cfg.nspins - n_up
         m = abs(n_up - n_dn) / (n_up + n_dn)
         out = {"step": self.step, "magnetization": m,
@@ -243,29 +245,85 @@ class Simulation:
         does."""
         return int(self._energy_rows().sum())
 
-    def _energy_rows(self):
-        """Per-row bond sums: on the words where the backend can (bit1,
-        with the packed link store under disorder), else streamed from
-        storage in row slabs with the link slabs."""
-        b, w = self.black, self.white
-        if self._links_store is None and hasattr(self.backend, "energy_rows"):
-            return self.backend.energy_rows(b, w)
+    def _energy_rows_for(self, black, white, links=None,
+                         row_chunk: int = 8192):
+        """Per-row bond sums of the given storage planes, on the device, with
+        the link store `links` (default: this run's): on the words where the
+        backend can (bit1, with the packed link store under disorder), else
+        streamed from storage in slabs of row_chunk rows with the link slabs.
+        A pure function of its inputs; parallel tempering takes every rung's
+        before one transfer."""
+        if links is None:
+            links = self._links_store
+        be = self.backend
+        if self._links_store is None and hasattr(be, "energy_rows"):
+            return be.energy_rows(black, white)
         if (self._links_store is not None and self._links_packed
-                and hasattr(self.backend, "energy_rows_disordered")):
-            return self.backend.energy_rows_disordered(b, w,
-                                                       self._links_store)
-        decode = lambda r, n: self.backend.decode(
-            observables._rows_wrap(b, r, n), observables._rows_wrap(w, r, n))
-        links_rows = None if self._links_store is None else self._links_slab
+                and hasattr(be, "energy_rows_disordered")):
+            return be.energy_rows_disordered(black, white, links)
+        decode = lambda r, n: be.decode(observables._rows_wrap(black, r, n),
+                                        observables._rows_wrap(white, r, n))
+        links_rows = None
+        if self._links_store is not None:
+            links_rows = lambda r, n: self._links_slab_of(links, r, n)
         return observables.energy_rows_via(decode, self.cfg.nrows,
-                                           links_rows=links_rows)
+                                           links_rows=links_rows,
+                                           row_chunk=row_chunk)
+
+    def _energy_rows(self):
+        """Per-row bond sums of the current state, on the device."""
+        return self._energy_rows_for(self.black, self.white)
+
+    def _overlap_neq_rows_with(self, other, row_chunk: int = 8192):
+        """Per-row differing-spin counts against another Simulation's
+        current state, on the device: on the words where both backends are
+        of one type and it has a word path (bit1, packed), else through
+        both states' decode, slab by slab."""
+        if (type(other.backend) is type(self.backend)
+                and hasattr(self.backend, "overlap_neq_rows")):
+            return self.backend.overlap_neq_rows(self.black, self.white,
+                                                 other.black, other.white)
+        return observables.overlap_neq_rows_via(
+            self._decode_rows, other._decode_rows, self.cfg.nrows,
+            row_chunk=row_chunk)
+
+    def overlap_with(self, other) -> float:
+        """Edwards-Anderson overlap q = (1/N) sum_i s1_i s2_i with another
+        Simulation's current state: 1 identical, -1 opposite. Exact integer
+        XOR counts, finished in float here. The geometries must match; the
+        backends may differ (the decode path bridges their storage)."""
+        if (self.cfg.nrows, self.cfg.ncols) != (other.cfg.nrows,
+                                                other.cfg.ncols):
+            raise ValueError("overlap needs matching lattice geometry")
+        neq = int(self._overlap_neq_rows_with(other).sum())
+        return 1.0 - 2.0 * neq / self.cfg.nspins
+
+    def fourier_partials(self):
+        """Exact (per-row, per-column) up-spin counts as int64 numpy: the
+        integer partials of the Fourier magnetizations m(0) and
+        m(k1 = 2 pi / L) along both axes. On bit1's words without a decode,
+        else from decoded row slabs; one transfer. Full lattice only:
+        replica tiles would mix in the line sums."""
+        if self.cfg.xsl is not None or self.cfg.ysl is not None:
+            raise ValueError("fourier_partials needs full-lattice mode "
+                             "(replica tiles mix in the line sums); use "
+                             "replica_magnetizations for tile statistics")
+        rows = self._up_rows_for(self.black, self.white)
+        if hasattr(self.backend, "col_up_counts"):
+            cols = self.backend.col_up_counts(self.black, self.white)
+        else:
+            cols = observables.col_up_counts_via(self._decode_rows,
+                                                 self.cfg.nrows)
+        both = torch.cat([rows, cols]).cpu().numpy()
+        return both[:rows.numel()], both[rows.numel():]
 
     def energy(self) -> float:
         """Internal energy per spin; a field adds its exact -h sum(s)."""
         e = -float(self.energy_total())
         h = self.cfg.field
         if h:
-            e -= h * (2 * int(self._up_rows().sum()) - self.cfg.nspins)
+            ups = int(self._up_rows_for(self.black, self.white).sum())
+            e -= h * (2 * ups - self.cfg.nspins)
         return e / self.cfg.nspins
 
     def run(self, log=print):

@@ -26,6 +26,11 @@ rng mode, nrows, ncols): from seed SEED_DEF at T = 1.5 after IO_NSTEPS
 steps, the zlib.crc32 of the -c line written for that iteration, of the
 hex dump and of the checkpoint (io_crcs), as the JAX package writes them
 for that backend (bit1's from its words, packed's through its decode).
+PT_GOLDEN holds one parallel-tempering run (--pt): a PT_NROWS x PT_NCOLS
+lattice with -J PT_J_PROB, the ladder PT_TEMPS, PT_SWEEPS sweeps a swap,
+PT_ROUNDS rounds, recorded from the JAX package's ParallelTempering on
+its xla backend (pt_record); a counter-mode run, so every backend of the
+port gives it.
 
 tests/test_torch_golden.py (tests/test_torch_io.py for IO_GOLDEN) derives
 every case again and checks it is equal, and chip_smoke.py checks the
@@ -122,6 +127,20 @@ IO_GOLDEN = {
         "corr": 0x0D0FBA72, "dump": 0xB247FB23, "checkpoint": 0x208751C3},
     ("packed", "chacha8", 64, 512): {
         "corr": 0xA6550C67, "dump": 0xE318A99C, "checkpoint": 0xC389C0F7},
+}
+
+# Parallel tempering: two ladders over one -J 0.4 realization (j_seed
+# SEED), the second from seed SEED + 1.
+PT_NROWS = PT_NCOLS = 64
+PT_J_PROB = 0.4
+PT_TEMPS = (1.9, 2.0, 2.1)
+PT_SWEEPS, PT_ROUNDS = 2, 6
+
+PT_GOLDEN = {
+    "accepts": (1, 0), "attempts": (3, 3), "replica_at": (1, 0, 2),
+    "H": (-3872, -3716, -3504), "up": (2094, 2043, 2079),
+    "crc32": (0xCDFBB3AC, 0x07389111, 0x656E3BE5),
+    "overlap": (-0.0341796875, 0.01220703125, 0.02490234375),
 }
 
 BACKENDS = ("bit1", "xla", "packed", "dense")
@@ -231,3 +250,43 @@ def port_io_files(case, directory, *, device="cuda") -> dict:
     sim = Simulation(SimConfig(**io_config(case), device=str(device)))
     sim.advance(IO_NSTEPS)
     return io_crcs(sim, directory)
+
+
+def pt_config(seed: int) -> dict:
+    """SimConfig keywords of a PT_GOLDEN ladder (the same in both
+    packages; each rung replaces temp and seed)."""
+    return dict(nrows=PT_NROWS, ncols=PT_NCOLS, temp=PT_TEMPS[0], seed=seed,
+                j_prob=PT_J_PROB, j_seed=SEED)
+
+
+def pt_record(pt_a, pt_b, words, replica_overlap) -> dict:
+    """Advance two ladders PT_ROUNDS rounds and return PT_GOLDEN's record
+    of the first: its swap counts, rung -> replica map, each rung's final
+    Hamiltonian and up count, the crc32 of each rung's final bit1 words
+    (words(sim) -> (black, white) uint32 numpy) and the overlaps with the
+    second. Either package's ParallelTempering, with its replica_overlap."""
+    for _ in range(PT_ROUNDS):
+        pt_a.advance_round()
+        pt_b.advance_round()
+    m = pt_a.measure()
+    return {"accepts": tuple(pt_a.accepts),
+            "attempts": tuple(pt_a.attempts),
+            "replica_at": tuple(pt_a.replica_at),
+            "H": tuple(r["hamiltonian"] for r in m),
+            "up": tuple(r["up"] for r in m),
+            "crc32": tuple(words_crc32(*words(s)) for s in pt_a.sims),
+            "overlap": tuple(replica_overlap(pt_a, pt_b))}
+
+
+def port_pt_record(backend: str, *, device="cuda") -> dict:
+    """pt_record of the port's two PT_GOLDEN ladders on `backend` and
+    `device`."""
+    from .config import SimConfig
+    from .interop import to_numpy_words
+    from .ops.bit1 import pack_bits1
+    from .tempering import ParallelTempering, replica_overlap
+    pts = [ParallelTempering(
+        SimConfig(**pt_config(seed), backend=backend, device=str(device)),
+        PT_TEMPS, sweeps_per_swap=PT_SWEEPS) for seed in (SEED, SEED + 1)]
+    return pt_record(*pts, lambda s: to_numpy_words(
+        *(pack_bits1(p) for p in s.bits())), replica_overlap)

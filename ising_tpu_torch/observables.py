@@ -1,11 +1,13 @@
 """Exact integer observables (plain torch).
 
 The port of ``ising_tpu/observables.py``: per-row up-spin counts, bond
-sums and the 2-point correlation's per-(offset, row) sums, on uint8 bit
-planes (the xla backend's storage) and straight on the bit1 backend's
-(Y, W1) words, without a decode to byte planes; bond sums with or without
-quenched disorder links, the correlation over the full lattice or inside
-sub-lattice replicas; up counts on the packed backend's words too; and the
+sums, the 2-point correlation's per-(offset, row) sums, the replica
+overlap's per-row differing-spin counts and the per-column up counts of
+the Fourier magnetizations, on uint8 bit planes (the xla backend's
+storage) and straight on the bit1 backend's (Y, W1) words, without a
+decode to byte planes; bond sums with or without quenched disorder links,
+the correlation over the full lattice or inside sub-lattice replicas; up
+counts and overlaps on the packed backend's words too; and the
 per-replica |m| of replica mode. torch has no popcount, so words are
 counted with the SWAR bit-count on int64 copies; every sum is exact in
 int64.
@@ -30,6 +32,12 @@ def count_spins(black, white):
     """(n_up, n_down) of two uint8 bit planes, as exact Python ints."""
     ups = int(row_up_counts(black, white).sum())
     return ups, black.numel() + white.numel() - ups
+
+
+def magnetization(black, white) -> float:
+    """|m| in [0, 1]: |n_up - n_down| / N of two uint8 bit planes."""
+    n_up, n_dn = count_spins(black, white)
+    return abs(n_up - n_dn) / (black.numel() + white.numel())
 
 
 def _row_block(Y: int, row_chunk: int) -> int:
@@ -355,3 +363,96 @@ def replica_magnetizations(black, white, xsl: int, ysl: int) -> np.ndarray:
     n = xsl * ysl
     ups = (tile_ups(black) + tile_ups(white)).cpu().numpy()
     return (np.abs(2 * ups - n) / float(n)).reshape(-1)
+
+
+# Replica overlap: q = (1/N) sum_i s1_i s2_i = 1 - 2 neq / N, where neq
+# counts the sites at which two states differ; the partials are per-row
+# XOR counts.
+
+def _neq_block(b1, w1, b2, w2):
+    return ((b1 ^ b2).sum(dim=1, dtype=torch.int64)
+            + (w1 ^ w2).sum(dim=1, dtype=torch.int64))
+
+
+def overlap_neq_rows_via(decode_a, decode_b, nrows: int,
+                         row_chunk: int = 8192):
+    """Per-row differing-spin counts (int64) between two states, from each
+    state's row decoder (decode(r, n) -> compact (black, white) uint8
+    planes of rows [r, r+n)), slab by slab: no full-lattice decode."""
+    R = _row_block(nrows, row_chunk)
+    return torch.cat([_neq_block(*decode_a(r, R), *decode_b(r, R))
+                      for r in range(0, nrows, R)])
+
+
+def word_overlap_neq_rows(b1, w1, b2, w2, field_mask: int = MASK,
+                          row_chunk: int = 16384):
+    """Per-row differing-spin counts (int64) straight on word storage: the
+    set bits under field_mask of the XOR of the two states' words (every
+    bit for bit1's, PACKED_SPIN_MASK for packed's)."""
+    parts = [_popcount_rows(b1[r:r + row_chunk] ^ b2[r:r + row_chunk],
+                            field_mask)
+             + _popcount_rows(w1[r:r + row_chunk] ^ w2[r:r + row_chunk],
+                              field_mask)
+             for r in range(0, b1.shape[0], row_chunk)]
+    return torch.cat(parts)
+
+
+# Column partials: per-column up counts, the column twin of
+# row_up_counts. With the row counts they hold the exact integer content
+# of m(0) and of the smallest-wavevector magnetization along either axis.
+
+def _col_up_block(black, white):
+    """Per-full-lattice-column up counts (int64, (X,)) of one row slab
+    whose first row is even: column 2j is the E plane's column j, 2j+1
+    the O plane's."""
+    e, o = _col_parity_planes(black, white)
+    return torch.stack([e.sum(dim=0, dtype=torch.int64),
+                        o.sum(dim=0, dtype=torch.int64)], dim=1).reshape(-1)
+
+
+def _col_chunked(block, a, b, nrows: int, row_chunk: int):
+    """Sum a per-column block reduction over row slabs that start at even
+    rows, so that each slab's own row parity is the lattice's."""
+    R = min(nrows, row_chunk - (row_chunk % 2))
+    if nrows <= R:
+        return block(a, b)
+    acc = block(a[:R], b[:R])
+    for r in range(R, nrows, R):
+        acc = acc + block(a[r:r + R], b[r:r + R])
+    return acc
+
+
+def col_up_counts(black, white, row_chunk: int = 8192):
+    """Per-column up-spin counts (int64, (X,)) of two uint8 bit planes."""
+    return _col_chunked(_col_up_block, black, white, black.shape[0],
+                        row_chunk)
+
+
+def col_up_counts_via(decode_rows, nrows: int, row_chunk: int = 8192):
+    """col_up_counts from storage via a row decoder (decode_rows(r, n) ->
+    compact (black, white) uint8 planes of rows [r, r+n)), slab by slab."""
+    R = _row_block(nrows, row_chunk)
+    acc = _col_up_block(*decode_rows(0, R))
+    for r in range(R, nrows, R):
+        acc = acc + _col_up_block(*decode_rows(r, R))
+    return acc
+
+
+def _bit1_col_up_block(black_w, white_w):
+    """Per-column up counts of one row slab of bit1 words: bit g of word
+    lane j is compact column g * W1 + j, so bit plane g summed over the
+    rows gives W1 consecutive compact columns. On int32 words the
+    arithmetic shift and & 1 take bit 31 too."""
+    e, o = _col_parity_planes(black_w, white_w)
+
+    def percol(x):
+        return torch.cat([((x >> g) & 1).sum(dim=0, dtype=torch.int64)
+                          for g in range(32)])
+
+    return torch.stack([percol(e), percol(o)], dim=1).reshape(-1)
+
+
+def bit1_col_up_counts(black_w, white_w, row_chunk: int = 8192):
+    """col_up_counts straight on bit1's (Y, W1) int32 words (no decode)."""
+    return _col_chunked(_bit1_col_up_block, black_w, white_w,
+                        black_w.shape[0], row_chunk)

@@ -651,6 +651,18 @@ class Bit1Backend:
         return bit1_energy_row_sums(black_store, white_store,
                                     links_words=links_words)
 
+    def col_up_counts(self, black_store, white_store):
+        """Per-column up counts on the words (no decode): the column twin
+        of row_up_counts."""
+        from ..observables import bit1_col_up_counts
+        return bit1_col_up_counts(black_store, white_store)
+
+    def overlap_neq_rows(self, b1, w1, b2, w2):
+        """Per-row differing-spin counts between two states' words (XOR
+        and popcount): the replica overlap's integer core."""
+        from ..observables import word_overlap_neq_rows
+        return word_overlap_neq_rows(b1, w1, b2, w2)
+
     def encode_jplanes(self, planes):
         """(j_up, j_dn, j_same, j_off) uint8 planes -> bit1 word planes."""
         return tuple(pack_bits1(p) for p in planes)

@@ -404,6 +404,13 @@ class PackedBackend:
         from ..observables import packed_row_up_counts
         return packed_row_up_counts(black_store, white_store)
 
+    def overlap_neq_rows(self, b1, w1, b2, w2):
+        """Per-row differing-spin counts between two states' packed words:
+        the XOR masked to each 4-bit field's spin bit."""
+        from ..observables import PACKED_SPIN_MASK, word_overlap_neq_rows
+        return word_overlap_neq_rows(b1, w1, b2, w2,
+                                     field_mask=PACKED_SPIN_MASK)
+
     def encode_jplanes(self, jplanes):
         """(j_up, j_dn, j_same, j_off) uint8 planes -> a 1-tuple of the J
         word, threaded by the driver like bit1's four planes."""

@@ -23,6 +23,7 @@ import torch
 from ising_tpu import SimConfig as JaxConfig
 from ising_tpu import cli as jcli
 from ising_tpu import cluster as jc
+from ising_tpu.lattice import compact_to_full as jax_compact_to_full
 from ising_tpu.rng import color_draws as jax_color_draws
 from ising_tpu_torch import cli, cluster
 from ising_tpu_torch.config import SimConfig
@@ -599,8 +600,29 @@ def test_fences_match_jax():
     sw = cluster.SwendsenWang(SimConfig(nrows=8, ncols=16, device="cpu"))
     with pytest.raises(ValueError, match="needs replica mode"):
         sw.replica_magnetizations()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        sw.fourier_partials()
+    sw.advance(2)
+    jsw = jc.SwendsenWang(JaxConfig(nrows=8, ncols=16, backend="xla"))
+    jsw.advance(2)
+    for got, want in zip(sw.fourier_partials(), jsw.fourier_partials()):
+        assert isinstance(got, np.ndarray) and got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+
+
+def test_jax_sw_fourier_partials_take_full_lattice_in_replica_mode():
+    """The JAX SwendsenWang.fourier_partials (cluster.py:619-630) does not
+    refuse replica mode, unlike its Simulation's: its line sums run over
+    the full lattice, across the replicas. The port gives the same sums."""
+    kw = dict(nrows=16, ncols=32, temp=2.0, backend="xla", xsl=16, ysl=8)
+    jsw = jc.SwendsenWang(JaxConfig(**kw))
+    sw = cluster.SwendsenWang(SimConfig(**kw, device="cpu"))
+    jsw.advance(2)
+    sw.advance(2)
+    full = np.asarray(jax_compact_to_full(*jsw.bits()))
+    want = (full.sum(axis=1), full.sum(axis=0))
+    for got, jax_sums, line in zip(sw.fourier_partials(),
+                                   jsw.fourier_partials(), want):
+        np.testing.assert_array_equal(np.asarray(jax_sums), line)
+        np.testing.assert_array_equal(got, line)
 
 
 def test_sw_runs_on_cuda_by_default_or_raises(monkeypatch):

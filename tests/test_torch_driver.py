@@ -143,7 +143,9 @@ def test_cli_unported_flags_exit_1(extra, capsys, tmp_path, monkeypatch):
     JAX package's wording. The packed backend (item 8) and the dense and
     mxu backends (item 9) run now, and print the JAX package's
     magnetization lines. --algo sw (item 10) runs on xla, with the JAX
-    package's lines, and exits 1 on bit1 with the JAX package's wording."""
+    package's lines, and exits 1 on bit1 with the JAX package's wording.
+    --pt (item 11) runs and prints the JAX CLI's per-rung, acceptance and
+    round-trip lines."""
     monkeypatch.chdir(tmp_path)
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
@@ -187,6 +189,15 @@ def test_cli_unported_flags_exit_1(extra, capsys, tmp_path, monkeypatch):
         assert cli.main(argv + extra + ["-p", "1"]) == 0
         assert _mag_lines(capsys.readouterr().out) == want
         assert len(want) == 3
+    elif extra[0] == "--pt":
+        assert code == 0 and "not yet ported" not in err
+        assert out.startswith("ising-tpu-torch parallel tempering:")
+        assert jcli.main(argv[:-2] + extra) == 0
+        keep = lambda text: [ln for ln in text.splitlines() if "T = " in ln
+                             or ln.startswith(("Pair acceptance",
+                                               "Completed round trips"))]
+        want = keep(capsys.readouterr().out)
+        assert keep(out) == want and len(want) == 4
     elif extra[:2] == ["--algo", "sw"]:
         assert code == 1
         assert "cluster updates operate on decoded planes; use " \

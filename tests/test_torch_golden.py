@@ -191,3 +191,27 @@ def test_sw_golden_constants_come_from_jax(case):
 def test_port_reproduces_sw_golden_on_cpu(case):
     assert golden.port_sw_trajectory(*case, device="cpu") == \
         golden.SW_GOLDEN[case]
+
+
+def _jax_pt_record():
+    from ising_tpu.tempering import ParallelTempering, replica_overlap
+    pts = [ParallelTempering(JaxConfig(**golden.pt_config(seed),
+                                       backend="xla"),
+                             golden.PT_TEMPS,
+                             sweeps_per_swap=golden.PT_SWEEPS)
+           for seed in (golden.SEED, golden.SEED + 1)]
+    return golden.pt_record(
+        *pts, lambda s: tuple(_words(np.asarray(p)) for p in s.bits()),
+        replica_overlap)
+
+
+def test_pt_golden_comes_from_jax():
+    """PT_GOLDEN is the JAX package's ParallelTempering on its xla backend,
+    and the record holds a swap that was accepted."""
+    assert _jax_pt_record() == golden.PT_GOLDEN
+    assert sum(golden.PT_GOLDEN["accepts"]) > 0
+
+
+@pytest.mark.parametrize("backend", ["xla", "bit1", "packed", "dense"])
+def test_port_reproduces_pt_golden_on_cpu(backend):
+    assert golden.port_pt_record(backend, device="cpu") == golden.PT_GOLDEN
