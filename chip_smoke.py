@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--against OLD_TREE]
     python3 chip_smoke.py --turns OTHER_TREE MODE[,PATH][,h=F][,T=0] ...
+    python3 chip_smoke.py --gpus
 
 Phases, each printed as it ends:
 
@@ -113,7 +114,21 @@ Phases, each printed as it ends:
                timed; at 16384^2 on bit1 the Fourier partials and the
                overlap of two seeds on the words against the decode path,
                and the overlap on packed's words and across backends,
-               each timed;
+               each timed. Then row slabs (phase_multi, `[multi]`) on
+               meshes of the one card repeated 2, 4 and 8 times:
+               MULTICHIP_r05.json's eight cases at 16384^2 (bit1 in
+               threefry13, philox and chacha6b over 2, 4 and 8 slabs;
+               halo_overlap on packed over 4 and on bit1 over 8; -J 0.1
+               on packed and on bit1's J-plane path; replicas of 128^2;
+               chacha8b; the field; a checkpoint saved at 1 slab and
+               resumed at 4; SW at 4096^2 and Tc over 4 slabs), dense
+               (also -J 0.1) and mxu over slabs, and per-shard dumps at
+               4096^2: each equal to one device's run, every count set to
+               0 before the sharded run and read after (2 launches a slab
+               a step, 6 with halo_overlap; the labeler's 3 a slab an
+               update); then 64 steps of bit1 at 16384^2 timed at 1 slab,
+               through the slab path with one slab, over 2, 4 and 8
+               slabs and with halo_overlap;
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
@@ -149,6 +164,14 @@ tree's, in turns (old, new, new, old) on the same words, their results
 equal; and runs the CLI at 16384^2 from OLD_TREE and from this tree in
 turns (cli_turns.py: old, new, new, old): bit1 in threefry13, chacha6b and
 hw, and in threefry13 dense, packed, and packed under ISING_TPU_FUSED=1.
+
+With --gpus, on a machine with two or more GPUs, it builds the kernels
+and runs only row slabs over the machine's own GPUs, one slab a GPU, halo
+rows copied between devices (main_gpus): the flagship, halo_overlap,
+disorder, replica and field cases over 2, 4 and 8 GPUs (as many as it
+has), the checkpoint, dump and SW cases over 4, the CLI's --devs N lines
+against --devs 1's, and the step loop timed at 16384^2 and 32768^2 over
+1 GPU and those counts; it prints no result line.
 
 With --turns OTHER_TREE and cases, it only times bit1_sweep in those
 cases from both trees' libraries in turns, as --against does, and prints
@@ -189,6 +212,7 @@ from ising_tpu_torch import observables, sass
 from ising_tpu_torch.constants import MAX_CORR_LEN, TCRIT
 from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
+from ising_tpu_torch.parallel.mesh import gather_rows
 from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
 
 BUDGET_S = 600          # the whole script, build included
@@ -374,6 +398,40 @@ PT_BENCH_TEMPS = (1.5, 3.5)
 PT_BENCH_SEED = 463463564571
 PT_BENCH_ROUNDS = 5
 PT_WORDS_MODE, PT_WORDS_STEPS = "threefry13", 4
+# Row slabs on the one card (phase_multi): meshes of the card repeated;
+# MULTICHIP_r05.json's cases at MAIN_SHAPE^2, each against one device:
+# (name, backend, rng mode, config, slab counts). Then a checkpoint saved
+# at 1 slab and resumed at 4, per-shard dumps at MULTI_DUMP_SHAPE^2, SW
+# at SW_SHAPE^2 over 4 slabs, and the step loop timed by slab count.
+MULTI_SLABS = (2, 4, 8)
+MULTI_STEPS = 3
+MULTI_CASES = (
+    ("flagship", "bit1", "threefry13", {}, MULTI_SLABS),
+    ("flagship", "bit1", "philox", {}, MULTI_SLABS),
+    ("flagship", "bit1", "chacha6b", {}, MULTI_SLABS),
+    ("halo_overlap", "packed", "threefry13", {"halo_overlap": True}, (4,)),
+    ("halo_overlap", "bit1", "threefry13", {"halo_overlap": True}, (8,)),
+    ("disorder", "packed", "philox", {"j_prob": 0.1}, (4,)),
+    ("disorder", "bit1", "threefry13", {"j_prob": 0.1}, (4,)),
+    ("replica", "bit1", "threefry13", {"xsl": 128, "ysl": 128}, (4,)),
+    ("plane_rng", "bit1", "chacha8b", {}, (8,)),
+    ("field", "bit1", "threefry13b", {"field": 0.7}, (4,)),
+    ("dense", "dense", "threefry13", {}, (4,)),
+    ("dense disorder", "dense", "philox", {"j_prob": 0.1}, (2,)),
+    ("mxu", "mxu", "philox", {}, (4,)),
+)
+MULTI_DUMP_SHAPE = 4096
+# --gpus (a machine with several GPUs, one slab a GPU): the cases run
+# there, and the larger lattice its step loop is also timed at.
+GPUS_CASES = tuple(c for c in MULTI_CASES
+                   if c[:2] in (("flagship", "bit1"), ("halo_overlap",
+                                                       "packed"),
+                                ("disorder", "bit1"), ("replica", "bit1"),
+                                ("field", "bit1"))
+                   and c[2] in ("threefry13", "philox", "threefry13b"))
+GPUS_TIMED_SHAPE = 32768
+MULTI_SW_ITERS = 3
+MULTI_TIMED_STEPS, MULTI_TIMED_REPEATS = 64, 3
 LABEL_TILES = ((64, 128), (128, 128), (32, 128))
 LABEL_KERNEL = {"source": "ising_tpu_torch/csrc/cluster_label.cu",
                 "replaces": "ising_tpu/cluster.py:168"}
@@ -2387,6 +2445,345 @@ def phase_pt(card):
     torch.cuda.empty_cache()
 
 
+def slab_launches():
+    """{wrapper name: launches} of every counted wrapper that launched."""
+    return {f.__name__: f.launches for f in COUNTERS if f.launches}
+
+
+def multi_route(backend: str, extra: dict) -> str:
+    """The kernels line's entry of a sharded run's sweeps: the J-plane path
+    of bit1 (split links are the one-device path) and dense, packed's J
+    word, the replica paths, else the backend's ordered entry."""
+    name = f"{backend}_sweep"
+    if extra.get("j_prob") is not None:
+        return name + ("[jword]" if backend == "packed" else "[jplanes]")
+    if extra.get("xsl") is not None:
+        return name + "[replicas]"
+    return name
+
+
+def same_state(sim, one) -> bool:
+    """The slabs of sim, joined, equal one's one-device storage."""
+    return (torch.equal(gather_rows(sim.black), one.black)
+            and torch.equal(gather_rows(sim.white), one.white))
+
+
+def multi_case(mesh_of, where, name, backend, rng, extra, slabs, launches):
+    """One of MULTI_CASES: MULTI_STEPS steps at MAIN_SHAPE^2 on one device,
+    then over each slab count n of `slabs` on mesh_of(n): every
+    count set to 0 just before the sharded run's steps and read after
+    (the backend's sweep, 2 a slab a step or 6 with halo_overlap, and no
+    other kernel), its storage, up counts and bond sum equal to the
+    one-device run's."""
+    from ising_tpu_torch.driver import Simulation
+    base = dict(nrows=MAIN_SHAPE, ncols=MAIN_SHAPE, temp=1.5, backend=backend,
+                rng=rng, **extra)
+    one = Simulation(SimConfig(**{k: v for k, v in base.items()
+                                  if k != "halo_overlap"}))
+    one.advance(MULTI_STEPS)
+    want = (one.measure(), one.energy_total())
+    kernel = SWEEPS[backend].__name__
+    route = multi_route(backend, extra)
+    for n in slabs:
+        sim = Simulation(SimConfig(ndev=n, **base), mesh=mesh_of(n))
+        per_slab = 6 if extra.get("halo_overlap") else 2
+        for f in COUNTERS:
+            f.launches = 0
+        sim.advance(MULTI_STEPS)
+        torch.cuda.synchronize()
+        got = slab_launches()
+        require(got == {kernel: per_slab * n * MULTI_STEPS},
+                f"[multi] {name} over {n} slabs launched {got}, expected "
+                f"{per_slab * n * MULTI_STEPS} of {kernel} alone")
+        launches[route] += got[kernel]
+        require(same_state(sim, one), f"[multi] {name} ({backend} {rng} "
+                f"{extra}): the {n}-slab state differs from one device's")
+        require((sim.measure(), sim.energy_total()) == want,
+                f"[multi] {name} over {n} slabs: up counts or bond sum "
+                f"{(sim.measure(), sim.energy_total())} != {want}")
+        say(f"[multi] {name}: {MAIN_SHAPE}^2 {backend} {rng} "
+            f"{' '.join(f'{k}={v}' for k, v in extra.items())} over {n} "
+            f"slabs {where}: {kernel} launched {got[kernel]} "
+            f"(= {per_slab} x {n} x {MULTI_STEPS} steps), state, up counts "
+            f"and bond sum bit-identical to one device "
+            f"(|m| = {want[0]['magnetization']:.6f}, bond sum {want[1]})")
+        del sim
+    del one
+    torch.cuda.empty_cache()
+
+
+def multi_files(mesh_of, where, tmp: Path, launches):
+    """The checkpoint case of MULTICHIP_r05.json and the per-shard dumps:
+    MAIN_SHAPE^2 bit1 philox saved at one slab after 2 steps, resumed at
+    4 slabs for 2 more (bit1_sweep's launches counted) equals 4 steps on
+    one device, and saved again at 4 slabs writes the one-device
+    checkpoint's body (the header's config holds ndev); at
+    MULTI_DUMP_SHAPE^2 the 4 per-shard dumps,
+    joined, are the one-device dump's bytes."""
+    from ising_tpu_torch.driver import Simulation
+    cfg = SimConfig(nrows=MAIN_SHAPE, ncols=MAIN_SHAPE, temp=1.5,
+                    backend="bit1", rng="philox")
+    ref = Simulation(cfg)
+    ref.advance(4)
+    half = Simulation(cfg)
+    half.advance(2)
+    half.checkpoint(str(tmp / "half.ck"))
+    resumed = Simulation.from_checkpoint(str(tmp / "half.ck"), ndev=4,
+                                         mesh=mesh_of(4),
+                                         device=mesh_of(4)[0].type)
+    require(resumed.step == 2 and resumed.cfg.ndev == 4
+            and isinstance(resumed.black, list),
+            f"[multi] resume at 4 slabs: step {resumed.step}, ndev "
+            f"{resumed.cfg.ndev}")
+    for f in COUNTERS:
+        f.launches = 0
+    resumed.advance(2)
+    torch.cuda.synchronize()
+    got = slab_launches()
+    require(got == {"bit1_sweep": 2 * 4 * 2},
+            f"[multi] resumed run launched {got}")
+    launches["bit1_sweep"] += got["bit1_sweep"]
+    require(same_state(resumed, ref), "[multi] ckpt_resume: the run saved at "
+            "1 slab and resumed at 4 differs from 4 steps on one device")
+    ref.checkpoint(str(tmp / "one.ck"))
+    resumed.checkpoint(str(tmp / "four.ck"))
+    require(ck_body(tmp / "one.ck") == ck_body(tmp / "four.ck"),
+            "[multi] the 4-slab checkpoint's body differs from one device's")
+    say(f"[multi] ckpt_resume: {MAIN_SHAPE}^2 bit1 philox saved at 1 slab, "
+        f"resumed at 4 {where}: continuation bit-identical, "
+        f"bit1_sweep launched {got['bit1_sweep']}; the body of its checkpoint "
+        f"saved at 4 slabs equals one device's "
+        f"({(tmp / 'four.ck').stat().st_size} bytes)")
+    del ref, half, resumed
+    dcfg = SimConfig(nrows=MULTI_DUMP_SHAPE, ncols=MULTI_DUMP_SHAPE, temp=1.5,
+                     backend="bit1")
+    one = Simulation(dcfg)
+    four = Simulation(SimConfig(ndev=4, **vars_of(dcfg)), mesh=mesh_of(4))
+    for s in (one, four):
+        s.advance(2)
+    one.dump(str(tmp / "one.txt"))
+    four.dump(str(tmp / "lat.txt"))
+    shards = sorted(tmp.glob("lat_shard*.txt"))
+    require([p.name for p in shards] ==
+            [f"lat_shard{k:04d}.txt" for k in range(4)],
+            f"[multi] per-shard dumps {[p.name for p in shards]}")
+    require(b"".join(p.read_bytes() for p in shards)
+            == (tmp / "one.txt").read_bytes(),
+            "[multi] the per-shard dumps, joined, differ from one device's")
+    say(f"[multi] per-shard dumps: {MULTI_DUMP_SHAPE}^2 bit1 over 4 slabs "
+        f"writes {', '.join(p.name for p in shards)}, joined byte-identical "
+        f"to one device's dump")
+
+
+def vars_of(cfg) -> dict:
+    """cfg's fields, but ndev and device."""
+    import dataclasses
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in ("ndev", "device")}
+
+
+def multi_sw(mesh_of, where, launches):
+    """The cluster case: --algo sw's README lattice (SW_SHAPE^2, T = Tc)
+    over 4 slabs of the card against one device, MULTI_SW_ITERS updates:
+    each slab labelled by the three kernels (tile_roots, hook_roots and
+    flatten_roots once a slab an update; tile_roots alone where a slab is
+    one tile), the slabs joined across their edges; the lattice and up
+    counts equal."""
+    cfg = SimConfig(nrows=SW_SHAPE, ncols=SW_SHAPE, temp=TCRIT)
+    one = cluster.SwendsenWang(cfg)
+    one.advance(MULTI_SW_ITERS)
+    sim = cluster.SwendsenWang(SimConfig(ndev=4, **vars_of(cfg)),
+                               mesh=mesh_of(4))
+    for f in COUNTERS:
+        f.launches = 0
+    sim.advance(MULTI_SW_ITERS)
+    torch.cuda.synchronize()
+    got = slab_launches()
+    L = SW_SHAPE // 4
+    whole = cluster.whole_replica_tiles((L, SW_SHAPE),
+                                        cluster.pick_tile(L, SW_SHAPE))
+    want = {f.__name__: 4 * MULTI_SW_ITERS
+            for f in cluster.LABEL_PHASES[:1 if whole else 3]}
+    require(got == want, f"[multi] SW over 4 slabs launched {got}, "
+            f"expected {want}")
+    for k, v in got.items():
+        launches[k] += v
+    require(all(torch.equal(a, b) for a, b in zip(sim.bits(), one.bits()))
+            and sim.measure() == one.measure(),
+            "[multi] cluster: the 4-slab SW lattice differs from one "
+            "device's")
+    say(f"[multi] cluster: SW {SW_SHAPE}^2 at Tc over 4 slabs {where}, "
+        f"{MULTI_SW_ITERS} updates: launches {got}, lattice bit-identical "
+        f"to one device (|m| = {one.measure()['magnetization']:.6f})")
+
+
+def multi_timing(card, mesh_of, where, shape=MAIN_SHAPE, counts=MULTI_SLABS,
+                 overlap_counts=(2, 4, 8), force=True):
+    """The step loop's cost over slabs: MULTI_TIMED_STEPS steps of the
+    flagship (shape^2 bit1 threefry13) on one device, through the slab
+    path with one slab (force_collectives), over each of `counts` slabs
+    on mesh_of(n) and with halo_overlap over `overlap_counts`; CUDA events
+    on the first slab's device around the steps (ms a step), the host's
+    clock around their enqueue (host ms a step) and around the steps and
+    a synchronize of every device (wall ms a step), MULTI_TIMED_REPEATS
+    times, the median. Every variant's state equals the one-device run's.
+    On one card this is the host's cost of the slab loop and its halo
+    views, not a scaling result."""
+    from ising_tpu_torch.driver import Simulation
+    from ising_tpu_torch.parallel import make_sharded_stepper
+    base = dict(nrows=shape, ncols=shape, temp=1.5, backend="bit1",
+                rng="threefry13")
+    variants = [("1 slab", 1, False, False)]
+    if force:
+        variants.append(("1 slab, force_collectives", 1, True, False))
+    variants += [(f"{n} slabs", n, False, False) for n in counts]
+    variants += [(f"{n} slabs, halo_overlap", n, False, True)
+                 for n in overlap_counts]
+    steps = MULTI_TIMED_STEPS * (1 + MULTI_TIMED_REPEATS)
+    out, ref = {}, None
+    for what, n, forced, overlap in variants:
+        cfg = SimConfig(ndev=n, halo_overlap=overlap, **base)
+        sim = Simulation(cfg, mesh=mesh_of(n) if n > 1 else None)
+        if forced:
+            sim._step_n = make_sharded_stepper(cfg, sim.backend,
+                                               force_collectives=True,
+                                               mesh=[sim.device])[1]
+        sim.advance(MULTI_TIMED_STEPS)           # warm-up
+        runs, hosts, walls = [], [], []
+        for _ in range(MULTI_TIMED_REPEATS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            sim.block()
+            start.record()
+            t0 = time.perf_counter()
+            sim.advance(MULTI_TIMED_STEPS)
+            hosts.append((time.perf_counter() - t0) * 1e3 / MULTI_TIMED_STEPS)
+            end.record()
+            sim.block()
+            walls.append((time.perf_counter() - t0) * 1e3 / MULTI_TIMED_STEPS)
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end) / MULTI_TIMED_STEPS)
+        if ref is None:
+            ref = sim
+        else:
+            require(sim.step == ref.step == steps and
+                    torch.equal(gather_rows(sim.black) if n > 1
+                                else sim.black, ref.black),
+                    f"[multi] timing: {what}'s state differs from 1 slab's")
+        per_step = (6 if overlap else 2) * n
+        med = lambda xs: sorted(xs)[len(xs) // 2]
+        ms, host, wall = med(runs), med(hosts), med(walls)
+        out[what] = {"slabs": n, "launches_per_step": per_step,
+                     "ms_per_step": ms, "runs": runs,
+                     "wall_ms_per_step": wall, "wall_runs": walls,
+                     "host_ms_per_step": host, "host_runs": hosts,
+                     "host_us_per_launch": host * 1e3 / per_step}
+        say(f"[multi] timing {shape}^2 bit1 threefry13 {where}, {what}: "
+            f"{ms:.4f} ms a step (CUDA events, median of "
+            f"{MULTI_TIMED_REPEATS} x {MULTI_TIMED_STEPS} steps, range "
+            f"{min(runs):.4f}-{max(runs):.4f}), wall {wall:.4f} ms a step, "
+            f"{per_step} launches a step, host enqueue {host:.4f} ms a step "
+            f"({host * 1e3 / per_step:.1f} us a launch) on {card['smi']}")
+        if sim is not ref:
+            del sim
+    one = out["1 slab"]["ms_per_step"]
+    for what, t in out.items():
+        t["rate_vs_one_slab"] = one / t["ms_per_step"]
+    say(f"[multi] timing {shape}^2 {where}, rate against 1 slab: "
+        + ", ".join(f"{w} {t['rate_vs_one_slab']:.3f}"
+                    for w, t in out.items()))
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_multi(card):
+    """Row slabs on the one card (meshes of it repeated 2, 4 and 8 times):
+    MULTICHIP_r05.json's eight cases at full width, each bit-identical to
+    one device (flagship bit1 in three modes at 2, 4 and 8 slabs,
+    halo_overlap on packed, disorder on packed and on bit1's J-plane path,
+    replicas of 128^2, chacha8b, the field, a checkpoint saved at 1 slab
+    and resumed at 4, SW at 4096^2), dense and mxu over 4 slabs, the
+    per-shard dumps, and the step loop's time by slab count. Returns
+    {"launches": {kernels line entry: launches}, "timing": ...}."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh_of, where = (lambda n: [dev] * n), "on one card"
+    launches = collections.Counter()
+    for case in MULTI_CASES:
+        multi_case(mesh_of, where, *case, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        multi_files(mesh_of, where, Path(tmp), launches)
+    multi_sw(mesh_of, where, launches)
+    timing = multi_timing(card, mesh_of, where)
+    say(f"[multi] launches over slabs by entry: {dict(launches)}")
+    return {"launches": dict(launches), "timing": timing}
+
+
+def cli_lines(argv) -> list:
+    """cli.main(argv)'s lines but the timing and device lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(argv)
+    require(code == 0, f"the CLI exited {code} on {argv}")
+    return [ln for ln in out.getvalue().splitlines()
+            if not ln.startswith(("Kernel execution", "\tdevice:"))]
+
+
+def main_gpus() -> int:
+    """--gpus: row slabs over the machine's own GPUs (make_mesh: cuda:0 ..
+    cuda:N-1, N = torch.cuda.device_count() >= 2), each slab on a device
+    of its own, halo rows copied between devices: GPUS_CASES over 2, 4
+    and 8 GPUs (those of them the machine holds), each bit-identical to one
+    device with its launches counted; the checkpoint, dump and SW cases
+    over 4 GPUs where there are 4; the CLI's --devs N lines equal to
+    --devs 1's; and the step loop timed at MAIN_SHAPE^2 and
+    GPUS_TIMED_SHAPE^2 over 1 and those GPU counts. Prints no result
+    line."""
+    signal.signal(signal.SIGALRM, _on_alarm)
+    signal.alarm(BUDGET_S)
+    faulthandler.dump_traceback_later(BUDGET_S + 30, exit=True)
+    try:
+        card = phase_device()
+        from ising_tpu_torch.parallel import make_mesh
+        n = torch.cuda.device_count()
+        require(n >= 2, f"--gpus needs 2 or more GPUs, found {n}")
+        phase_build()
+        counts = tuple(c for c in (2, 4, 8) if c <= n)
+        mesh_of, where = make_mesh, f"on {n} GPUs"
+        say(f"[gpus] mesh {make_mesh(n)}")
+        launches = collections.Counter()
+        for name, backend, rng, extra, _ in GPUS_CASES:
+            multi_case(mesh_of, where, name, backend, rng, extra, counts,
+                       launches)
+        if n >= 4:
+            with tempfile.TemporaryDirectory() as tmp:
+                multi_files(mesh_of, where, Path(tmp), launches)
+            multi_sw(mesh_of, where, launches)
+        flags = ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y",
+                 str(MAIN_SHAPE), "-w", "8", "-n", "64", "-p", "16", "-t",
+                 "1.5", "-J", "0.1"]
+        one = cli_lines(flags)
+        many = cli_lines(flags + ["--devs", str(n)])
+        require([ln for ln in many if "devices" not in ln]
+                == [ln for ln in one if "devices" not in ln]
+                and f"\tdevices: {n}" in many,
+                f"the CLI's --devs {n} lines differ from --devs 1's")
+        say(f"[gpus] the CLI at {MAIN_SHAPE}^2 bit1 -J 0.1 with --devs {n}: "
+            f"its {len(many)} lines equal --devs 1's")
+        for shape in (MAIN_SHAPE, GPUS_TIMED_SHAPE):
+            multi_timing(card, mesh_of, where, shape, counts, (n,),
+                         force=False)
+        say(f"[gpus] launches over GPUs by entry: {dict(launches)}")
+        say(f"[time] {elapsed():.1f} s")
+    except Failed as e:
+        say(f"FAILED: {e}")
+        return 1
+    finally:
+        signal.alarm(0)
+        faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
 def event_ms(fn, n: int = 1) -> float:
     """ms per call of fn() over n calls (time_launches), after one warm-up
     call."""
@@ -2821,6 +3218,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--turns"] and len(argv) > 1:
         return main_turns(argv[1], argv[2:])
+    if argv[:1] == ["--gpus"]:
+        return main_gpus()
     against = argv[argv.index("--against") + 1] if "--against" in argv else None
     budget = BUDGET_S + (AGAINST_S if against else 0)
     signal.signal(signal.SIGALRM, _on_alarm)
@@ -2874,6 +3273,8 @@ def main(argv=None) -> int:
         say(f"[time] {elapsed():.1f} s")
         phase_pt(card)
         say(f"[time] {elapsed():.1f} s")
+        multi = phase_multi(card)
+        say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, loops)
         cases, max_err = cases + full_cases, max(max_err, full_err)
         p_timing, full_cases, full_err = phase_timing_packed(card, loops, timing)
@@ -2905,9 +3306,9 @@ def main(argv=None) -> int:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
     # bit1_sweep and its disorder and replica paths: each entry's launches
-    # are those of its own main-path runs (the J-plane path without
-    # replicas is not a route of one device, where -J takes split links;
-    # it is compared and timed in phase 6 and listed in "J planes").
+    # are those of its own main-path runs; the J-plane path without
+    # replicas is the route of -J over row slabs (one device takes split
+    # links), its launches those of the [multi] phase.
     entries = [kernel_entry("bit1_sweep", None, timing,
                             sum(r["launches"] for r in ordered.values()),
                             ordered, max_err, info)]
@@ -2915,8 +3316,8 @@ def main(argv=None) -> int:
         entries.append(kernel_entry(
             f"bit1_sweep[{path}]", path, timing,
             sum(r["launches"] for r in runs.values()), runs, max_err, info))
-    entries[0]["J planes"] = kernel_entry(
-        "bit1_sweep[jplanes]", "jplanes", timing, 0, {}, max_err, info)
+    entries.append(kernel_entry("bit1_sweep[jplanes]", "jplanes", timing, 0,
+                                {}, max_err, info))
     # packed_sweep and its J-word and replica paths, likewise
     entries.append(kernel_entry("packed_sweep", None, p_timing,
                                 sum(r["launches"] for r in p_ordered.values()),
@@ -2944,6 +3345,16 @@ def main(argv=None) -> int:
         sum(r["launches"] for r in m_ordered.values()), m_ordered, m_err,
         info))
     entries += label_entries(sw_main, sw_timing, l_cases, l_err, info)
+    # The [multi] phase's launches over row slabs, by entry.
+    for e in entries:
+        n = multi["launches"].get(e["name"], 0)
+        e["launches"] += n
+        e["multi_launches"] = n
+    missing = set(multi["launches"]) - {e["name"] for e in entries}
+    if missing:
+        say(f"FAILED: [multi] launches of no kernels line entry: {missing}")
+        return 1
+    entries[0]["multi_timing"] = multi["timing"]
     kernels = {"kernels": entries}
     say(card["smi"])
     say(json.dumps(kernels))

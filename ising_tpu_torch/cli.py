@@ -12,8 +12,11 @@ rounds).
 
 -o dumps the lattice and -c appends correlation rows at each measurement,
 --checkpoint saves the run at its end and --resume continues one, in the
-JAX package's file formats. Flags of features the port does not run yet
-exit 1 with the ROADMAP.md queue-1 item that ports them.
+JAX package's file formats. --devs N splits the rows over N slabs on the
+first N GPUs (--device cpu: N slabs on the CPU), with the trajectory and
+lines of one device; -o then writes one final dump per slab. Flags of
+features the port does not run yet exit 1 with the ROADMAP.md queue-1
+item that ports them.
 """
 
 from __future__ import annotations
@@ -70,9 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ysl", type=int, default=None,
                    help="Y size of independent sub-lattice replicas")
     p.add_argument("-d", "--devs", type=int, default=1,
-                   help="number of devices (the port runs one)")
+                   help="number of devices (row-slab sharding)")
     p.add_argument("--halo-overlap", action="store_true",
-                   help="overlap the halo exchange (no effect on one device)")
+                   help="split each slab's sweep into an interior and two "
+                        "boundary bands (ndev > 1; trajectories unchanged)")
     p.add_argument("-o", "--out", action="store_true",
                    help="dump lattice at each measurement and at the end")
     p.add_argument("-c", "--corr", action="store_true",
@@ -111,8 +115,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flag(args):
     """(flag, ROADMAP item) of the first flag the port does not run yet."""
     checks = (
-        # a resumed run takes the file's device count, as in the JAX CLI
-        ("--devs > 1", args.devs != 1 and args.resume is None, 7),
         ("--profile", args.profile is not None, 12),
     )
     for flag, used, item in checks:
@@ -143,7 +145,8 @@ def config_from_args(args) -> SimConfig:
 
 def build_simulation(args):
     """The run that cli.main drives: the checkpoint's under --resume (on
-    --device), else SwendsenWang for --algo sw or Simulation, from
+    --device, at the file's device count, as in the JAX CLI), else
+    SwendsenWang for --algo sw or Simulation, from
     config_from_args(args)."""
     if args.resume:
         from .driver import Simulation
@@ -230,6 +233,7 @@ def main(argv=None) -> int:
     print(f"\tseed: {cfg.seed}")
     print(f"\tbackend: {cfg.backend} (rng: {cfg.rng})")
     print(f"\tdevice: {sim.device}")
+    print(f"\tdevices: {cfg.ndev}")
     if cfg.xsl:
         print(f"\tsub-lattices: {cfg.xsl} x {cfg.ysl}")
     if cfg.j_prob is not None:

@@ -1,7 +1,7 @@
 """Swendsen-Wang cluster updates (--algo sw), with the cluster labeler as
 three hand-written CUDA kernels.
 
-The port of ``ising_tpu/cluster.py``, on one device. Each update
+The port of ``ising_tpu/cluster.py``. Each update
   * opens the bond between two aligned neighbours with p = 1 - exp(-2/T):
     a raw Philox-10 draw on the TAG_CLUSTER streams, compared unsigned
     against bond_threshold's u32 (the port keeps u32 draws in int64);
@@ -42,6 +42,15 @@ CUDA tensors and run the plain phases beside them on CPU tensors
 and ``label_clusters_tiled_reference`` record the JAX package's passes.
 Bonds, coins, the ghost and the flip stay plain torch on every device,
 as the JAX package computes them outside any Pallas kernel.
+
+Row slabs (cfg.ndev > 1, ``sw_step_slabs``). The lattice is never
+gathered to be labelled: each slab is labelled alone by the three
+kernels, its bonds down to the next slab held back and its labels offset
+by the slab's first site id, so each slab component carries the least
+global id it holds. ``merge_slab_edges`` then joins the components across
+the slab edges with a small union-find over the labels met there, and
+relabels every slab. The labels, and so the coins, are those of the
+whole lattice, as the JAX package's sharded labeling gives.
 """
 
 from __future__ import annotations
@@ -59,6 +68,9 @@ from .config import SimConfig, resolve_device
 from .lattice import compact_to_full, full_to_compact, init_bits
 from .ops import kernel_lib
 from .ops.bit1 import _cuda_stream, overlaps
+from .parallel.halo import rows_after
+from .parallel.mesh import gather_rows, slab_devices
+from .parallel.sharded import _guard
 from .rng import (MASK, TAG_CLUSTER, color_draws, threefry2x32,
                   threefry_stream_key)
 
@@ -469,16 +481,23 @@ def _slabs(Y: int, X: int):
 
 
 def draw_bonds(full, thr: int, seed: int, step, *, field: float = 0.0,
-               thr_ghost: int | None = None, ysl=None, xsl=None):
+               thr_ghost: int | None = None, ysl=None, xsl=None,
+               row0: int = 0, below=None):
     """(open_r, open_d, ghost) bool planes of one update: the open bonds,
     and under a field the sites bonded to the ghost spin (aligned with
     sign(field) and their TAG_CLUSTER|3 draw at most thr_ghost; None
-    without a field). The draws are made in row slabs of SLAB_SITES."""
+    without a field). The draws are made in row slabs of SLAB_SITES.
+    row0: the global row of full's first row (a row slab's); below: the
+    (1, X) row after its last, which its last row's down bonds reach
+    (default: the periodic wrap)."""
     Y, X, ysl, xsl = _sizes(full.shape, ysl, xsl)
     open_r, open_d = aligned_pairs(full, ysl=ysl, xsl=xsl)
+    if below is not None:
+        open_d[-1:] = full[-1:] == below
     ghost = (full == (1 if field > 0 else 0)) if field else None
     for r0, r1 in _slabs(Y, X):
-        kw = dict(step=step, row0=r0, row_stride=X, device=full.device)
+        kw = dict(step=step, row0=row0 + r0, row_stride=X,
+                  device=full.device)
         open_r[r0:r1] &= color_draws(seed, r1 - r0, X, tag=TAG_CLUSTER | 0,
                                      **kw) <= thr
         open_d[r0:r1] &= color_draws(seed, r1 - r0, X, tag=TAG_CLUSTER | 1,
@@ -489,10 +508,12 @@ def draw_bonds(full, thr: int, seed: int, step, *, field: float = 0.0,
     return open_r, open_d, ghost
 
 
-def flip_clusters(full, labels, seed: int, step, ghost=None):
+def flip_clusters(full, labels, seed: int, step, ghost=None, held=None):
     """The new lattice: every cluster flipped by its coin, but for those
-    holding a ghost-bonded site. Coins in row slabs of SLAB_SITES."""
-    held = None if ghost is None else ghost_bonded_clusters(labels, ghost)
+    holding a ghost-bonded site (held: their uint8 mark, else found from
+    ghost). Coins in row slabs of SLAB_SITES."""
+    if held is None and ghost is not None:
+        held = ghost_bonded_clusters(labels, ghost)
     new = full.clone()
     for r0, r1 in _slabs(*full.shape):
         flip = cluster_coins(labels[r0:r1], seed, step)
@@ -524,14 +545,108 @@ def sw_step(full, thr: int, seed: int, step, *, field: float = 0.0,
     return (new, stats) if return_stats else new
 
 
+def merge_slab_edges(labels, edges):
+    """The slabs' labels joined across the slab edges. labels: each slab's
+    int32 labels, the least global site id of its component within the
+    slab; edges[k]: the open down bonds of slab k's last row, to the next
+    slab's first row around the ring. A union-find on the first slab's
+    device over the labels those bonds join (at most 2 X a slab edge) maps
+    each to the least label of its merged component, and every slab is
+    relabelled through that map: the least global id of each component of
+    the whole lattice."""
+    n = len(labels)
+    dev = labels[0].device
+    bonds = torch.stack([e.to(dev) for e in edges])
+    u = torch.stack([lab[-1].to(dev) for lab in labels])[bonds]
+    v = torch.stack([labels[(k + 1) % n][0].to(dev)
+                     for k in range(n)])[bonds]
+    keys = torch.unique(torch.cat([u, v]))       # sorted
+    comp = _min_positions(keys.numel(), torch.searchsorted(keys, u),
+                          torch.searchsorted(keys, v))
+    least = keys[comp]
+    moved = least != keys
+    keys, least = keys[moved], least[moved]
+    if not keys.numel():
+        return labels
+    out = []
+    for lab in labels:
+        k, m = keys.to(lab.device), least.to(lab.device)
+        i = torch.searchsorted(k, lab).clamp_(max=k.numel() - 1)
+        out.append(torch.where(k[i] == lab, m[i], lab))
+    return out
+
+
+def ghost_bonded_slabs(labels, ghosts):
+    """ghost_bonded_clusters over row slabs: the union of every slab's
+    ghost-bonded labels, marked back into each slab (uint8 planes)."""
+    dev = labels[0].device
+    roots = torch.unique(torch.cat([lab[g].to(dev)
+                                    for lab, g in zip(labels, ghosts)]))
+    return [torch.isin(lab, roots.to(lab.device)).to(torch.uint8)
+            for lab in labels]
+
+
+def label_slabs(open_r, open_d, *, return_stats: bool = False):
+    """label_clusters of a lattice whose bond planes are given as equal row
+    slabs (lists; slab k: rows [k L, (k+1) L) on its device), never
+    gathered: each slab is labelled alone by label_clusters_tiled (the
+    three kernels on CUDA), its last row's down bonds, which reach the
+    next slab, held back and its labels offset by its first site id
+    k L X; merge_slab_edges then joins the slabs over those bonds. The
+    int32 labels of each slab (and {"launches": the labeler's launches
+    over all slabs} with return_stats). The bond planes are left as
+    given."""
+    L, X = open_r[0].shape
+    labels, edges, launches = [], [], 0
+    for k, (o_r, o_d) in enumerate(zip(open_r, open_d)):
+        with _guard(o_r.device):
+            edges.append(o_d[-1].clone())
+            o_d[-1] = False
+            lab, stats = label_clusters_tiled(o_r, o_d, return_stats=True)
+            o_d[-1] = edges[-1]
+            labels.append(lab.add_(k * L * X))
+        launches += stats["launches"]
+    labels = merge_slab_edges(labels, edges)
+    return (labels, {"launches": launches}) if return_stats else labels
+
+
+def sw_step_slabs(slabs, thr: int, seed: int, step, *, field: float = 0.0,
+                  thr_ghost: int | None = None, return_stats: bool = False):
+    """sw_step of the lattice held in equal row slabs (slab k: full-lattice
+    rows [k L, (k+1) L) as an (L, X) uint8 plane on its device), without
+    gathering it; returns the new slabs (and label_slabs' stats with
+    return_stats). Each slab draws its bonds with its global rows, its
+    last row's down bonds reaching the next slab's first row; label_slabs
+    labels them. The labels, coins and lattice are sw_step's on the whole
+    lattice."""
+    L = slabs[0].shape[0]
+    bonds = []
+    for k, full in enumerate(slabs):
+        with _guard(full.device):
+            bonds.append(draw_bonds(
+                full, thr, seed, step, field=field, thr_ghost=thr_ghost,
+                row0=k * L, below=rows_after(slabs, k, 1)))
+    open_r, open_d, ghosts = zip(*bonds)
+    labels, stats = label_slabs(open_r, open_d, return_stats=True)
+    held = [None] * len(slabs) if not field else \
+        ghost_bonded_slabs(labels, ghosts)
+    new = []
+    for full, lab, h in zip(slabs, labels, held):
+        with _guard(full.device):
+            new.append(flip_clusters(full, lab, seed, step, held=h))
+    return (new, stats) if return_stats else new
+
+
 class SwendsenWang:
     """Cluster-update driver with Simulation's SimConfig surface and
     seed/init contract (the same initial lattice for the same seed). Step
     counts mean SW updates. state: compact (black, white) uint8 planes,
     numpy or torch (a JAX SwendsenWang's bits()), with step0 the update
-    it has reached."""
+    it has reached. With cfg.ndev > 1 `full` is a list of row slabs over
+    `mesh` (mesh.slab_devices), updated by sw_step_slabs."""
 
-    def __init__(self, cfg: SimConfig, *, state=None, step0: int = 0):
+    def __init__(self, cfg: SimConfig, *, state=None, step0: int = 0,
+                 mesh=None):
         # The JAX package's fences and wording (cluster.py:483-496).
         if cfg.backend != "xla":
             raise ValueError("cluster updates operate on decoded planes; "
@@ -548,15 +663,26 @@ class SwendsenWang:
             raise ValueError("labels are int32 site ids: needs "
                              "nrows * ncols < 2^31")
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.mesh = slab_devices(cfg, mesh)
+        self.device = (self.mesh[0] if self.mesh
+                       else resolve_device(cfg.device))
         self.temp = cfg.temperature
         self.step = int(step0)
-        if state is None:
-            state = init_bits(cfg.seed, cfg.nrows, cfg.ncols,
-                              device=self.device)
-        self.full = compact_to_full(*(
-            (p if torch.is_tensor(p) else torch.from_numpy(np.array(p)))
-            .to(self.device, torch.uint8) for p in state))
+        # The state slab by slab (one slab on one device): each slab's rows
+        # of the initial draw or of `state`, as the full (L, X) lattice.
+        L = cfg.local_rows
+        self.full = []
+        for k, d in enumerate(self.mesh or [self.device]):
+            if state is None:
+                part = init_bits(cfg.seed, cfg.nrows, cfg.ncols, row0=k * L,
+                                 local_rows=L, device=d)
+            else:
+                part = ((p if torch.is_tensor(p)
+                         else torch.from_numpy(np.array(p)))
+                        [k * L:(k + 1) * L].to(d, torch.uint8) for p in state)
+            self.full.append(compact_to_full(*part))
+        if self.mesh is None:
+            self.full = self.full[0]
         # The labeler's launches per update (count of updates by launches).
         self.launch_counts = collections.Counter()
         self._set_thresholds()
@@ -578,17 +704,21 @@ class SwendsenWang:
         self._set_thresholds()
 
     def advance(self, nsteps: int):
+        # Replicas never run over slabs (the JAX fence above).
+        step, kw = ((sw_step, dict(ysl=self.cfg.ysl, xsl=self.cfg.xsl))
+                    if self.mesh is None else (sw_step_slabs, {}))
         for _ in range(nsteps):
-            self.full, stats = sw_step(
+            self.full, stats = step(
                 self.full, self._thr, self.cfg.seed, self.step,
                 field=self.cfg.field, thr_ghost=self._thr_ghost,
-                ysl=self.cfg.ysl, xsl=self.cfg.xsl, return_stats=True)
+                return_stats=True, **kw)
             self.launch_counts[stats["launches"]] += 1
             self.step += 1
 
     def block(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(self.mesh or [self.device]):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def run(self, log=print):
         """The measurement loop (schedules, early exit, ramp, flips/ns
@@ -616,8 +746,13 @@ class SwendsenWang:
                   f"_T_{self.temp:f}_IT_{it:08d}.txt")
 
     def bits(self):
-        """Compact (black, white) uint8 planes of the current state."""
-        return full_to_compact(self.full)
+        """Compact (black, white) uint8 planes of the current state (over
+        a mesh, on the first slab's device: the measurements read the whole
+        lattice, as the JAX package's do)."""
+        if self.mesh is None:
+            return full_to_compact(self.full)
+        pairs = [full_to_compact(f) for f in self.full]
+        return tuple(gather_rows([p[i] for p in pairs]) for i in (0, 1))
 
     def replica_magnetizations(self):
         """|m| per sub-lattice replica (flattened); replica mode only."""

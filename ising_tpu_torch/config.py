@@ -1,8 +1,6 @@
 """Simulation config of the port: the JAX package's SimConfig, plus `device`.
 
-Same fields, defaults and validation as ``ising_tpu/config.py``. Features
-the port does not run yet raise NotImplementedError naming the ROADMAP.md
-queue-1 item that ports them; nothing falls back to another path.
+Same fields, defaults and validation as ``ising_tpu/config.py``.
 """
 
 from __future__ import annotations
@@ -16,10 +14,6 @@ from .constants import ALPHA_DEF, SEED_DEF, TCRIT
 from .rng import RNG_MODES, plane_bits
 
 SPINS_PER_WORD = 8  # the packed tier's 4-bit fields (its ncols fence)
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported (ROADMAP item {item})")
 
 
 def resolve_device(device) -> torch.device:
@@ -82,7 +76,9 @@ class SimConfig:
     xsl: int | None = None
     ysl: int | None = None
 
-    # Devices the rows are sharded over (the port runs one).
+    # Row slabs the lattice is split over (parallel/mesh.py), and the
+    # split of each slab's sweep into an interior and two boundary bands
+    # (ndev > 1; the same trajectory either way).
     ndev: int = 1
     halo_overlap: bool = False
 
@@ -160,9 +156,6 @@ class SimConfig:
             # xla supports every rng mode: the "...b" modes take the same
             # 10-class bit-serial accept as bit1; the u32 modes and hw
             # compare u32 draws against the full 2 x 5 table.
-        # What this port does not run yet (ROADMAP.md queue 1).
-        if self.ndev != 1:
-            raise not_ported("more than one device", 7)
 
     @property
     def temperature(self) -> float:

@@ -134,13 +134,15 @@ def summarize(events):
 def step_launches(cfg: SimConfig):
     """(wrapper, launches a step) of cfg's Metropolis path: the fused
     packed step, once a step, where the backend's fusable says so (the
-    stepper's rule), else two of the backend's sweep."""
+    stepper's rule), else two of the backend's sweep a slab, six with
+    halo_overlap (an interior and two bands a color)."""
     backend = get_backend(cfg)
     if getattr(backend, "fusable", None) and backend.fusable(cfg.nrows):
         manual = os.environ.get("ISING_TPU_FUSED") == "2"
         return ("packed_fused_step_manual" if manual
                 else "packed_fused_step"), 1
-    return f"{cfg.backend}_sweep", 2
+    per_slab = 6 if cfg.halo_overlap and cfg.ndev > 1 else 2
+    return f"{cfg.backend}_sweep", per_slab * cfg.ndev
 
 
 def trace(cfg: SimConfig, make=Simulation):

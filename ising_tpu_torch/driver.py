@@ -1,13 +1,21 @@
 """Simulation driver of the port: state, step loop and measurement loop.
 
-The port of ``ising_tpu/driver.py`` for one device: the same print
-schedules, the same log lines, the same flips/ns and bandwidth formula,
-the temperature ramp, the external field, quenched +-J disorder and
-sub-lattice replicas, the lattice dumps (-o) and correlation files (-c)
-written at each measurement, and checkpoint and resume in the JAX
-package's file format; the overlap with another run's state and the
-Fourier partials. Steps run as host-issued launches; the host
-synchronises only at measurement events.
+The port of ``ising_tpu/driver.py``: the same print schedules, the same
+log lines, the same flips/ns and bandwidth formula, the temperature ramp,
+the external field, quenched +-J disorder and sub-lattice replicas, the
+lattice dumps (-o) and correlation files (-c) written at each
+measurement, and checkpoint and resume in the JAX package's file format;
+the overlap with another run's state and the Fourier partials. Steps run
+as host-issued launches; the host synchronises only at measurement
+events.
+
+With cfg.ndev > 1 the state is ndev row slabs over a mesh
+(parallel/mesh.py): `black` and `white` are lists of per-slab storage,
+the disorder is built per slab, and every observable is computed slab by
+slab (a slab's bonds to the rows below it read the next slabs' rows)
+and joined on the first slab's device, so a measurement is one transfer
+and no step gathers the lattice. Lines, integers and files equal the
+one-device run's, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from . import io as lio
@@ -26,7 +35,9 @@ from .lattice import init_store, links_to_color_planes
 from .models import ising
 from .ops import get_backend
 from .ops.bit1 import pack_bits1, unpack_bits1
-from .parallel import make_stepper
+from .parallel import make_sharded_stepper
+from .parallel.halo import ring_rows, rows_after
+from .parallel.mesh import gather_rows, slab_devices, split_rows
 
 TIMED_WINDOW = "run_loop.timed_window"
 
@@ -68,7 +79,8 @@ def _row_chunk(Y: int, chunk_rows: int) -> int:
     return R
 
 
-def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu"):
+def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu",
+                   mesh=None):
     """(links, links_packed, jplanes) for cfg.j_prob, built in row chunks.
 
     The links of each chunk are drawn from the same counter stream as a
@@ -81,25 +93,33 @@ def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu"):
     store is the jplanes of both colors and no per-color planes are made;
     otherwise jplanes is (black's, white's) (j_up, j_dn, j_same, j_off)
     in the backend's encoding.
+
+    Over a mesh of several devices the chunks divide the slab height, each
+    made on its slab's device, and links and each color's jplanes are
+    lists with one entry a slab.
     """
     Y, X = cfg.nrows, cfg.ncols
     enc = getattr(backend, "encode_jplanes", lambda p: p)
     links_packed = X % 64 == 0
-    R = _row_chunk(Y, chunk_rows)
-    split = links_packed and getattr(backend, "split_links_capable", False)
+    nslab = 1 if mesh is None else len(mesh)
+    L = Y // nslab
+    R = _row_chunk(L, chunk_rows)
+    split = (links_packed and nslab == 1
+             and getattr(backend, "split_links_capable", False))
     if split:
         backend.split_links = True
     jseed = cfg.seed if cfg.j_seed is None else cfg.j_seed
     link_parts, jb_parts, jw_parts = [], [], []
     for r in range(0, Y, R):
+        dev = device if nslab == 1 else mesh[r // L]
         v_s, h_s = ising.generate_disorder_links(
-            jseed, Y, X, cfg.j_prob, row0=r, local_rows=R, device=device)
+            jseed, Y, X, cfg.j_prob, row0=r, local_rows=R, device=dev)
         if not split:
             v_up = None
             if R < Y:
                 v_up, _ = ising.generate_disorder_links(
                     jseed, Y, X, cfg.j_prob, row0=(r - 1) % Y,
-                    local_rows=1, device=device)
+                    local_rows=1, device=dev)
             jb_parts.append(tuple(enc(
                 links_to_color_planes(v_s, h_s, BLACK, v_up=v_up))))
             jw_parts.append(tuple(enc(
@@ -114,6 +134,13 @@ def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu"):
     def cat(parts):
         return tuple(torch.cat([p[i] for p in parts])
                      for i in range(len(parts[0])))
+
+    if nslab > 1:
+        per = L // R
+        slabs = lambda parts: [cat(parts[k * per:(k + 1) * per])
+                               for k in range(nslab)]
+        return (slabs(link_parts), links_packed,
+                (slabs(jb_parts), slabs(jw_parts)))
     links = cat(link_parts)
     if split:
         return links, links_packed, (links, links)
@@ -124,14 +151,18 @@ class Simulation:
     """One Ising MC run: state on `cfg.device`, stepper, measurements.
 
     state: compact (black, white) uint8 planes to start from (torch or
-    numpy); storage: planes already in this backend's storage on the
-    device (a resume); step0: the step reached; temp: the temperature
-    reached, where a ramp has moved it from cfg's."""
+    numpy); storage: planes already in this backend's storage (a resume;
+    whole, or one per slab); step0: the step reached; temp: the
+    temperature reached, where a ramp has moved it from cfg's. mesh: the
+    devices of cfg.ndev row slabs (mesh.slab_devices; default
+    make_mesh(cfg.ndev, device=cfg.device))."""
 
     def __init__(self, cfg: SimConfig, *, state=None, storage=None,
-                 step0: int = 0, temp: float | None = None):
+                 step0: int = 0, temp: float | None = None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.mesh = slab_devices(cfg, mesh)
+        self.device = (self.mesh[0] if self.mesh
+                       else resolve_device(cfg.device))
         self.temp = float(temp) if temp is not None else cfg.temperature
         self.step = int(step0)
         self.backend = get_backend(cfg)
@@ -141,32 +172,87 @@ class Simulation:
             self.backend.retune(self.temp, cfg.field)
         # Quenched disorder: the link store (bit-packed and parity-split
         # when ncols % 64 == 0; links() gives the uint8 planes) and the
-        # stepper's J planes.
+        # stepper's J planes; over a mesh, one of each a slab.
         self._links_store, self._links_packed, jplanes = None, False, None
         if cfg.j_prob is not None:
             self._links_store, self._links_packed, jplanes = build_disorder(
-                cfg, self.backend, device=self.device)
-        self._step_n = make_stepper(cfg, self.backend, jplanes=jplanes)
-        if storage is not None:
-            self.black, self.white = storage
-        elif state is None:
-            self.black, self.white = init_store(
-                cfg.seed, cfg.nrows, cfg.ncols, self.backend.encode,
-                device=self.device)
+                cfg, self.backend, device=self.device, mesh=self.mesh)
+        self.shardings, self._step_n = make_sharded_stepper(
+            cfg, self.backend, mesh=self.mesh, jplanes=jplanes)
+        if self.mesh is None:
+            self.black, self.white = self._one_store(state, storage)
         else:
-            self.black, self.white = self.backend.encode(*(
-                torch.as_tensor(p).to(self.device, torch.uint8)
-                for p in state))
+            self.black, self.white = self._slab_stores(state, storage)
         self._thr = ising.threshold_table(self.temp, cfg.field)
 
+    def _one_store(self, state, storage):
+        cfg = self.cfg
+        if storage is not None:
+            return storage
+        if state is None:
+            return init_store(cfg.seed, cfg.nrows, cfg.ncols,
+                              self.backend.encode, device=self.device)
+        # A copy: the kernels update the storage in place, and dense's and
+        # mxu's storage is these planes.
+        return self.backend.encode(*(
+            torch.as_tensor(p).to(self.device, torch.uint8, copy=True)
+            for p in state))
+
+    def _slab_stores(self, state, storage):
+        """([black slabs], [white slabs]): slab k of the storage on
+        mesh[k], rows [k * local_rows, (k+1) * local_rows); the initial
+        state is drawn slab by slab on the slab's device."""
+        cfg, mesh, enc = self.cfg, self.mesh, self.backend.encode
+        L = cfg.local_rows
+        if storage is not None:
+            b, w = storage
+            if isinstance(b, (list, tuple)):
+                return ([x.to(d) for x, d in zip(b, mesh)],
+                        [x.to(d) for x, d in zip(w, mesh)])
+            return split_rows(b, mesh), split_rows(w, mesh)
+        if state is None:
+            pairs = [init_store(cfg.seed, cfg.nrows, cfg.ncols, enc,
+                                device=d, row0=k * L, local_rows=L)
+                     for k, d in enumerate(mesh)]
+        else:
+            pairs = [enc(*(torch.as_tensor(p)[k * L:(k + 1) * L]
+                           .to(d, torch.uint8, copy=True) for p in state))
+                     for k, d in enumerate(mesh)]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+
+    def _per_slab(self, fn, black, white, tail_rows: int = 0, join=None):
+        """fn(k, black_k, white_k, tail) of each slab k of the given storage,
+        the results joined on self.device (concatenated along their last
+        axis, or by `join`). tail is None on one device (the planes' own
+        wrap), else the (black, white) tail_rows rows that follow slab k."""
+        if not isinstance(black, list):
+            return fn(0, black, white, None)
+        parts = []
+        for k, (b, w) in enumerate(zip(black, white)):
+            tail = None
+            if tail_rows:
+                tail = (rows_after(black, k, tail_rows),
+                        rows_after(white, k, tail_rows))
+            parts.append(fn(k, b, w, tail).to(self.device))
+        return torch.cat(parts, dim=-1) if join is None else join(parts)
+
+    def _decode_slabs(self):
+        """[(black, white)] decoded uint8 planes of each slab."""
+        return [self.backend.decode(b, w)
+                for b, w in zip(self.black, self.white)]
+
     def bits(self):
-        """Current (black, white) uint8 bit planes (decoded)."""
-        return self.backend.decode(self.black, self.white)
+        """Current (black, white) uint8 bit planes (decoded), on
+        self.device."""
+        if self.mesh is None:
+            return self.backend.decode(self.black, self.white)
+        pairs = self._decode_slabs()
+        return tuple(gather_rows([p[i] for p in pairs]) for i in (0, 1))
 
     def _links_slab_of(self, store, r: int, n: int, chunk: int = 8192):
-        """(v, h) uint8 link rows [r, r+n) of the given store; a packed
-        store is unpacked and re-interleaved in row slabs of at most
-        `chunk` rows, so the transient stays one slab's."""
+        """(v, h) uint8 link rows [r, r+n) of the given store (one slab's,
+        over a mesh); a packed store is unpacked and re-interleaved in row
+        slabs of at most `chunk` rows, so the transient stays one slab's."""
         if not self._links_packed:
             v, h = store
             return v[r:r + n], h[r:r + n]
@@ -185,15 +271,23 @@ class Simulation:
         """(v, h) full uint8 disorder link planes, or None without -J."""
         if self._links_store is None:
             return None
-        return self._links_slab(0, self.cfg.nrows)
+        if self.mesh is None:
+            return self._links_slab(0, self.cfg.nrows)
+        parts = [self._links_slab_of(s, 0, self.cfg.local_rows)
+                 for s in self._links_store]
+        return tuple(gather_rows([p[i] for p in parts]) for i in (0, 1))
 
     def _up_rows_for(self, black, white):
         """Per-row up counts of the given storage planes, on the device: the
         backend's own reduction where it has one (popcount on bit1's and
         packed's words), else on the decoded planes."""
-        if hasattr(self.backend, "row_up_counts"):
-            return self.backend.row_up_counts(black, white)
-        return observables.row_up_counts(*self.backend.decode(black, white))
+        be = self.backend
+
+        def rows(k, b, w, tail):
+            if hasattr(be, "row_up_counts"):
+                return be.row_up_counts(b, w)
+            return observables.row_up_counts(*be.decode(b, w))
+        return self._per_slab(rows, black, white)
 
     def measure(self):
         n_up = int(self._up_rows_for(self.black, self.white).sum())
@@ -215,13 +309,14 @@ class Simulation:
         self.step += nsteps
 
     def block(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(self.mesh or [self.device]):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def set_temperature(self, temp: float):
         """New thresholds: the u32 table, and the backend's accept (the
         greedy quench when T crosses 0, the k-bit thresholds of the
-        bit-plane accepts)."""
+        bit-plane accepts), which every slab's next launch reads."""
         self.temp = float(temp)
         self._thr = ising.threshold_table(self.temp, self.cfg.field)
         self.backend.retune(self.temp, self.cfg.field)
@@ -251,24 +346,32 @@ class Simulation:
         the link store `links` (default: this run's): on the words where the
         backend can (bit1, with the packed link store under disorder), else
         streamed from storage in slabs of row_chunk rows with the link slabs.
-        A pure function of its inputs; parallel tempering takes every rung's
+        Over a mesh, slab by slab, each with the next slab's first row. A
+        pure function of its inputs; parallel tempering takes every rung's
         before one transfer."""
         if links is None:
             links = self._links_store
         be = self.backend
-        if self._links_store is None and hasattr(be, "energy_rows"):
-            return be.energy_rows(black, white)
-        if (self._links_store is not None and self._links_packed
-                and hasattr(be, "energy_rows_disordered")):
-            return be.energy_rows_disordered(black, white, links)
-        decode = lambda r, n: be.decode(observables._rows_wrap(black, r, n),
-                                        observables._rows_wrap(white, r, n))
-        links_rows = None
-        if self._links_store is not None:
-            links_rows = lambda r, n: self._links_slab_of(links, r, n)
-        return observables.energy_rows_via(decode, self.cfg.nrows,
-                                           links_rows=links_rows,
-                                           row_chunk=row_chunk)
+        disordered = self._links_store is not None
+
+        def rows(k, b, w, tail):
+            lk = links[k] if isinstance(links, list) else links
+            if not disordered and hasattr(be, "energy_rows"):
+                return be.energy_rows(b, w, tail=tail)
+            if (disordered and self._links_packed
+                    and hasattr(be, "energy_rows_disordered")):
+                return be.energy_rows_disordered(b, w, lk, tail=tail)
+            tb, tw = (None, None) if tail is None else tail
+            decode = lambda r, n: be.decode(
+                observables._rows_after(b, r, n, tb),
+                observables._rows_after(w, r, n, tw))
+            links_rows = None
+            if disordered:
+                links_rows = lambda r, n: self._links_slab_of(lk, r, n)
+            return observables.energy_rows_via(decode, b.shape[0],
+                                               links_rows=links_rows,
+                                               row_chunk=row_chunk)
+        return self._per_slab(rows, black, white, tail_rows=1)
 
     def _energy_rows(self):
         """Per-row bond sums of the current state, on the device."""
@@ -277,12 +380,21 @@ class Simulation:
     def _overlap_neq_rows_with(self, other, row_chunk: int = 8192):
         """Per-row differing-spin counts against another Simulation's
         current state, on the device: on the words where both backends are
-        of one type and it has a word path (bit1, packed), else through
-        both states' decode, slab by slab."""
-        if (type(other.backend) is type(self.backend)
-                and hasattr(self.backend, "overlap_neq_rows")):
-            return self.backend.overlap_neq_rows(self.black, self.white,
-                                                 other.black, other.white)
+        of one type, with a word path (bit1, packed), and hold the same
+        slabs; else through both states' decode, slab by slab."""
+        be = self.backend
+        if (type(other.backend) is type(be)
+                and hasattr(be, "overlap_neq_rows")
+                and type(self.black) is type(other.black)
+                and (self.mesh is None or len(self.black) == len(other.black))):
+            if self.mesh is None:
+                return be.overlap_neq_rows(self.black, self.white,
+                                           other.black, other.white)
+            return torch.cat([
+                be.overlap_neq_rows(b1, w1, b2.to(b1.device),
+                                    w2.to(b1.device)).to(self.device)
+                for b1, w1, b2, w2 in zip(self.black, self.white,
+                                          other.black, other.white)])
         return observables.overlap_neq_rows_via(
             self._decode_rows, other._decode_rows, self.cfg.nrows,
             row_chunk=row_chunk)
@@ -291,7 +403,8 @@ class Simulation:
         """Edwards-Anderson overlap q = (1/N) sum_i s1_i s2_i with another
         Simulation's current state: 1 identical, -1 opposite. Exact integer
         XOR counts, finished in float here. The geometries must match; the
-        backends may differ (the decode path bridges their storage)."""
+        backends and slab counts may differ (the decode path bridges their
+        storage)."""
         if (self.cfg.nrows, self.cfg.ncols) != (other.cfg.nrows,
                                                 other.cfg.ncols):
             raise ValueError("overlap needs matching lattice geometry")
@@ -302,20 +415,39 @@ class Simulation:
         """Exact (per-row, per-column) up-spin counts as int64 numpy: the
         integer partials of the Fourier magnetizations m(0) and
         m(k1 = 2 pi / L) along both axes. On bit1's words without a decode,
-        else from decoded row slabs; one transfer. Full lattice only:
-        replica tiles would mix in the line sums."""
+        else from decoded row slabs; over a mesh, each slab's column counts
+        summed; one transfer. Full lattice only: replica tiles would mix in
+        the line sums."""
         if self.cfg.xsl is not None or self.cfg.ysl is not None:
             raise ValueError("fourier_partials needs full-lattice mode "
                              "(replica tiles mix in the line sums); use "
                              "replica_magnetizations for tile statistics")
+        be = self.backend
         rows = self._up_rows_for(self.black, self.white)
-        if hasattr(self.backend, "col_up_counts"):
-            cols = self.backend.col_up_counts(self.black, self.white)
-        else:
-            cols = observables.col_up_counts_via(self._decode_rows,
-                                                 self.cfg.nrows)
+
+        def cols(k, b, w, tail):
+            if hasattr(be, "col_up_counts"):
+                return be.col_up_counts(b, w)
+            return observables.col_up_counts_via(
+                lambda r, n: be.decode(b[r:r + n], w[r:r + n]), b.shape[0])
+        cols = self._per_slab(cols, self.black, self.white,
+                              join=lambda parts: torch.stack(parts).sum(0))
         both = torch.cat([rows, cols]).cpu().numpy()
         return both[:rows.numel()], both[rows.numel():]
+
+    def replica_magnetizations(self):
+        """|m| of each sub-lattice replica, row-major over the replica grid
+        (observables.replica_magnetizations), slab by slab: replicas never
+        cross a slab (ysl divides its height)."""
+        if self.cfg.xsl is None:
+            raise ValueError("replica_magnetizations needs replica mode "
+                             "(cfg.xsl/ysl)")
+        xsl, ysl = self.cfg.xsl, self.cfg.ysl
+        if self.mesh is None:
+            return observables.replica_magnetizations(*self.bits(), xsl, ysl)
+        return np.concatenate([
+            observables.replica_magnetizations(b, w, xsl, ysl)
+            for b, w in self._decode_slabs()])
 
     def energy(self) -> float:
         """Internal energy per spin; a field adds its exact -h sum(s)."""
@@ -335,26 +467,42 @@ class Simulation:
         return (f"corr_{self.cfg.nrows}x{self.cfg.ncols}"
                 f"_T_{self.temp:f}_{self.cfg.seed}")
 
+    def _storage_rows(self, r: int, n: int):
+        """Storage of the wrapped rows [r, r+n), on self.device."""
+        if self.mesh is None:
+            return (observables._rows_wrap(self.black, r, n),
+                    observables._rows_wrap(self.white, r, n))
+        return (ring_rows(self.black, r, n, self.device),
+                ring_rows(self.white, r, n, self.device))
+
     def _decode_rows(self, r: int, n: int):
         """Decoded compact planes of the wrapped rows [r, r+n)."""
-        return self.backend.decode(observables._rows_wrap(self.black, r, n),
-                                   observables._rows_wrap(self.white, r, n))
+        return self.backend.decode(*self._storage_rows(r, n))
 
     def _append_corr(self, it: int):
         """One -c line: c(d), d = 1..MAX_CORR_LEN, on the words where the
         backend can (bit1), else from rows decoded slab by slab; in replica
-        mode inside the replicas, from the decoded planes."""
-        if self.cfg.xsl is None:
-            if hasattr(self.backend, "corr_rows"):
-                rows = self.backend.corr_rows(self.black, self.white,
-                                              MAX_CORR_LEN)
-            else:
-                rows = observables.correlation_rows_via(
-                    self._decode_rows, self.cfg.nrows, MAX_CORR_LEN)
-            c = rows.cpu().numpy().sum(axis=1) / (2.0 * self.cfg.nspins)
+        mode inside the replicas, from the decoded planes. Over a mesh,
+        each slab with the MAX_CORR_LEN rows after it."""
+        be, cfg = self.backend, self.cfg
+        if cfg.xsl is None:
+            def rows(k, b, w, tail):
+                if hasattr(be, "corr_rows"):
+                    return be.corr_rows(b, w, MAX_CORR_LEN, tail=tail)
+                tb, tw = (None, None) if tail is None else tail
+                return observables.correlation_rows_via(
+                    lambda r, n: be.decode(
+                        observables._rows_after(b, r, n, tb),
+                        observables._rows_after(w, r, n, tw)),
+                    b.shape[0], MAX_CORR_LEN)
+            tail_rows = MAX_CORR_LEN
         else:
-            c = observables.correlation(*self.bits(), xsl=self.cfg.xsl,
-                                        ysl=self.cfg.ysl)
+            def rows(k, b, w, tail):
+                return observables.correlation_row_sums(
+                    *be.decode(b, w), MAX_CORR_LEN, cfg.xsl, cfg.ysl)
+            tail_rows = 0
+        rows = self._per_slab(rows, self.black, self.white, tail_rows)
+        c = rows.cpu().numpy().sum(axis=1) / (2.0 * cfg.nspins)
         lio.append_corr_line(self._corr_path(), it, c)
 
     # Lattices of at least this many spins dump row chunk by row chunk, so
@@ -363,10 +511,14 @@ class Simulation:
     STREAM_DUMP_SPINS = 1 << 30
 
     def dump(self, name: str):
-        """Write the lattice to `name` in the hex format: streamed at or
-        above STREAM_DUMP_SPINS spins (the same bytes), in one piece
-        below."""
-        if self.cfg.nspins >= self.STREAM_DUMP_SPINS:
+        """Write the lattice to `name` in the hex format: one file per slab
+        over a mesh (lio.dump_lattice_sharded), streamed at or above
+        STREAM_DUMP_SPINS spins (the same bytes), in one piece below."""
+        if self.mesh is not None:
+            pairs = self._decode_slabs()
+            lio.dump_lattice_sharded(name, [p[0] for p in pairs],
+                                     [p[1] for p in pairs], fmt="hex")
+        elif self.cfg.nspins >= self.STREAM_DUMP_SPINS:
             lio.dump_lattice_streamed(
                 name, lambda r0, r1: self.backend.decode(self.black[r0:r1],
                                                          self.white[r0:r1]),
@@ -379,39 +531,43 @@ class Simulation:
                   f"_T_{self.temp:f}_IT_{it:08d}.txt")
 
     def checkpoint(self, path: str):
-        """Save the state, one row chunk at a time: bit1 shuffles its
-        words straight into the file's bytes, the other backends decode a
-        chunk and pack it on the device (the same bytes)."""
+        """Save the state, one row chunk at a time (over a mesh, a chunk's
+        rows gathered from its slabs): bit1 shuffles its words straight
+        into the file's bytes, the other backends decode a chunk and pack
+        it on the device (the same bytes, at any slab count)."""
         from .checkpoint import save_checkpoint_streamed
         be = self.backend
+        rows = lambda r0, r1: self._storage_rows(r0, r1 - r0)
         packed_rows = None
+        first = self.black[0] if self.mesh else self.black
         if hasattr(be, "pack_storage_rows") and \
-                be.storage_pack_supported(self.black):
+                be.storage_pack_supported(first):
             packed_rows = lambda r0, r1: be.pack_storage_rows(
-                self.black, self.white, r0, r1)
+                *rows(r0, r1), 0, r1 - r0)
         save_checkpoint_streamed(
-            path,
-            lambda r0, r1: be.decode(self.black[r0:r1], self.white[r0:r1]),
+            path, lambda r0, r1: be.decode(*rows(r0, r1)),
             self.cfg.nrows, self.cfg.ncols, step=self.step, temp=self.temp,
             cfg=self.cfg, packed_rows=packed_rows)
 
     @classmethod
-    def from_checkpoint(cls, path: str, **overrides):
+    def from_checkpoint(cls, path: str, *, mesh=None, **overrides):
         """Resume a checkpoint (the port's or the JAX package's), possibly
-        into another backend or onto the device that `device=` names
-        (default cuda): each row chunk becomes the target backend's
-        storage as it is read."""
+        into another backend, another slab count (ndev=; default the
+        file's) or onto the device that `device=` names (default cuda):
+        each row chunk becomes the target backend's storage as it is read,
+        then the storage is cut into the run's slabs."""
         from .checkpoint import load_checkpoint_state, read_checkpoint_meta
         device = overrides.get("device", "cuda")
         cfg = read_checkpoint_meta(path, device=device)["cfg"]
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
+        mesh = slab_devices(cfg, mesh)
         be = get_backend(cfg)
         (b, w), meta = load_checkpoint_state(
             path, be.encode, getattr(be, "encode_packed_rows", None),
-            device=cfg.device)
+            device=mesh[0] if mesh else cfg.device)
         return cls(cfg, storage=(b, w), step0=meta["step"],
-                   temp=meta["temp"])
+                   temp=meta["temp"], mesh=mesh)
 
 
 def run_loop(self, log=print):

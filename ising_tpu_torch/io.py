@@ -1,7 +1,6 @@
 """Lattice dumps and loads in the reference's text formats (torch).
 
-The port of the single-device part of ``ising_tpu/io.py``, writing the
-same bytes:
+The port of ``ising_tpu/io.py``, writing the same bytes:
 
   * "hex": one line per row, one character '0' or '1' per spin in
     full-lattice column order, each line ended by a newline;
@@ -9,8 +8,10 @@ same bytes:
     savetxt with "%d", as the JAX package writes them).
 
 Both are written with numpy alone, and ``load_lattice`` reads them back.
-The correlation files of -c take one line per measurement
-(``append_corr_line``).
+A lattice held in row slabs is written one file per slab
+(``dump_lattice_sharded``, as the reference writes one per GPU) and
+stitched back by ``load_lattice_sharded``. The correlation files of -c
+take one line per measurement (``append_corr_line``).
 """
 
 from __future__ import annotations
@@ -77,6 +78,42 @@ def load_lattice(path: str, fmt: str = "hex", device="cuda"):
     else:
         full = ((np.loadtxt(path, dtype=np.int8) + 1) // 2).astype(np.uint8)
     return full_to_compact(torch.from_numpy(full).to(resolve_device(device)))
+
+
+def _shard_path(path: str, k: int) -> str:
+    """`<path>_shard000k.<ext>`: the file of row slab k."""
+    root, dot, ext = path.rpartition(".")
+    return f"{root}_shard{k:04d}.{ext}" if dot else f"{path}_shard{k:04d}"
+
+
+def dump_lattice_sharded(path: str, black, white, fmt: str = "hex"):
+    """One file per row slab, in row order; returns the paths. black and
+    white: lists of the slabs' compact planes, or one plane each (one
+    slab). Each file is a dump of its slab in dump_lattice's format, so
+    load_lattice reads any one of them."""
+    if not isinstance(black, (list, tuple)):
+        black, white = [black], [white]
+    paths = [_shard_path(path, k) for k in range(len(black))]
+    for p, b, w in zip(paths, black, white):
+        dump_lattice(p, b, w, fmt)
+    return paths
+
+
+def load_lattice_sharded(path: str, fmt: str = "hex", device="cuda"):
+    """Stitch the `<path>_shard*.<ext>` files back into compact (black,
+    white) planes on `device`."""
+    import glob
+    import re
+
+    root, dot, ext = path.rpartition(".")
+    pattern = f"{root}_shard*.{ext}" if dot else f"{path}_shard*"
+    paths = glob.glob(pattern)
+    if not paths:
+        raise FileNotFoundError(f"no shard files match {pattern!r}")
+    paths.sort(key=lambda p: int(re.search(r"_shard(\d+)", p).group(1)))
+    planes = [load_lattice(p, fmt, device=device) for p in paths]
+    return (torch.cat([b for b, _ in planes]),
+            torch.cat([w for _, w in planes]))
 
 
 def lattice_image(black, white) -> np.ndarray:

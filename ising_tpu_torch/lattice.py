@@ -32,18 +32,22 @@ def init_bits(seed: int, nrows: int, ncols: int, *, row0: int = 0,
 
 
 def init_store(seed: int, nrows: int, ncols: int, encode,
-               chunk_rows: int = 8192, device="cuda"):
+               chunk_rows: int = 8192, device="cuda", *, row0: int = 0,
+               local_rows: int | None = None):
     """Random initial state straight in backend storage, in row chunks:
     the init stream is row-indexed and encode is row-local, so this equals
-    the one-shot path with transients bounded by O(chunk_rows * ncols)."""
-    if nrows <= chunk_rows:
-        return encode(*init_bits(seed, nrows, ncols, device=device))
-    if nrows % chunk_rows:
+    the one-shot path with transients bounded by O(chunk_rows * ncols).
+    row0 / local_rows carve out one slab's rows (an even row0)."""
+    rows = nrows if local_rows is None else local_rows
+    if rows <= chunk_rows:
+        return encode(*init_bits(seed, nrows, ncols, row0=row0,
+                                 local_rows=rows, device=device))
+    if rows % chunk_rows:
         start = chunk_rows - (chunk_rows % 2)
-        chunk_rows = next(c for c in range(start, 1, -2) if nrows % c == 0)
-    chunks = [encode(*init_bits(seed, nrows, ncols, row0=r,
+        chunk_rows = next(c for c in range(start, 1, -2) if rows % c == 0)
+    chunks = [encode(*init_bits(seed, nrows, ncols, row0=row0 + r,
                                 local_rows=chunk_rows, device=device))
-              for r in range(0, nrows, chunk_rows)]
+              for r in range(0, rows, chunk_rows)]
     return (torch.cat([c[0] for c in chunks]),
             torch.cat([c[1] for c in chunks]))
 

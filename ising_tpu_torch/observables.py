@@ -155,6 +155,18 @@ def _rows_wrap(x, r: int, n: int):
     return x[idx]
 
 
+def _rows_after(x, r: int, n: int, tail=None):
+    """Rows [r, r+n) of x continued by `tail`, the rows that follow its
+    last one (a row slab's neighbours below); without a tail, x's own
+    periodic wrap."""
+    if tail is None:
+        return _rows_wrap(x, r, n)
+    Y = x.shape[0]
+    if r + n <= Y:
+        return x[r:r + n]
+    return torch.cat([x[r:], tail[:r + n - Y]])
+
+
 def _col_parity_planes(black, white):
     """Compact color planes -> column-parity planes (E, O): E[y] holds the
     sites at even full-lattice columns, O[y] the odd ones."""
@@ -200,18 +212,20 @@ def _bit1_energy_block(e_ext, o_ext, links=None):
 
 
 def bit1_energy_row_sums(black_w, white_w, links_words=None,
-                         row_chunk: int = 8192):
+                         row_chunk: int = 8192, tail=None):
     """Per-row exact bond sums sum_bonds J s_i s_j (int64) on word storage;
     the Hamiltonian is minus their total. links_words: the parity-split
     (vE, vO, hE, hO) link flag words (driver.build_disorder's store), so
-    the disordered energy runs without a decode too."""
+    the disordered energy runs without a decode too. tail: the (black,
+    white) row after the last (a row slab's), else the periodic wrap."""
     Y = black_w.shape[0]
     R = _row_block(Y, row_chunk)
+    tb, tw = (None, None) if tail is None else tail
     parts = []
     for r in range(0, Y, R):
         e_ext, o_ext = _col_parity_planes(
-            _rows_wrap(black_w, r, R + 1).to(torch.int64) & MASK,
-            _rows_wrap(white_w, r, R + 1).to(torch.int64) & MASK)
+            _rows_after(black_w, r, R + 1, tb).to(torch.int64) & MASK,
+            _rows_after(white_w, r, R + 1, tw).to(torch.int64) & MASK)
         links = (None if links_words is None
                  else [p[r:r + R] for p in links_words])
         parts.append(_bit1_energy_block(e_ext, o_ext, links))
@@ -335,16 +349,18 @@ def _bit1_corr_block(e_ext, o_ext, corr_len: int):
 
 def bit1_correlation_row_sums(black_w, white_w,
                               corr_len: int = MAX_CORR_LEN,
-                              row_chunk: int = 8192):
+                              row_chunk: int = 8192, tail=None):
     """correlation_row_sums over the full lattice, straight on bit1's
-    (Y, W1) int32 words (no decode)."""
+    (Y, W1) int32 words (no decode). tail: the (black, white) corr_len
+    rows after the last (a row slab's), else the periodic wrap."""
     Y = black_w.shape[0]
     R = _row_block(Y, row_chunk)
+    tb, tw = (None, None) if tail is None else tail
     parts = []
     for r in range(0, Y, R):
         e_ext, o_ext = _col_parity_planes(
-            _rows_wrap(black_w, r, R + corr_len).to(torch.int64) & MASK,
-            _rows_wrap(white_w, r, R + corr_len).to(torch.int64) & MASK)
+            _rows_after(black_w, r, R + corr_len, tb).to(torch.int64) & MASK,
+            _rows_after(white_w, r, R + corr_len, tw).to(torch.int64) & MASK)
         parts.append(_bit1_corr_block(e_ext, o_ext, corr_len))
     return torch.cat(parts, dim=1)
 

@@ -629,27 +629,32 @@ class Bit1Backend:
         return tuple(packed_rows_to_words(torch.as_tensor(p).to(dev), W1)
                      for p in (pb, pw))
 
-    def corr_rows(self, black_store, white_store, corr_len: int):
-        """Per-(offset, row) correlation sums on the words (no decode)."""
+    def corr_rows(self, black_store, white_store, corr_len: int,
+                  tail=None):
+        """Per-(offset, row) correlation sums on the words (no decode);
+        tail: a row slab's following rows."""
         from ..observables import bit1_correlation_row_sums
-        return bit1_correlation_row_sums(black_store, white_store, corr_len)
+        return bit1_correlation_row_sums(black_store, white_store, corr_len,
+                                         tail=tail)
 
     def row_up_counts(self, black_store, white_store):
         """Per-row up-spin counts by popcount on the words."""
         from ..observables import word_row_up_counts
         return word_row_up_counts(black_store, white_store)
 
-    def energy_rows(self, black_store, white_store):
-        """Per-row exact bond sums on the words (no decode)."""
+    def energy_rows(self, black_store, white_store, tail=None):
+        """Per-row exact bond sums on the words (no decode); tail: a row
+        slab's following row."""
         from ..observables import bit1_energy_row_sums
-        return bit1_energy_row_sums(black_store, white_store)
+        return bit1_energy_row_sums(black_store, white_store, tail=tail)
 
-    def energy_rows_disordered(self, black_store, white_store, links_words):
+    def energy_rows_disordered(self, black_store, white_store, links_words,
+                               tail=None):
         """Disordered bond sums on the words: links_words is the driver's
         parity-split (vE, vO, hE, hO) link store."""
         from ..observables import bit1_energy_row_sums
         return bit1_energy_row_sums(black_store, white_store,
-                                    links_words=links_words)
+                                    links_words=links_words, tail=tail)
 
     def col_up_counts(self, black_store, white_store):
         """Per-column up counts on the words (no decode): the column twin

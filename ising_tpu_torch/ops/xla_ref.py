@@ -192,7 +192,9 @@ class XlaBackend:
     def update_color(self, dst, src, *, color, thr10, step, row0=0,
                      src_up=None, src_dn=None, jplanes=None):
         H, C = dst.shape
-        kw = dict(src_up=src_up, src_dn=src_dn, jplanes=jplanes, **self._maps)
+        # The replica wrap maps, on the slab's device.
+        maps = {k: v.to(dst.device) for k, v in self._maps.items()}
+        kw = dict(src_up=src_up, src_dn=src_dn, jplanes=jplanes, **maps)
         tag = TAG_SWEEP | color
         if self.kplanes:
             k, acc = self.kplanes, self.accept

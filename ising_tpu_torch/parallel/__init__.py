@@ -1,1 +1,2 @@
-from .stepper import make_stepper  # noqa: F401
+from .mesh import make_mesh  # noqa: F401
+from .sharded import make_sharded_stepper  # noqa: F401

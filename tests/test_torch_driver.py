@@ -145,7 +145,8 @@ def test_cli_unported_flags_exit_1(extra, capsys, tmp_path, monkeypatch):
     magnetization lines. --algo sw (item 10) runs on xla, with the JAX
     package's lines, and exits 1 on bit1 with the JAX package's wording.
     --pt (item 11) runs and prints the JAX CLI's per-rung, acceptance and
-    round-trip lines."""
+    round-trip lines. --devs (item 7) runs over row slabs on the CPU,
+    prints the JAX CLI's "devices" line and its magnetization lines."""
     monkeypatch.chdir(tmp_path)
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
@@ -186,6 +187,16 @@ def test_cli_unported_flags_exit_1(extra, capsys, tmp_path, monkeypatch):
         assert out.startswith("ising-tpu-torch run (Swendsen-Wang):")
         assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
         want = _mag_lines(capsys.readouterr().out)
+        assert cli.main(argv + extra + ["-p", "1"]) == 0
+        assert _mag_lines(capsys.readouterr().out) == want
+        assert len(want) == 3
+    elif extra[0] == "--devs":
+        assert code == 0 and "not yet ported" not in err
+        assert "\tdevices: 2\n" in out
+        assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
+        jout = capsys.readouterr().out
+        assert "\tdevices: 2\n" in jout
+        want = _mag_lines(jout)
         assert cli.main(argv + extra + ["-p", "1"]) == 0
         assert _mag_lines(capsys.readouterr().out) == want
         assert len(want) == 3
@@ -233,8 +244,16 @@ def test_registry_and_config_fences():
                       MxuBackend)
     assert isinstance(get_backend(SimConfig(backend="bit1", ncols=64)),
                       Bit1Backend)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        SimConfig(backend="bit1", nrows=16, ncols=64, ndev=2)
+    # Item 7 is ported: row slabs construct, with the JAX package's own
+    # checks of the slab height.
+    assert SimConfig(backend="bit1", nrows=16, ncols=64, ndev=2,
+                     halo_overlap=True).local_rows == 8
+    for ndev, msg in ((3, "divide evenly over devices"),
+                      (16, "slab height must be even")):
+        with pytest.raises(ValueError, match=msg):
+            SimConfig(backend="bit1", nrows=16, ncols=64, ndev=ndev)
+        with pytest.raises(ValueError, match=msg):
+            JaxConfig(backend="bit1", nrows=16, ncols=64, ndev=ndev)
     # Dumps and correlation output are ported: they construct, as the JAX
     # package's configs do.
     for kw in (dict(dump_lattice=True), dict(corr_out=True, rng="chacha6b")):

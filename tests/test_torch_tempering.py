@@ -241,12 +241,18 @@ def test_cli_pt_lines_match_jax(backend, capsys):
 
 def test_cli_pt_refusals(capsys):
     """A ladder the library refuses exits 1 with its message, as in the
-    JAX CLI; --devs > 1 exits 1 naming the ROADMAP item that ports it."""
+    JAX CLI; --devs 2 runs every rung over two row slabs, with the JAX
+    CLI's lines."""
     base = ["-x", "64", "-y", "16", "-n", "1", "--device", "cpu"]
     assert cli.main(base + ["--pt", "1.0"]) == 1
     assert "ERROR: parallel tempering needs at least 2 rungs" in \
         capsys.readouterr().err
     assert cli.main(base + ["--pt", "1.0,2.0", "--field", "0.1"]) == 1
     assert "field == 0" in capsys.readouterr().err
-    assert cli.main(base + ["--pt", "1.0,2.0", "--devs", "2"]) == 1
-    assert "not yet ported (ROADMAP item 7)" in capsys.readouterr().err
+    argv = base[:-2] + ["--pt", "1.0,2.0", "--devs", "2", "-J", "0.3"]
+    assert jcli.main(argv) == 0
+    want = _pt_lines(capsys.readouterr().out)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    out, err = capsys.readouterr()
+    assert "not yet ported" not in err
+    assert _pt_lines(out) == want and len(want) == 4
