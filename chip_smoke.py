@@ -128,7 +128,24 @@ Phases, each printed as it ends:
                a step, 6 with halo_overlap; the labeler's 3 a slab an
                update); then 64 steps of bit1 at 16384^2 timed at 1 slab,
                through the slab path with one slab, over 2, 4 and 8
-               slabs and with halo_overlap;
+               slabs and with halo_overlap. Then the example studies
+               (phase_examples, `[examples]`): tc_sweep at full width on
+               bit1 (16384 replicas of 64^2 and of 128^2, 7 temperatures,
+               400 + 200 steps: 2 x 600 x 14 bit1_sweep launches on the
+               replica path, every U4 finite and at most 2/3 + 0.01, the
+               crossing and collapse lines; sweeps and measurements
+               timed apart from outside the example), tc_sweep --algo sw
+               on 1024 replicas (the labeler's launches those of its
+               updates), its physics check (SW on 1024 replicas of 32^2
+               and 64^2: a finite crossing within 1% of Tc), the seven
+               examples on the card and with --device cpu at small sizes
+               (equal lines, launches counted), giant_lattice at 65536^2
+               (2^32 spins: 66 launches, its word-domain up count and
+               bond sum equal to int64 sums over decoded row slabs), the
+               CLI at 16384^2 with and without --profile (equal lines,
+               bit1 kernel events in the trace) and a 16384^2 hex dump
+               through the native codec against numpy (equal crc32 and
+               lattices read back, writes and reads timed in turns);
   6. timing    at 16384^2, the main path's shape, in every rng mode, and
                with an external field in the bit-plane modes and hw, and on
                the J-plane, split-link, replica and replica + J paths in
@@ -214,6 +231,7 @@ from ising_tpu_torch.models import ising
 from ising_tpu_torch.ops import bit1, dense, kernel_lib, mxu, packed
 from ising_tpu_torch.parallel.mesh import gather_rows
 from ising_tpu_torch.rng import PORTED_MODES, parse_rng_mode, plane_bits
+from ising_tpu_torch.utils.profiling import StepTimer
 
 BUDGET_S = 600          # the whole script, build included
 AGAINST_S = 600         # more for --against: the old tree's build and runs
@@ -433,6 +451,56 @@ GPUS_TIMED_SHAPE = 32768
 MULTI_SW_ITERS = 3
 MULTI_TIMED_STEPS, MULTI_TIMED_REPEATS = 64, 3
 LABEL_TILES = ((64, 128), (128, 128), (32, 128))
+# The example studies (phase_examples, `[examples]`): the Binder Tc sweep
+# at full width on bit1 (16384 replicas of 64^2 on 8192^2 and of 128^2 on
+# 16384^2; the script's 7 temperatures, 400 + 200 steps, a measurement
+# every 4), its Swendsen-Wang form on 1024 replicas and SW's physics
+# check (EX_SW_TC_FLAGS below), the seven examples on
+# the card and with --device cpu at small sizes (tests/test_examples.py's,
+# tc_sweep on bit1 at the smallest replica geometry bit1 admits, hysteresis
+# on bit1 at 64^2, the narrowest bit1 lattice), giant_lattice past 2^32
+# spins, the CLI's --profile and the native codec's dump.
+EX_TC_FLAGS = ["--backend", "bit1", "--sizes", "64,128", "--replicas",
+               "16384"]
+EX_TC_SIZES, EX_TC_REPLICAS_ACROSS = (64, 128), 128
+EX_TC_TEMPS, EX_TC_STEPS, EX_TC_EVERY = 7, 400 + 200, 4
+EX_SW_FLAGS = ["--algo", "sw", "--sizes", "64,128", "--replicas", "1024",
+               "--ntemps", "3", "--warmup", "4", "--measure", "8", "--every",
+               "2"]
+EX_SW_UPDATES = (4 + 8) * 3 * 2
+# The physics check: Swendsen-Wang decorrelates a replica in a few updates
+# even at Tc, so 20 + 40 updates on 1024 replicas of 32^2 and of 64^2
+# equilibrate where 400 Metropolis sweeps at L = 128 do not; the crossing
+# of their Binder cumulants must be finite and within EX_SW_TC_TOL of Tc.
+EX_SW_TC_FLAGS = ["--algo", "sw", "--sizes", "32,64", "--replicas", "1024",
+                  "--ntemps", "5", "--warmup", "20", "--measure", "40",
+                  "--every", "2"]
+EX_SW_TC_TOL = 0.01
+# (example, flags, the card run's launches by wrapper, or None: the
+# labeler's, as its updates make them)
+EX_SMALL = (
+    ("tc_sweep", ["--backend", "bit1", "--sizes", "8,16", "--replicas",
+                  "1024", "--warmup", "20", "--measure", "12", "--ntemps",
+                  "3"], {"bit1_sweep": 2 * 32 * 3 * 2}),
+    ("reweight_peak", ["--size", "16", "--ntemps", "3", "--warmup", "40",
+                       "--samples", "40", "--every", "2"], {}),
+    ("xi_scan", ["--sizes", "8,16", "--ntemps", "3", "--warmup", "5",
+                 "--samples", "12"], None),
+    ("cluster_vs_metropolis", ["--size", "16", "--warmup", "20",
+                               "--samples", "64", "--sw-samples", "32"],
+     None),
+    ("spin_glass_pt", ["--size", "16", "--rungs", "3", "--rounds", "8",
+                       "--sweeps", "2", "--realizations", "2"], {}),
+    ("hysteresis", ["--size", "64", "--hmax", "1.0", "--steps", "5",
+                    "--sweeps", "4", "--backend", "bit1"],
+     {"bit1_sweep": 2 * (10 * 4 + 2 * 5 * 4)}),
+    ("giant_lattice", ["--rows", "16", "--cols", "64", "--steps", "4"],
+     {"bit1_sweep": 2 * 5}),
+)
+EX_GIANT_FLAGS = ["--rows", "65536", "--cols", "65536", "--steps", "32"]
+EX_PROFILE_FLAGS = ["--backend", "bit1", "-x", str(MAIN_SHAPE), "-y",
+                    str(MAIN_SHAPE), "-n", "16", "-p", "4", "-t", "1.5"]
+
 LABEL_KERNEL = {"source": "ising_tpu_torch/csrc/cluster_label.cu",
                 "replaces": "ising_tpu/cluster.py:168"}
 
@@ -976,9 +1044,7 @@ def phase_golden():
 def cli_simulation(argv):
     """A Simulation (SwendsenWang for --algo sw) from CLI flags, built as
     cli.main builds it."""
-    args = cli.build_parser().parse_args(argv)
-    require(cli.unported_flag(args) is None, f"unported flag in {argv}")
-    return cli.build_simulation(args)
+    return cli.build_simulation(cli.build_parser().parse_args(argv))
 
 
 def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
@@ -2719,6 +2785,448 @@ def phase_multi(card):
     return {"launches": dict(launches), "timing": timing}
 
 
+def example_lines(name: str, argv):
+    """(lines, launches by wrapper, seconds) of the example `name` run with
+    `argv` (ising_tpu_torch.examples.<name>.main), every launch count set
+    to 0 just before and read just after."""
+    import importlib
+    main_of = importlib.import_module(f"ising_tpu_torch.examples.{name}").main
+    for f in COUNTERS:
+        f.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main_of(list(argv))
+    torch.cuda.synchronize()
+    return out.getvalue().splitlines(), slab_launches(), \
+        time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def timed_methods(methods):
+    """Time every call of the methods {label: (class, name)} while the
+    block runs, each between two device synchronizes (the one before it
+    not counted), with a StepTimer a label; yields ({label: StepTimer},
+    {label: [the instances called]}), and puts the methods back after."""
+    timers = {label: StepTimer() for label in methods}
+    selves = {label: [] for label in methods}
+    saved = []
+    for label, (cls, name) in methods.items():
+        orig = cls.__dict__[name]
+        saved.append((cls, name, orig))
+
+        def timed(self, *a, _orig=orig, _label=label, **kw):
+            torch.cuda.synchronize()
+            timers[_label].start()
+            out = _orig(self, *a, **kw)
+            torch.cuda.synchronize()
+            timers[_label].lap()
+            if not any(x is self for x in selves[_label]):
+                selves[_label].append(self)
+            return out
+        setattr(cls, name, timed)
+    try:
+        yield timers, selves
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+
+
+def giant_numbers(lines) -> list:
+    """giant_lattice's storage line and the numbers of its measurement
+    line (the timings left out)."""
+    keep = [ln for ln in lines if "GiB of storage" in ln]
+    keep += [re.sub(r"\s*\(measure.*\)$", "", ln) for ln in lines
+             if ln.startswith("|m| = ")]
+    require(len(keep) == 2, f"giant_lattice printed {lines}")
+    return keep
+
+
+def examples_tc(card, launches):
+    """tc_sweep at full width on bit1 (16384 replicas of 64^2 and of
+    128^2): bit1_sweep launched 2 x 600 steps x 7 temperatures x 2 sizes
+    times on the replica path and nothing else; every U4 finite and at
+    most 2/3 + 0.01; the crossing line and the collapse line (or its
+    skipped line) printed. Simulation.advance (the sweeps) and
+    replica_magnetizations (the measurements) timed from outside the
+    example, each call between two synchronizes; the rest is the set-ups
+    and the host's analysis."""
+    from ising_tpu_torch.driver import Simulation
+    with timed_methods({"sweeps": (Simulation, "advance"),
+                        "measure": (Simulation,
+                                    "replica_magnetizations")}) as (t, _):
+        lines, got, seconds = example_lines("tc_sweep", EX_TC_FLAGS)
+    sweep_s, measure_s = t["sweeps"].total, t["measure"].total
+    measurements = len(t["measure"].laps)
+    want = 2 * EX_TC_STEPS * EX_TC_TEMPS * len(EX_TC_SIZES)
+    require(got == {"bit1_sweep": want},
+            f"[examples] tc_sweep {' '.join(EX_TC_FLAGS)} launched {got}, "
+            f"expected {want} of bit1_sweep alone")
+    launches["bit1_sweep[replicas]"] += want
+    u4 = [float(re.search(r"U4=\s*(\S+)", ln).group(1)) for ln in lines
+          if ln.startswith("L=")]
+    require(len(u4) == EX_TC_TEMPS * len(EX_TC_SIZES)
+            and all(math.isfinite(u) and u <= 2 / 3 + 0.01 for u in u4),
+            f"[examples] tc_sweep U4 values {u4}")
+    require(any(ln.startswith("Binder crossing estimate") for ln in lines)
+            and any(ln.startswith("scaling collapse") for ln in lines),
+            f"[examples] tc_sweep's crossing or collapse line is missing: "
+            f"{lines[-3:]}")
+    for ln in lines:
+        say(f"[examples] tc_sweep | {ln}")
+    flips = sum((EX_TC_REPLICAS_ACROSS * L) ** 2 for L in EX_TC_SIZES) \
+        * EX_TC_STEPS * EX_TC_TEMPS
+    rate = flips / (sweep_s * 1e9)
+    rest = seconds - sweep_s - measure_s
+    say(f"[examples] tc_sweep {' '.join(EX_TC_FLAGS)} (8192^2 and 16384^2, "
+        f"{EX_TC_TEMPS} temperatures, {EX_TC_STEPS} steps): {seconds:.3f} s "
+        f"wall; sweeps {sweep_s:.3f} s ({rate:.2f} flips/ns, "
+        f"{len(t['sweeps'].laps)} advance calls), {measurements} "
+        f"measurements {measure_s:.3f} s "
+        f"({measure_s / measurements * 1e3:.3f} ms each, "
+        f"{measure_s / seconds:.1%} of the wall time), the rest (set-ups, "
+        f"the host's analysis) {rest:.3f} s; bit1_sweep launched {want} on "
+        f"{card['smi']}")
+    return {"wall_s": seconds, "rest_s": rest, "sweep_s": sweep_s,
+            "measure_s": measure_s, "measurements": measurements,
+            "sweep_flips_ns": rate, "launches": want, "u4": u4}
+
+
+def sw_launch_counts(sims) -> collections.Counter:
+    """The labeler's launches by update, summed over SwendsenWang runs."""
+    counts = collections.Counter()
+    for sim in sims:
+        counts.update(sim.launch_counts)
+    return counts
+
+
+def examples_sw(launches):
+    """tc_sweep --algo sw at 1024 replicas (2048^2 and 4096^2): the
+    labeler's launches are those its updates make (tile_roots once an
+    update, hook_roots and flatten_roots once an update that takes three
+    launches), no sweep kernel launched."""
+    with timed_methods({"advance": (cluster.SwendsenWang,
+                                    "advance")}) as (_, sims):
+        lines, got, seconds = example_lines("tc_sweep", EX_SW_FLAGS)
+    counts = sw_launch_counts(sims["advance"])
+    three = counts.get(3, 0)
+    want = {k: v for k, v in (("tile_roots", sum(counts.values())),
+                              ("hook_roots", three),
+                              ("flatten_roots", three)) if v}
+    require(sum(counts.values()) == EX_SW_UPDATES and got == want
+            and sum(got.values()) == sum(k * v for k, v in counts.items()),
+            f"[examples] tc_sweep --algo sw launched {got}; its updates "
+            f"counted {counts}")
+    require(len([ln for ln in lines if ln.startswith("L=")]) == 6,
+            f"[examples] tc_sweep --algo sw printed {lines}")
+    for k, v in got.items():
+        launches[k] += v
+    say(f"[examples] tc_sweep {' '.join(EX_SW_FLAGS)}: {seconds:.3f} s, "
+        f"labeler launches {got} over {EX_SW_UPDATES} updates "
+        f"({dict(counts)} by launches an update)")
+    return {"wall_s": seconds, "launches": got}
+
+
+def examples_sw_tc(card, launches):
+    """The physics check of the Tc sweep: its Swendsen-Wang form at
+    EX_SW_TC_FLAGS, whose Binder crossing must be finite and within
+    EX_SW_TC_TOL of Onsager's Tc, and whose collapse line is printed."""
+    lines, got, seconds = example_lines("tc_sweep", EX_SW_TC_FLAGS)
+    require(got and set(got) <= {f.__name__ for f in cluster.LABEL_PHASES},
+            f"[examples] tc_sweep {' '.join(EX_SW_TC_FLAGS)} launched {got}")
+    for k, v in got.items():
+        launches[k] += v
+    for ln in lines:
+        say(f"[examples] tc_sweep sw | {ln}")
+    cross = [ln for ln in lines if ln.startswith("Binder crossing estimate")]
+    tc = float(re.search(r"Tc ~ (\S+)", cross[0]).group(1)) if cross \
+        else math.nan
+    require(math.isfinite(tc) and abs(tc - TCRIT) <= EX_SW_TC_TOL * TCRIT
+            and any(ln.startswith("scaling collapse") for ln in lines),
+            f"[examples] tc_sweep {' '.join(EX_SW_TC_FLAGS)}: crossing {tc}, "
+            f"not within {EX_SW_TC_TOL:.0%} of Tc = {TCRIT}: {lines[-3:]}")
+    say(f"[examples] tc_sweep {' '.join(EX_SW_TC_FLAGS)}: crossing {tc:.4f} "
+        f"({abs(tc - TCRIT) / TCRIT:.2%} from Tc), launches {got}, "
+        f"{seconds:.3f} s on {card['smi']}")
+    return {"wall_s": seconds, "tc": tc, "launches": got}
+
+
+def examples_card_vs_cpu(launches):
+    """The seven examples on the card and through --device cpu: equal
+    lines (giant_lattice: its storage and measurement numbers), each card
+    run's launches counted (the CPU runs launch none)."""
+    out = {}
+    for name, argv, want in EX_SMALL:
+        card, got, t_card = example_lines(name, argv)
+        cpu, cpu_got, t_cpu = example_lines(name, argv + ["--device", "cpu"])
+        require(not cpu_got, f"[examples] {name} on the CPU launched "
+                f"{cpu_got}")
+        if name == "giant_lattice":
+            card, cpu = giant_numbers(card), giant_numbers(cpu)
+        require(card == cpu and len(card) >= 2,
+                f"[examples] {name} {' '.join(argv)}: the card's lines "
+                f"differ from the CPU's:\n{card}\n{cpu}")
+        if want is None:
+            require(got and set(got) <= {f.__name__ for f in
+                                         cluster.LABEL_PHASES}
+                    and got.get("tile_roots"),
+                    f"[examples] {name} launched {got}")
+        else:
+            require(got == want, f"[examples] {name} launched {got}, "
+                    f"expected {want}")
+        for k, v in got.items():
+            launches[f"{k}[replicas]" if name == "tc_sweep" else k] += v
+        out[name] = {"lines": len(card), "launches": got, "card_s": t_card,
+                     "cpu_s": t_cpu}
+        say(f"[examples] {name} {' '.join(argv)}: the card's {len(card)} "
+            f"lines equal the CPU's; launches {got}; {t_card:.3f} s on the "
+            f"card, {t_cpu:.3f} s on the CPU")
+    return out
+
+
+@contextlib.contextmanager
+def captured_calls(cls, names):
+    """Keep, for each method in names, the arguments and the result of its
+    last call while the block runs: yields {name: (args, result)}."""
+    seen = {}
+    saved = [(name, cls.__dict__[name]) for name in names]
+    for name, orig in saved:
+        def kept(self, *a, _orig=orig, _name=name, **kw):
+            out = _orig(self, *a, **kw)
+            seen[_name] = (a, out)
+            return out
+        setattr(cls, name, kept)
+    try:
+        yield seen
+    finally:
+        for name, orig in saved:
+            setattr(cls, name, orig)
+
+
+def plain_giant_sums(b, w, row_chunk: int = 8192):
+    """(up count, bond sum) of bit1 word planes as Python ints, from the
+    plain decode path: int64 sums over decoded slabs of row_chunk rows
+    (observables.count_spins, energy_rows_via), independent of the word
+    observables that giant_lattice prints."""
+    nrows = b.shape[0]
+    up = 0
+    for r in range(0, nrows, row_chunk):
+        up += observables.count_spins(bit1.unpack_rows(b[r:r + row_chunk]),
+                                      bit1.unpack_rows(w[r:r + row_chunk]))[0]
+
+    def decode_rows(r, n):
+        return tuple(bit1.unpack_rows(observables._rows_wrap(x, r, n))
+                     for x in (b, w))
+    bonds = int(observables.energy_rows_via(decode_rows, nrows,
+                                            row_chunk=row_chunk).sum())
+    return up, bonds
+
+
+def examples_giant(card, launches):
+    """giant_lattice at 65536^2 (4.29 G spins, past 2^32): bit1_sweep
+    launched 2 x 33 times; its word-domain up count and bond sum (the
+    offset-1 correlation sum too) equal the int64 sums of the plain decode
+    path over row slabs, and its printed |m| and E/N are those sums'; the
+    example's own init, step and measure times printed."""
+    with captured_calls(bit1.Bit1Backend, ("row_up_counts", "energy_rows",
+                                           "corr_rows")) as seen:
+        lines, got, seconds = example_lines("giant_lattice", EX_GIANT_FLAGS)
+    nspins = int(EX_GIANT_FLAGS[1]) * int(EX_GIANT_FLAGS[3])
+    require(nspins >= 2 ** 32, f"[examples] giant_lattice at {nspins} spins")
+    require(got == {"bit1_sweep": 2 * 33},
+            f"[examples] giant_lattice 65536^2 launched {got}")
+    launches["bit1_sweep"] += got["bit1_sweep"]
+    for ln in lines:
+        say(f"[examples] giant_lattice | {ln}")
+    (b, w), words_up = seen["row_up_counts"]
+    n_up, bonds = int(words_up.sum()), int(seen["energy_rows"][1].sum())
+    corr1 = int(seen["corr_rows"][1][0].sum())
+    t0 = time.perf_counter()
+    plain_up, plain_bonds = plain_giant_sums(b, w)
+    t_plain = time.perf_counter() - t0
+    line = giant_numbers(lines)[1]
+    m = f"{abs(2 * plain_up - nspins) / nspins:.6f}"
+    e = f"{-float(plain_bonds) / nspins:.6f}"
+    require(n_up == plain_up and bonds == plain_bonds == corr1
+            and line.startswith(f"|m| = {m}  E/N = {e}  "),
+            f"[examples] giant_lattice 65536^2: words up {n_up}, bonds "
+            f"{bonds}, offset-1 correlation {corr1}; decoded up {plain_up}, "
+            f"bonds {plain_bonds} (|m| {m}, E/N {e}); printed {line}")
+    times = {k: float(re.search(pat, "\n".join(lines)).group(1))
+             for k, pat in (("init_s", r"init \+ compile: (\S+)s"),
+                            ("step_s", r"steps: (\S+)s wall"),
+                            ("measure_s", r"corr128: (\S+)s\)"))}
+    say(f"[examples] giant_lattice {' '.join(EX_GIANT_FLAGS)}: up count "
+        f"{n_up} and bond sum {bonds} of {nspins} spins equal to the "
+        f"decoded slabs' int64 sums ({t_plain:.3f} s); init + first step "
+        f"{times['init_s']} s, 32 steps {times['step_s']} s, measure + "
+        f"energy + corr128 {times['measure_s']} s (the example's own "
+        f"lines), wall {seconds:.3f} s on {card['smi']}")
+    del b, w, seen
+    torch.cuda.empty_cache()
+    return dict(times, n_up=n_up, bonds=bonds, plain_s=t_plain,
+                wall_s=seconds)
+
+
+def examples_profile(card, launches):
+    """The CLI at 16384^2 on bit1 with -n 16, without and with --profile
+    DIR: the trace file in DIR holds device events of the bit1 kernels,
+    the magnetization lines are equal, both wall times printed."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp) / "trace"
+        for what, extra in (("plain", []), ("profile", ["--profile",
+                                                        str(d)])):
+            for f in COUNTERS:
+                f.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                code = cli.main(EX_PROFILE_FLAGS + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = slab_launches()
+            require(code == 0 and got == {"bit1_sweep": 2 * 16},
+                    f"[examples] the CLI {what} exited {code}, launched "
+                    f"{got}")
+            launches["bit1_sweep"] += got["bit1_sweep"]
+            runs[what] = (out.getvalue().splitlines(), seconds)
+        lines = {w: [ln for ln in r[0] if "magnetization" in ln]
+                 for w, r in runs.items()}
+        require(lines["plain"] == lines["profile"] and len(lines["plain"]) == 6
+                and f"Wrote profiler trace to {d}" in runs["profile"][0],
+                f"[examples] --profile changed the lines: {lines}")
+        files = sorted(p.name for p in d.iterdir())
+        events = json.loads((d / "trace.json").read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and device_trace.is_kernel(e.get("name", ""))
+                   and "bit1" in e["name"]]
+        require(len(kernels) >= 2 * 16,
+                f"[examples] the --profile trace {files} holds "
+                f"{len(kernels)} bit1 kernel events")
+        size = (d / "trace.json").stat().st_size
+    t_plain, t_prof = runs["plain"][1], runs["profile"][1]
+    say(f"[examples] --profile: {' '.join(EX_PROFILE_FLAGS)} wrote {files} "
+        f"({size} bytes, {len(kernels)} bit1 kernel events); magnetization "
+        f"lines equal to the run without it; wall {t_plain:.3f} s without, "
+        f"{t_prof:.3f} s with ({t_prof / t_plain:.2f}x) on {card['smi']}")
+    return {"plain_s": t_plain, "profile_s": t_prof,
+            "kernel_events": len(kernels)}
+
+
+def numpy_write_hex(path, full):
+    """io's numpy hex writer, where the codec does not build."""
+    from ising_tpu_torch import io as lio
+    with open(path, "wb") as f:
+        lio._write_rows(f, full, "hex")
+
+
+def numpy_read_hex(path):
+    """io's numpy hex reader, where the codec does not build."""
+    from ising_tpu_torch import io as lio
+    with open(path, "rb") as f:
+        return lio._read_hex_rows(f)
+
+
+def examples_codec(card):
+    """The native codec built (io.native_codec() is not None), and a
+    16384^2 bit1 hex dump through io.dump_lattice has the crc32 of the
+    codec's and of numpy's writes; each read returns the lattice. The dump
+    timed whole (decode, host copy, write); the write and the read alone,
+    through the codec and through numpy, in turns (codec, numpy, numpy,
+    codec) on the same host array."""
+    import zlib
+
+    from ising_tpu_torch import io as lio
+    from ising_tpu_torch.driver import Simulation
+    from ising_tpu_torch.native import codec as native
+    require(lio.native_codec() is not None,
+            "[examples] the native codec did not build (g++)")
+    build_s = native.load()[1]
+    sim = Simulation(SimConfig(nrows=MAIN_SHAPE, ncols=MAIN_SHAPE, temp=1.5,
+                               backend="bit1"))
+    sim.advance(2)
+    b, w = sim.bits()
+
+    def crc(path):
+        c = 0
+        with open(path, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 24), b""):
+                c = zlib.crc32(chunk, c)
+        return c
+
+    writers = {"codec": lambda p, full: native.write_hex(str(p), full),
+               "numpy": numpy_write_hex}
+    readers = {"codec": lambda p: native.read_hex(str(p)),
+               "numpy": numpy_read_hex}
+    times = {(op, k): [] for op in ("write", "read") for k in writers}
+    crcs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = Path(tmp) / "dump.txt"
+        t0 = time.perf_counter()
+        lio.dump_lattice(str(dump), b, w)
+        t_dump = time.perf_counter() - t0
+        size, crcs["dump_lattice"] = dump.stat().st_size, crc(dump)
+        dump.unlink()
+        t0 = time.perf_counter()
+        full = lio.full_bits_host(b, w)
+        t_host = time.perf_counter() - t0
+        for what in ("codec", "numpy", "numpy", "codec"):
+            path = Path(tmp) / f"{what}.txt"
+            t0 = time.perf_counter()
+            writers[what](path, full)
+            times["write", what].append(time.perf_counter() - t0)
+            crcs[what] = crc(path)
+            t0 = time.perf_counter()
+            back = readers[what](path)
+            times["read", what].append(time.perf_counter() - t0)
+            require(np.array_equal(back, full),
+                    f"[examples] the {what} read of a hex dump differs")
+            del back
+            path.unlink()
+    require(len(set(crcs.values())) == 1
+            and size == MAIN_SHAPE * (MAIN_SHAPE + 1),
+            f"[examples] hex dumps' crc32 differ: {crcs} ({size} bytes)")
+
+    def fmt(op, k):
+        return ", ".join(f"{t:.3f}" for t in times[op, k])
+    say(f"[examples] native codec (g++ {build_s:.2f} s, 0.00: cached): a "
+        f"{MAIN_SHAPE}^2 bit1 hex dump, {size} bytes, crc32 "
+        f"{crcs['codec']:08X} through io.dump_lattice, the codec and numpy; "
+        f"io.dump_lattice {t_dump:.3f} s (decode and host copy "
+        f"{t_host:.3f} s); alone and in turns, the write: codec "
+        f"{fmt('write', 'codec')} s, numpy {fmt('write', 'numpy')} s; the "
+        f"read: codec {fmt('read', 'codec')} s, numpy {fmt('read', 'numpy')}"
+        f" s on {card['smi']}")
+    del sim, b, w, full
+    torch.cuda.empty_cache()
+    return {"dump_s": t_dump, "host_s": t_host, "build_s": build_s,
+            "crc32": crcs["codec"],
+            **{f"{op}_{k}_s": v for (op, k), v in times.items()}}
+
+
+def phase_examples(card):
+    """The example studies on the card (EX_* above): the full-width Tc
+    sweep, its SW form and the SW physics check, the seven examples against the CPU, giant_lattice
+    at 65536^2, --profile and the codec. Returns {"launches": {kernels
+    line entry: launches}, ...}."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    out = {"tc_sweep": examples_tc(card, launches),
+           "tc_sweep_sw": examples_sw(launches),
+           "tc_sweep_sw_tc": examples_sw_tc(card, launches),
+           "card_vs_cpu": examples_card_vs_cpu(launches),
+           "giant_65536": examples_giant(card, launches),
+           "profile": examples_profile(card, launches),
+           "codec": examples_codec(card)}
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = dict(launches)
+    say(f"[examples] launches by entry: {dict(launches)}; the phase "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def cli_lines(argv) -> list:
     """cli.main(argv)'s lines but the timing and device lines."""
     out = io.StringIO()
@@ -3275,6 +3783,8 @@ def main(argv=None) -> int:
         say(f"[time] {elapsed():.1f} s")
         multi = phase_multi(card)
         say(f"[time] {elapsed():.1f} s")
+        examples = phase_examples(card)
+        say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, loops)
         cases, max_err = cases + full_cases, max(max_err, full_err)
         p_timing, full_cases, full_err = phase_timing_packed(card, loops, timing)
@@ -3354,6 +3864,18 @@ def main(argv=None) -> int:
     if missing:
         say(f"FAILED: [multi] launches of no kernels line entry: {missing}")
         return 1
+    # The [examples] phase's launches, by entry.
+    for e in entries:
+        n = examples["launches"].get(e["name"], 0)
+        e["launches"] += n
+        e["examples_launches"] = n
+    missing = set(examples["launches"]) - {e["name"] for e in entries}
+    if missing:
+        say(f"FAILED: [examples] launches of no kernels line entry: "
+            f"{missing}")
+        return 1
+    entries[0]["examples"] = {k: v for k, v in examples.items()
+                              if k != "launches"}
     entries[0]["multi_timing"] = multi["timing"]
     kernels = {"kernels": entries}
     say(card["smi"])

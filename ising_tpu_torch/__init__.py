@@ -11,8 +11,11 @@ labeler's passes are a CUDA kernel too. It writes and reads the JAX
 package's lattice dumps, correlation files and checkpoints byte for byte
 (io.py, checkpoint.py). Parallel tempering (tempering.py, --pt) exchanges
 configurations over a temperature ladder on any backend, with the replica
-overlap and the Fourier partials. It imports torch and never jax or
-ising_tpu. Entry points run on CUDA unless the caller passes device="cpu".
+overlap and the Fourier partials. The statistics (analysis.py,
+reweight.py), the profiler hooks and plotting (utils/) and the native
+hex codec (native/, g++) are the JAX package's, and examples/ holds its
+seven example studies. It imports torch and never jax or ising_tpu.
+Entry points run on CUDA unless the caller passes device="cpu".
 """
 
 from .config import SimConfig  # noqa: F401

@@ -14,9 +14,9 @@ rounds).
 --checkpoint saves the run at its end and --resume continues one, in the
 JAX package's file formats. --devs N splits the rows over N slabs on the
 first N GPUs (--device cpu: N slabs on the CPU), with the trajectory and
-lines of one device; -o then writes one final dump per slab. Flags of
-features the port does not run yet exit 1 with the ROADMAP.md queue-1
-item that ports them.
+lines of one device; -o then writes one final dump per slab. --profile DIR
+records the run loop with torch.profiler (CUDA activity too on the card)
+and writes a Chrome trace into DIR (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -101,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use-common-seed", action="store_true",
                    help="accepted for CLI parity; a no-op")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="profiler trace (not yet ported)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "into DIR")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="write a checkpoint at the end of the run")
     p.add_argument("--resume", default=None, metavar="PATH",
@@ -110,17 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     return p
-
-
-def unported_flag(args):
-    """(flag, ROADMAP item) of the first flag the port does not run yet."""
-    checks = (
-        ("--profile", args.profile is not None, 12),
-    )
-    for flag, used, item in checks:
-        if used:
-            return flag, item
-    return None
 
 
 def config_from_args(args) -> SimConfig:
@@ -202,12 +192,6 @@ def run_pt(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    unported = unported_flag(args)
-    if unported is not None:
-        flag, item = unported
-        print(f"ERROR: {flag} is not yet ported (ROADMAP item {item})",
-              file=sys.stderr)
-        return 1
     if args.pt:
         return run_pt(args)
     if args.algo == "sw" and (args.resume or args.checkpoint):
@@ -241,7 +225,11 @@ def main(argv=None) -> int:
     if cfg.field:
         print(f"\texternal field: h = {cfg.field}")
     print(f"\titerations: {cfg.niters} (+{cfg.nwarmup} warmup)")
-    result = sim.run()
+    from .utils.profiling import trace
+    with trace(args.profile, device=sim.device):
+        result = sim.run()
+    if args.profile:
+        print(f"Wrote profiler trace to {args.profile}")
     if cfg.dump_lattice:
         name = f"final_{cfg.nrows}x{cfg.ncols}.txt"
         sim.dump(name)

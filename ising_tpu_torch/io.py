@@ -7,7 +7,11 @@ The port of ``ising_tpu/io.py``, writing the same bytes:
   * "txt": space-separated -1/1 integers, one row per line (numpy's
     savetxt with "%d", as the JAX package writes them).
 
-Both are written with numpy alone, and ``load_lattice`` reads them back.
+``dump_lattice`` writes hex through the native g++ codec
+(native/codec.py, built at first use) and ``load_lattice`` reads it back
+through it, as the JAX package's io does where its codec builds; where
+g++ is missing, numpy writes and reads the same bytes. The streamed dump
+writes with numpy, as the JAX package's does.
 A lattice held in row slabs is written one file per slab
 (``dump_lattice_sharded``, as the reference writes one per GPU) and
 stitched back by ``load_lattice_sharded``. The correlation files of -c
@@ -15,6 +19,8 @@ take one line per measurement (``append_corr_line``).
 """
 
 from __future__ import annotations
+
+import subprocess
 
 import numpy as np
 import torch
@@ -28,6 +34,17 @@ FORMATS = ("hex", "txt")
 def _check_format(fmt: str):
     if fmt not in FORMATS:
         raise ValueError(f"unknown dump format {fmt!r}")
+
+
+def native_codec():
+    """The native hex codec (native/codec.py), built on first use; None
+    where it cannot be built (no g++), and numpy does its work."""
+    from .native import codec
+    try:
+        codec.load()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return codec
 
 
 def full_bits_host(black, white) -> np.ndarray:
@@ -46,10 +63,21 @@ def _write_rows(f, full: np.ndarray, fmt: str):
         np.savetxt(f, 2 * full.astype(np.int8) - 1, fmt="%d")
 
 
+def _read_hex_rows(f) -> np.ndarray:
+    """The (rows, cols) {0,1} uint8 lattice of an open hex dump."""
+    rows = [np.frombuffer(line, np.uint8) - ord("0")
+            for line in (ln.strip() for ln in f) if line]
+    return np.stack(rows)
+
+
 def dump_lattice(path: str, black, white, fmt: str = "hex") -> None:
     """Write compact (black, white) planes to `path` in `fmt`."""
     _check_format(fmt)
     full = full_bits_host(black, white)
+    codec = native_codec() if fmt == "hex" else None
+    if codec is not None:
+        codec.write_hex(path, full)
+        return
     with open(path, "wb") as f:
         _write_rows(f, full, fmt)
 
@@ -70,11 +98,12 @@ def load_lattice(path: str, fmt: str = "hex", device="cuda"):
     """Read a dump back into compact (black, white) uint8 planes on
     `device`."""
     _check_format(fmt)
-    if fmt == "hex":
+    codec = native_codec() if fmt == "hex" else None
+    if codec is not None:
+        full = codec.read_hex(path)
+    elif fmt == "hex":
         with open(path, "rb") as f:
-            rows = [np.frombuffer(line, np.uint8) - ord("0")
-                    for line in (ln.strip() for ln in f) if line]
-        full = np.stack(rows)
+            full = _read_hex_rows(f)
     else:
         full = ((np.loadtxt(path, dtype=np.int8) + 1) // 2).astype(np.uint8)
     return full_to_compact(torch.from_numpy(full).to(resolve_device(device)))

@@ -134,19 +134,19 @@ def test_cli_prints_jax_magnetization_lines(rng, capsys):
     ["--backend", "packed"],
 ])
 def test_cli_unported_flags_exit_1(extra, capsys, tmp_path, monkeypatch):
-    """Flags of features still to port exit 1 naming their ROADMAP item.
-    -o, -c and --checkpoint run now and write their files; --resume
-    of a file that is not there exits 1 with the JAX CLI's message.
-    -J and --xsl/--ysl (item 4) run now: -J takes effect, as the JAX
-    package's CLI shows with the same flags, and a replica geometry that
-    bit1's words cannot tile (xsl/2 = 16 against W1 = 1) exits 1 with the
-    JAX package's wording. The packed backend (item 8) and the dense and
-    mxu backends (item 9) run now, and print the JAX package's
-    magnetization lines. --algo sw (item 10) runs on xla, with the JAX
-    package's lines, and exits 1 on bit1 with the JAX package's wording.
-    --pt (item 11) runs and prints the JAX CLI's per-rung, acceptance and
-    round-trip lines. --devs (item 7) runs over row slabs on the CPU,
-    prints the JAX CLI's "devices" line and its magnetization lines."""
+    """Every flag of the JAX CLI runs in the port. -o, -c and --checkpoint
+    write their files; --resume of a file that is not there exits 1 with
+    the JAX CLI's message. -J and --xsl/--ysl run: -J takes effect, as the
+    JAX package's CLI shows with the same flags, and a replica geometry
+    that bit1's words cannot tile (xsl/2 = 16 against W1 = 1) exits 1 with
+    the JAX package's wording. The packed, dense and mxu backends print
+    the JAX package's magnetization lines. --algo sw runs on xla, with the
+    JAX package's lines, and exits 1 on bit1 with the JAX package's
+    wording. --pt prints the JAX CLI's per-rung, acceptance and
+    round-trip lines. --devs runs over row slabs on the CPU, prints the
+    JAX CLI's "devices" line and its magnetization lines. --profile DIR
+    writes a torch.profiler trace file into DIR and prints the JAX CLI's
+    "Wrote profiler trace to DIR" line and magnetization lines."""
     monkeypatch.chdir(tmp_path)
     argv = ["--backend", "bit1", "-x", "64", "-y", "8", "-n", "1",
             "--device", "cpu"]
@@ -214,8 +214,18 @@ def test_cli_unported_flags_exit_1(extra, capsys, tmp_path, monkeypatch):
         assert "cluster updates operate on decoded planes; use " \
             "backend='xla'" in err
     else:
-        assert code == 1
-        assert "not yet ported (ROADMAP item" in err
+        assert extra == ["--profile", "tracedir"]
+        assert code == 0 and err == ""
+        assert [p.name for p in (tmp_path / "tracedir").iterdir()] \
+            == ["trace.json"]
+        assert "Wrote profiler trace to tracedir" in out.splitlines()
+        assert cli.main(argv + extra + ["-p", "1"]) == 0
+        got = capsys.readouterr().out
+        assert jcli.main(argv[:-2] + extra + ["-p", "1"]) == 0
+        jout = capsys.readouterr().out
+        assert "Wrote profiler trace to tracedir" in jout.splitlines()
+        want = _mag_lines(jout)
+        assert _mag_lines(got) == want and len(want) == 3
 
 
 def test_cli_runs_every_backend(capsys):
