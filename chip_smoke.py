@@ -128,7 +128,22 @@ Phases, each printed as it ends:
                a step, 6 with halo_overlap; the labeler's 3 a slab an
                update); then 64 steps of bit1 at 16384^2 timed at 1 slab,
                through the slab path with one slab, over 2, 4 and 8
-               slabs and with halo_overlap. Then the example studies
+               slabs and with halo_overlap. Then the 2-D block
+               decomposition (phase_block2d, `[block2d]`): the xla backend
+               at 16384^2 in philox, threefry13 and chacha8 on grids of the
+               one card of 2 x 2, 1 x 4 and 4 x 1 blocks, 4 steps, each
+               grid's lattice equal to one device's xla run and bit1's
+               (bit1_sweep 2 a step, the grids no kernel), its seconds a
+               step and draw words against one device's. Then row slabs
+               over processes (phase_multihost, `[multihost]`): the CLI's
+               flags at 16384^2, 2 + 8 steps, in groups of processes on the
+               card (launch.run_group, initialize_multihost): bit1 in
+               threefry13 and chacha6b over 2 ranks of a slab each and
+               packed with halo_overlap over 2 ranks of 2 slabs each,
+               gloo (halo rows through host memory), and bit1 over one
+               NCCL rank of 2 slabs; every rank's slabs and lines equal
+               one device's, its launches counted, its ms a step against
+               one process's. Then the example studies
                (phase_examples, `[examples]`): tc_sweep at full width on
                bit1 (16384 replicas of 64^2 and of 128^2, 7 temperatures,
                400 + 200 steps: 2 x 600 x 14 bit1_sweep launches on the
@@ -187,8 +202,9 @@ and runs only row slabs over the machine's own GPUs, one slab a GPU, halo
 rows copied between devices (main_gpus): the flagship, halo_overlap,
 disorder, replica and field cases over 2, 4 and 8 GPUs (as many as it
 has), the checkpoint, dump and SW cases over 4, the CLI's --devs N lines
-against --devs 1's, and the step loop timed at 16384^2 and 32768^2 over
-1 GPU and those counts; it prints no result line.
+against --devs 1's, the step loop timed at 16384^2 and 32768^2 over
+1 GPU and those counts, and the `[multihost]` gloo cases over NCCL, a
+rank a GPU; it prints no result line.
 
 With --turns OTHER_TREE and cases, it only times bit1_sweep in those
 cases from both trees' libraries in turns, as --against does, and prints
@@ -450,6 +466,37 @@ GPUS_CASES = tuple(c for c in MULTI_CASES
 GPUS_TIMED_SHAPE = 32768
 MULTI_SW_ITERS = 3
 MULTI_TIMED_STEPS, MULTI_TIMED_REPEATS = 64, 3
+# The 2-D block decomposition (phase_block2d, `[block2d]`): the xla backend
+# at MAIN_SHAPE^2 over grids of the one card, B2D_STEPS steps, each grid's
+# lattice against one device's xla run and bit1's.
+B2D_MODES = ("philox", "threefry13", "chacha8")
+B2D_MESHES = ((2, 2), (1, 4), (4, 1))
+B2D_STEPS = 4
+# Row slabs over processes (phase_multihost, `[multihost]`): the CLI's
+# MH_FLAGS at MAIN_SHAPE^2 over a group of processes, each rank with its
+# own slabs of the card: (name, flags, slabs, ranks, backend), against one
+# device's run of the same flags. A group per (ranks, backend). The 2
+# warm-up steps load each process's kernels before the timed window.
+MH_FLAGS = ["-x", str(MAIN_SHAPE), "-y", str(MAIN_SHAPE), "-w", "2", "-n",
+            "8", "-p", "4", "-t", "1.5"]
+MH_CASES = (
+    ("bit1 threefry13", ["--backend", "bit1"], 2, 2, "gloo"),
+    ("bit1 chacha6b", ["--backend", "bit1", "--rng", "chacha6b"], 2, 2,
+     "gloo"),
+    ("packed halo_overlap", ["--backend", "packed", "--halo-overlap"], 4, 2,
+     "gloo"),
+    ("bit1 threefry13", ["--backend", "bit1"], 2, 1, "nccl"),
+)
+MH_TIMEOUT_S = 240
+
+
+def gpus_mh_cases(ngpus: int):
+    """--gpus: the gloo cases over NCCL, a rank a GPU, over 2 ranks and
+    over 4 where the machine has them, as many slabs a rank as there."""
+    return tuple((name, extra, slabs // ranks * n, n, "nccl")
+                 for n in (2, 4) if n <= ngpus
+                 for name, extra, slabs, ranks, backend in MH_CASES
+                 if backend == "gloo")
 LABEL_TILES = ((64, 128), (128, 128), (32, 128))
 # The example studies (phase_examples, `[examples]`): the Binder Tc sweep
 # at full width on bit1 (16384 replicas of 64^2 on 8192^2 and of 128^2 on
@@ -2785,6 +2832,223 @@ def phase_multi(card):
     return {"launches": dict(launches), "timing": timing}
 
 
+def phase_block2d(card, device="cuda", shape=MAIN_SHAPE, steps=B2D_STEPS):
+    """The 2-D block decomposition (parallel/block2d.py, the xla backend,
+    plain torch) at shape^2 in B2D_MODES over B2D_MESHES grids of one
+    device: each grid's lattice after `steps` steps, gathered, equals one
+    device's xla run and bit1's run of the same config, bit for bit; the
+    grids and the xla run launch no kernel, bit1 2 a step. Prints each
+    run's seconds a step and the draw words a color phase generates
+    against one device's. Returns {"launches": ..., "cases": ...}."""
+    from ising_tpu_torch.driver import Simulation
+    from ising_tpu_torch.parallel import block2d
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) / steps
+
+    launches, cases = collections.Counter(), {}
+    t_phase = time.perf_counter()
+    ch = shape // 2
+    for mode in B2D_MODES:
+        cfg = SimConfig(nrows=shape, ncols=shape, temp=1.5, backend="xla",
+                        rng=mode, device=device)
+        one = Simulation(cfg)
+        start = (one.black.clone(), one.white.clone())
+        for f in COUNTERS:
+            f.launches = 0
+        _, one_s = timed(lambda: one.advance(steps))
+        require(slab_launches() == {}, f"[block2d] xla {mode} launched "
+                f"{slab_launches()}")
+        ref = Simulation(SimConfig(**{**vars_of(cfg), "backend": "bit1"},
+                                   device=device))
+        for f in COUNTERS:
+            f.launches = 0
+        ref.advance(steps)
+        sync()
+        got = slab_launches()
+        require(got == {"bit1_sweep": 2 * steps},
+                f"[block2d] bit1 {mode} launched {got}")
+        launches.update(got)
+        require(all(torch.equal(a, b) for a, b in zip(ref.bits(), (
+            one.black, one.white))), f"[block2d] {shape}^2 {mode}: bit1's "
+            "lattice differs from xla's")
+        del ref
+        one_words = shape * ch
+        say(f"[block2d] {shape}^2 xla {mode}, one device: {one_s:.4f} s a "
+            f"step, {one_words} draw words a color phase; bit1's lattice "
+            f"equal after {steps} steps ({2 * steps} bit1_sweep launches) "
+            f"on {card['smi']}")
+        thr = ising.threshold_table(cfg.temperature)
+        for R, C in B2D_MESHES:
+            mesh = block2d.make_mesh2d(R, C, devices=[dev] * (R * C))
+            _, step_n = block2d.make_block2d_stepper(cfg, one.backend, mesh)
+            grids = [block2d.split_blocks(p, mesh) for p in start]
+            for f in COUNTERS:
+                f.launches = 0
+            (b, w), secs = timed(lambda: step_n(*grids, thr, 0, steps))
+            require(slab_launches() == {}, f"[block2d] {mode} {R}x{C} "
+                    f"launched {slab_launches()}")
+            require(torch.equal(block2d.gather_blocks(b), one.black)
+                    and torch.equal(block2d.gather_blocks(w), one.white),
+                    f"[block2d] {shape}^2 {mode} on a {R}x{C} grid: the "
+                    "lattice differs from one device's")
+            words = R * C * block2d.block_draw_words(mode, shape // R,
+                                                      ch // C, ch)
+            cases[f"{mode} {R}x{C}"] = {
+                "s_per_step": secs, "one_device_s_per_step": one_s,
+                "draw_words": words, "one_device_draw_words": one_words}
+            say(f"[block2d] {shape}^2 xla {mode} on a {R}x{C} grid of "
+                f"{dev}: lattice after {steps} steps equal to one device's "
+                f"and bit1's, no kernel launched; {secs:.4f} s a step "
+                f"({secs / one_s:.3f}x one device), {words} draw words a "
+                f"color phase ({words / one_words:g}x one device's) on "
+                f"{card['smi']}")
+            del b, w, grids
+        del one, start
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    say(f"[block2d] the phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(launches), "cases": cases}
+
+
+def slab_digest(b, w) -> str:
+    """sha256 of a slab's two storage planes' bytes."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (b, w):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def multihost_rank(rank, size, cases, flags, device):
+    """One rank's runs of `cases` [(name, case flags, slabs)] of a group:
+    Simulation of the CLI's flags + case flags + --devs slabs, its slabs
+    on the rank's current device (of type `device`), run through the CLI's
+    run loop with every launch count set to 0 just before and read just
+    after. Returns {name: {"slab0", "digests" (a slab's), "lines",
+    "launches", "ms_per_step"}}."""
+    from ising_tpu_torch.driver import Simulation
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device(device))
+    out = {}
+    for name, extra, slabs in cases:
+        argv = flags + extra + ["--devs", str(slabs), "--device", dev.type]
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        sim = Simulation(cfg, mesh=[dev] * (slabs // size))
+        lines = []
+        for f in COUNTERS:
+            f.launches = 0
+        result = sim.run(log=lines.append)
+        sim.block()
+        out[name] = {
+            "slab0": sim.slab0, "launches": slab_launches(),
+            "digests": [slab_digest(b, w)
+                        for b, w in zip(sim.black, sim.white)],
+            "lines": [ln for ln in lines
+                      if not ln.startswith("Kernel execution")],
+            "ms_per_step": result["elapsed_s"] * 1e3 / result["steps"]}
+        del sim
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_multihost(card, device="cuda", flags=MH_FLAGS, cases=MH_CASES,
+                    rank_device="cuda:0"):
+    """Row slabs over processes (mesh.initialize_multihost, launch.run_group):
+    each of `cases` run by a group of processes on `rank_device` ("{rank}"
+    for the rank), every rank holding slabs/ranks slabs, against one
+    device's run of the same flags in this process: every rank's slabs
+    (sha256 of their storage), its lines but the timing line, equal; its
+    launches those of its slabs (2 a slab a step, 6 with halo_overlap).
+    Prints the step time of each rank against one process's. Returns
+    {"launches": ..., "cases": ...}."""
+    from ising_tpu_torch.driver import Simulation
+    from ising_tpu_torch.parallel.launch import run_group
+    t_phase = time.perf_counter()
+    args = cli.build_parser().parse_args(flags)
+    steps = args.nwarmup + args.nit      # the steps the run loop takes
+    launches, out = collections.Counter(), {}
+    groups = collections.defaultdict(list)
+    for name, extra, slabs, ranks, backend in cases:
+        groups[ranks, backend].append((name, extra, slabs))
+    for (ranks, backend), group in groups.items():
+        want = {}
+        for name, extra, slabs in group:
+            cfg = cli.config_from_args(cli.build_parser().parse_args(
+                flags + extra + ["--device", device]))
+            one = Simulation(cfg)
+            lines = []
+            result = one.run(log=lines.append)
+            L = cfg.nrows // slabs
+            want[name] = {
+                "digests": [slab_digest(one.black[k * L:(k + 1) * L],
+                                        one.white[k * L:(k + 1) * L])
+                            for k in range(slabs)],
+                "lines": [ln for ln in lines
+                          if not ln.startswith("Kernel execution")],
+                "ms_per_step": result["elapsed_s"] * 1e3 / result["steps"]}
+            del one
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            got = run_group(multihost_rank, ranks, (group, flags, device),
+                            init_file=Path(tmp) / "rendezvous",
+                            device=rank_device, backend=backend,
+                            timeout_s=MH_TIMEOUT_S)
+            group_s = time.perf_counter() - t0
+        where = f"{ranks} process{'es' if ranks > 1 else ''} over {backend}"
+        on = ", ".join(dict.fromkeys(rank_device.format(rank=r)
+                                     for r in range(ranks)))
+        for name, extra, slabs in group:
+            per = slabs // ranks
+            overlap = "--halo-overlap" in extra
+            kernel = SWEEPS[extra[extra.index("--backend") + 1]].__name__
+            expect = {kernel: (6 if overlap else 2) * per * steps}
+            for rank, res in enumerate(got):
+                r = res[name]
+                require(r["slab0"] == rank * per,
+                        f"[multihost] {name}: rank {rank} holds slab "
+                        f"{r['slab0']} first")
+                require(r["digests"] == want[name]["digests"][
+                    rank * per:(rank + 1) * per],
+                    f"[multihost] {name} over {where}: rank {rank}'s slabs "
+                    "differ from one device's rows")
+                require(r["lines"] == want[name]["lines"],
+                        f"[multihost] {name} over {where}: rank {rank}'s "
+                        f"lines {r['lines']} != {want[name]['lines']}")
+                require(r["launches"] == expect,
+                        f"[multihost] {name} over {where}: rank {rank} "
+                        f"launched {r['launches']}, expected {expect}")
+                launches.update(r["launches"])
+            ms = [res[name]["ms_per_step"] for res in got]
+            one_ms = want[name]["ms_per_step"]
+            out[f"{name} over {where}"] = {
+                "slabs": slabs, "ranks": ranks, "ms_per_step": ms,
+                "one_process_ms_per_step": one_ms}
+            say(f"[multihost] {flags[flags.index('-x') + 1]}^2 {name}, "
+                f"{slabs} slabs over {where} on {on}: every rank's slabs and "
+                f"{len(want[name]['lines'])} lines equal one device's, "
+                f"{expect[kernel]} {kernel} launches a rank; ms a step "
+                f"(run loop, its measurements in) by rank "
+                f"{', '.join(f'{m:.3f}' for m in ms)} against one process "
+                f"{one_ms:.3f} on {card['smi']}")
+        say(f"[multihost] the group of {where}: {group_s:.1f} s, its "
+            f"processes' start included")
+    say(f"[multihost] the phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": dict(launches), "cases": out}
+
+
 def example_lines(name: str, argv):
     """(lines, launches by wrapper, seconds) of the example `name` run with
     `argv` (ising_tpu_torch.examples.<name>.main), every launch count set
@@ -3282,6 +3546,9 @@ def main_gpus() -> int:
             multi_timing(card, mesh_of, where, shape, counts, (n,),
                          force=False)
         say(f"[gpus] launches over GPUs by entry: {dict(launches)}")
+        mh = phase_multihost(card, cases=gpus_mh_cases(n),
+                             rank_device="cuda:{rank}")
+        say(f"[gpus] launches over NCCL ranks by entry: {mh['launches']}")
         say(f"[time] {elapsed():.1f} s")
     except Failed as e:
         say(f"FAILED: {e}")
@@ -3783,6 +4050,10 @@ def main(argv=None) -> int:
         say(f"[time] {elapsed():.1f} s")
         multi = phase_multi(card)
         say(f"[time] {elapsed():.1f} s")
+        b2d = phase_block2d(card)
+        say(f"[time] {elapsed():.1f} s")
+        mh = phase_multihost(card)
+        say(f"[time] {elapsed():.1f} s")
         examples = phase_examples(card)
         say(f"[time] {elapsed():.1f} s")
         timing, full_cases, full_err = phase_timing(card, loops)
@@ -3855,28 +4126,24 @@ def main(argv=None) -> int:
         sum(r["launches"] for r in m_ordered.values()), m_ordered, m_err,
         info))
     entries += label_entries(sw_main, sw_timing, l_cases, l_err, info)
-    # The [multi] phase's launches over row slabs, by entry.
-    for e in entries:
-        n = multi["launches"].get(e["name"], 0)
-        e["launches"] += n
-        e["multi_launches"] = n
-    missing = set(multi["launches"]) - {e["name"] for e in entries}
-    if missing:
-        say(f"FAILED: [multi] launches of no kernels line entry: {missing}")
-        return 1
-    # The [examples] phase's launches, by entry.
-    for e in entries:
-        n = examples["launches"].get(e["name"], 0)
-        e["launches"] += n
-        e["examples_launches"] = n
-    missing = set(examples["launches"]) - {e["name"] for e in entries}
-    if missing:
-        say(f"FAILED: [examples] launches of no kernels line entry: "
-            f"{missing}")
-        return 1
+    # The launches of the [multi], [block2d], [multihost] and [examples]
+    # phases, by entry.
+    for what, ph in (("multi", multi), ("block2d", b2d), ("multihost", mh),
+                     ("examples", examples)):
+        for e in entries:
+            n = ph["launches"].get(e["name"], 0)
+            e["launches"] += n
+            e[f"{what}_launches"] = n
+        missing = set(ph["launches"]) - {e["name"] for e in entries}
+        if missing:
+            say(f"FAILED: [{what}] launches of no kernels line entry: "
+                f"{missing}")
+            return 1
     entries[0]["examples"] = {k: v for k, v in examples.items()
                               if k != "launches"}
     entries[0]["multi_timing"] = multi["timing"]
+    entries[0]["block2d"] = b2d["cases"]
+    entries[0]["multihost"] = mh["cases"]
     kernels = {"kernels": entries}
     say(card["smi"])
     say(json.dumps(kernels))

@@ -137,7 +137,11 @@ def build_simulation(args):
     """The run that cli.main drives: the checkpoint's under --resume (on
     --device, at the file's device count, as in the JAX CLI), else
     SwendsenWang for --algo sw or Simulation, from
-    config_from_args(args)."""
+    config_from_args(args). In a group of several processes a
+    --checkpoint is refused before the run, not after it."""
+    if args.checkpoint:
+        from .parallel.mesh import refuse_over_processes
+        refuse_over_processes("the checkpoint")
     if args.resume:
         from .driver import Simulation
         return Simulation.from_checkpoint(args.resume, device=args.device)

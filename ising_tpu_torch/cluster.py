@@ -69,7 +69,8 @@ from .lattice import compact_to_full, full_to_compact, init_bits
 from .ops import kernel_lib
 from .ops.bit1 import _cuda_stream, overlaps
 from .parallel.halo import rows_after
-from .parallel.mesh import gather_rows, slab_devices
+from .parallel.mesh import (gather_rows, refuse_over_processes,
+                            slab_devices)
 from .parallel.sharded import _guard
 from .rng import (MASK, TAG_CLUSTER, color_draws, threefry2x32,
                   threefry_stream_key)
@@ -662,6 +663,7 @@ class SwendsenWang:
         if cfg.nrows * cfg.ncols >= 2 ** 31:
             raise ValueError("labels are int32 site ids: needs "
                              "nrows * ncols < 2^31")
+        refuse_over_processes("Swendsen-Wang")
         self.cfg = cfg
         self.mesh = slab_devices(cfg, mesh)
         self.device = (self.mesh[0] if self.mesh

@@ -16,6 +16,14 @@ slab (a slab's bonds to the rows below it read the next slabs' rows)
 and joined on the first slab's device, so a measurement is one transfer
 and no step gathers the lattice. Lines, integers and files equal the
 one-device run's, as in the JAX package.
+
+In a group of processes (parallel/mesh.py, ``initialize_multihost``) each
+process builds and steps only its own slabs (global slabs first_slab(mesh)
+onward), its observables' int64 partials are summed over the group
+(mesh.all_sum), so every rank prints one device's lines, and -o writes
+each rank's slabs under their global indices. What would need the whole
+lattice in one process (bits(), links(), -c, checkpoints, the overlap,
+the Fourier partials) raises NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -23,7 +31,6 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from . import io as lio
@@ -36,8 +43,9 @@ from .models import ising
 from .ops import get_backend
 from .ops.bit1 import pack_bits1, unpack_bits1
 from .parallel import make_sharded_stepper
-from .parallel.halo import ring_rows, rows_after
-from .parallel.mesh import gather_rows, slab_devices, split_rows
+from .parallel.halo import process_rows_after, ring_rows, rows_after
+from .parallel.mesh import (all_sum, first_slab, gather_rows, process_group,
+                            refuse_over_processes, slab_devices, split_rows)
 
 TIMED_WINDOW = "run_loop.timed_window"
 
@@ -94,24 +102,25 @@ def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu",
     otherwise jplanes is (black's, white's) (j_up, j_dn, j_same, j_off)
     in the backend's encoding.
 
-    Over a mesh of several devices the chunks divide the slab height, each
-    made on its slab's device, and links and each color's jplanes are
-    lists with one entry a slab.
+    Over a mesh the chunks divide the slab height, each made on its slab's
+    device, and links and each color's jplanes are lists with one entry a
+    slab (in a group of processes, a slab this process holds).
     """
     Y, X = cfg.nrows, cfg.ncols
     enc = getattr(backend, "encode_jplanes", lambda p: p)
     links_packed = X % 64 == 0
     nslab = 1 if mesh is None else len(mesh)
-    L = Y // nslab
+    L = Y if mesh is None else cfg.local_rows
+    first = 0 if mesh is None else first_slab(mesh)
     R = _row_chunk(L, chunk_rows)
-    split = (links_packed and nslab == 1
+    split = (links_packed and mesh is None
              and getattr(backend, "split_links_capable", False))
     if split:
         backend.split_links = True
     jseed = cfg.seed if cfg.j_seed is None else cfg.j_seed
     link_parts, jb_parts, jw_parts = [], [], []
-    for r in range(0, Y, R):
-        dev = device if nslab == 1 else mesh[r // L]
+    for r in range(first * L, (first + nslab) * L, R):
+        dev = device if mesh is None else mesh[r // L - first]
         v_s, h_s = ising.generate_disorder_links(
             jseed, Y, X, cfg.j_prob, row0=r, local_rows=R, device=dev)
         if not split:
@@ -135,7 +144,7 @@ def build_disorder(cfg, backend, chunk_rows: int = 8192, device="cpu",
         return tuple(torch.cat([p[i] for p in parts])
                      for i in range(len(parts[0])))
 
-    if nslab > 1:
+    if mesh is not None:
         per = L // R
         slabs = lambda parts: [cat(parts[k * per:(k + 1) * per])
                                for k in range(nslab)]
@@ -155,12 +164,18 @@ class Simulation:
     whole, or one per slab); step0: the step reached; temp: the
     temperature reached, where a ramp has moved it from cfg's. mesh: the
     devices of cfg.ndev row slabs (mesh.slab_devices; default
-    make_mesh(cfg.ndev, device=cfg.device))."""
+    make_mesh(cfg.ndev, device=cfg.device)). In a group of processes the
+    mesh holds this process's slabs, from global slab `slab0` on; state is
+    still the whole lattice's planes (each process takes its rows), storage
+    this process's slabs."""
 
     def __init__(self, cfg: SimConfig, *, state=None, storage=None,
                  step0: int = 0, temp: float | None = None, mesh=None):
+        if cfg.corr_out:
+            refuse_over_processes("-c (correlation output)")
         self.cfg = cfg
         self.mesh = slab_devices(cfg, mesh)
+        self.slab0 = first_slab(self.mesh) if self.mesh else 0
         self.device = (self.mesh[0] if self.mesh
                        else resolve_device(cfg.device))
         self.temp = float(temp) if temp is not None else cfg.temperature
@@ -200,37 +215,47 @@ class Simulation:
 
     def _slab_stores(self, state, storage):
         """([black slabs], [white slabs]): slab k of the storage on
-        mesh[k], rows [k * local_rows, (k+1) * local_rows); the initial
-        state is drawn slab by slab on the slab's device."""
+        mesh[k], global rows [(slab0 + k) * local_rows, (slab0 + k + 1) *
+        local_rows); the initial state is drawn slab by slab on the slab's
+        device."""
         cfg, mesh, enc = self.cfg, self.mesh, self.backend.encode
         L = cfg.local_rows
+        rows = [(self.slab0 + k) * L for k in range(len(mesh))]
         if storage is not None:
             b, w = storage
             if isinstance(b, (list, tuple)):
                 return ([x.to(d) for x, d in zip(b, mesh)],
                         [x.to(d) for x, d in zip(w, mesh)])
+            refuse_over_processes("whole-lattice storage")
             return split_rows(b, mesh), split_rows(w, mesh)
         if state is None:
             pairs = [init_store(cfg.seed, cfg.nrows, cfg.ncols, enc,
-                                device=d, row0=k * L, local_rows=L)
-                     for k, d in enumerate(mesh)]
+                                device=d, row0=r, local_rows=L)
+                     for r, d in zip(rows, mesh)]
         else:
-            pairs = [enc(*(torch.as_tensor(p)[k * L:(k + 1) * L]
+            pairs = [enc(*(torch.as_tensor(p)[r:r + L]
                            .to(d, torch.uint8, copy=True) for p in state))
-                     for k, d in enumerate(mesh)]
+                     for r, d in zip(rows, mesh)]
         return [p[0] for p in pairs], [p[1] for p in pairs]
 
     def _per_slab(self, fn, black, white, tail_rows: int = 0, join=None):
         """fn(k, black_k, white_k, tail) of each slab k of the given storage,
         the results joined on self.device (concatenated along their last
         axis, or by `join`). tail is None on one device (the planes' own
-        wrap), else the (black, white) tail_rows rows that follow slab k."""
+        wrap), else the (black, white) tail_rows rows that follow slab k:
+        in a group of processes the last slab's from the next rank."""
         if not isinstance(black, list):
             return fn(0, black, white, None)
+        last = None
+        if tail_rows and process_group()[1] > 1:
+            last = (process_rows_after(black, tail_rows),
+                    process_rows_after(white, tail_rows))
         parts = []
         for k, (b, w) in enumerate(zip(black, white)):
             tail = None
-            if tail_rows:
+            if last is not None and k == len(black) - 1:
+                tail = last
+            elif tail_rows:
                 tail = (rows_after(black, k, tail_rows),
                         rows_after(white, k, tail_rows))
             parts.append(fn(k, b, w, tail).to(self.device))
@@ -246,6 +271,7 @@ class Simulation:
         self.device."""
         if self.mesh is None:
             return self.backend.decode(self.black, self.white)
+        refuse_over_processes("the whole lattice's planes (bits())")
         pairs = self._decode_slabs()
         return tuple(gather_rows([p[i] for p in pairs]) for i in (0, 1))
 
@@ -273,6 +299,7 @@ class Simulation:
             return None
         if self.mesh is None:
             return self._links_slab(0, self.cfg.nrows)
+        refuse_over_processes("the whole lattice's links (links())")
         parts = [self._links_slab_of(s, 0, self.cfg.local_rows)
                  for s in self._links_store]
         return tuple(gather_rows([p[i] for p in parts]) for i in (0, 1))
@@ -289,8 +316,13 @@ class Simulation:
             return observables.row_up_counts(*be.decode(b, w))
         return self._per_slab(rows, black, white)
 
+    def _up_total(self) -> int:
+        """Up spins of the lattice (in a group, summed over its
+        processes)."""
+        return int(all_sum(self._up_rows_for(self.black, self.white).sum()))
+
     def measure(self):
-        n_up = int(self._up_rows_for(self.black, self.white).sum())
+        n_up = self._up_total()
         n_dn = self.cfg.nspins - n_up
         m = abs(n_up - n_dn) / (n_up + n_dn)
         out = {"step": self.step, "magnetization": m,
@@ -338,7 +370,7 @@ class Simulation:
         state (H = -this). In replica mode it sums the full lattice's
         bonds, those across replica edges included, as the JAX package's
         does."""
-        return int(self._energy_rows().sum())
+        return int(all_sum(self._energy_rows().sum()))
 
     def _energy_rows_for(self, black, white, links=None,
                          row_chunk: int = 8192):
@@ -408,6 +440,7 @@ class Simulation:
         if (self.cfg.nrows, self.cfg.ncols) != (other.cfg.nrows,
                                                 other.cfg.ncols):
             raise ValueError("overlap needs matching lattice geometry")
+        refuse_over_processes("the overlap")
         neq = int(self._overlap_neq_rows_with(other).sum())
         return 1.0 - 2.0 * neq / self.cfg.nspins
 
@@ -422,6 +455,7 @@ class Simulation:
             raise ValueError("fourier_partials needs full-lattice mode "
                              "(replica tiles mix in the line sums); use "
                              "replica_magnetizations for tile statistics")
+        refuse_over_processes("the Fourier partials")
         be = self.backend
         rows = self._up_rows_for(self.black, self.white)
 
@@ -438,24 +472,30 @@ class Simulation:
     def replica_magnetizations(self):
         """|m| of each sub-lattice replica, row-major over the replica grid
         (observables.replica_magnetizations), slab by slab: replicas never
-        cross a slab (ysl divides its height)."""
-        if self.cfg.xsl is None:
+        cross a slab (ysl divides its height). In a group of processes each
+        rank's replicas' int64 up counts take their places in the grid,
+        which is summed over the group."""
+        cfg = self.cfg
+        if cfg.xsl is None:
             raise ValueError("replica_magnetizations needs replica mode "
                              "(cfg.xsl/ysl)")
-        xsl, ysl = self.cfg.xsl, self.cfg.ysl
+        xsl, ysl = cfg.xsl, cfg.ysl
         if self.mesh is None:
             return observables.replica_magnetizations(*self.bits(), xsl, ysl)
-        return np.concatenate([
-            observables.replica_magnetizations(b, w, xsl, ysl)
-            for b, w in self._decode_slabs()])
+        ups = torch.cat([observables.replica_up_counts(b, w, xsl, ysl)
+                         .to(self.device) for b, w in self._decode_slabs()])
+        grid = torch.zeros((cfg.nrows // ysl, cfg.ncols // xsl),
+                           dtype=torch.int64, device=self.device)
+        r0 = self.slab0 * cfg.local_rows // ysl
+        grid[r0:r0 + ups.shape[0]] = ups
+        return observables.replica_abs_m(all_sum(grid), xsl, ysl)
 
     def energy(self) -> float:
         """Internal energy per spin; a field adds its exact -h sum(s)."""
         e = -float(self.energy_total())
         h = self.cfg.field
         if h:
-            ups = int(self._up_rows_for(self.black, self.white).sum())
-            e -= h * (2 * ups - self.cfg.nspins)
+            e -= h * (2 * self._up_total() - self.cfg.nspins)
         return e / self.cfg.nspins
 
     def run(self, log=print):
@@ -513,11 +553,14 @@ class Simulation:
     def dump(self, name: str):
         """Write the lattice to `name` in the hex format: one file per slab
         over a mesh (lio.dump_lattice_sharded), streamed at or above
-        STREAM_DUMP_SPINS spins (the same bytes), in one piece below."""
+        STREAM_DUMP_SPINS spins (the same bytes), in one piece below. In a
+        group of processes each rank writes the files of its own slabs,
+        named by their global indices."""
         if self.mesh is not None:
             pairs = self._decode_slabs()
             lio.dump_lattice_sharded(name, [p[0] for p in pairs],
-                                     [p[1] for p in pairs], fmt="hex")
+                                     [p[1] for p in pairs], fmt="hex",
+                                     first=self.slab0)
         elif self.cfg.nspins >= self.STREAM_DUMP_SPINS:
             lio.dump_lattice_streamed(
                 name, lambda r0, r1: self.backend.decode(self.black[r0:r1],
@@ -536,6 +579,7 @@ class Simulation:
         into the file's bytes, the other backends decode a chunk and pack
         it on the device (the same bytes, at any slab count)."""
         from .checkpoint import save_checkpoint_streamed
+        refuse_over_processes("the checkpoint")
         be = self.backend
         rows = lambda r0, r1: self._storage_rows(r0, r1 - r0)
         packed_rows = None
@@ -557,6 +601,7 @@ class Simulation:
         each row chunk becomes the target backend's storage as it is read,
         then the storage is cut into the run's slabs."""
         from .checkpoint import load_checkpoint_state, read_checkpoint_meta
+        refuse_over_processes("a resume from a checkpoint")
         device = overrides.get("device", "cuda")
         cfg = read_checkpoint_meta(path, device=device)["cfg"]
         if overrides:

@@ -115,14 +115,16 @@ def _shard_path(path: str, k: int) -> str:
     return f"{root}_shard{k:04d}.{ext}" if dot else f"{path}_shard{k:04d}"
 
 
-def dump_lattice_sharded(path: str, black, white, fmt: str = "hex"):
+def dump_lattice_sharded(path: str, black, white, fmt: str = "hex",
+                         first: int = 0):
     """One file per row slab, in row order; returns the paths. black and
     white: lists of the slabs' compact planes, or one plane each (one
-    slab). Each file is a dump of its slab in dump_lattice's format, so
-    load_lattice reads any one of them."""
+    slab); `first` the global index of the first (a process of a group
+    holds slabs first, first + 1, ...). Each file is a dump of its slab in
+    dump_lattice's format, so load_lattice reads any one of them."""
     if not isinstance(black, (list, tuple)):
         black, white = [black], [white]
-    paths = [_shard_path(path, k) for k in range(len(black))]
+    paths = [_shard_path(path, first + k) for k in range(len(black))]
     for p, b, w in zip(paths, black, white):
         dump_lattice(p, b, w, fmt)
     return paths

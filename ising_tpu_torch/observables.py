@@ -365,10 +365,10 @@ def bit1_correlation_row_sums(black_w, white_w,
     return torch.cat(parts, dim=1)
 
 
-def replica_magnetizations(black, white, xsl: int, ysl: int) -> np.ndarray:
-    """|m| of each sub-lattice replica, row-major over the (Y/ysl, X/xsl)
-    grid of replicas, from the compact uint8 planes (each replica holds
-    xsl/2 compact columns of each color); up counts exact in int64."""
+def replica_up_counts(black, white, xsl: int, ysl: int):
+    """int64 up counts of the sub-lattice replicas, a (Y/ysl, X/xsl) grid,
+    from the compact uint8 planes (each replica holds xsl/2 compact
+    columns of each color)."""
     Y, ch = black.shape
     csl = xsl // 2
 
@@ -376,9 +376,21 @@ def replica_magnetizations(black, white, xsl: int, ysl: int) -> np.ndarray:
         t = p.reshape(Y // ysl, ysl, ch // csl, csl)
         return t.sum(dim=(1, 3), dtype=torch.int64)
 
+    return tile_ups(black) + tile_ups(white)
+
+
+def replica_abs_m(ups, xsl: int, ysl: int) -> np.ndarray:
+    """|m| of each replica from its up count, row-major over the grid."""
     n = xsl * ysl
-    ups = (tile_ups(black) + tile_ups(white)).cpu().numpy()
+    ups = ups.cpu().numpy()
     return (np.abs(2 * ups - n) / float(n)).reshape(-1)
+
+
+def replica_magnetizations(black, white, xsl: int, ysl: int) -> np.ndarray:
+    """|m| of each sub-lattice replica, row-major over the (Y/ysl, X/xsl)
+    grid of replicas, from the compact uint8 planes; up counts exact in
+    int64."""
+    return replica_abs_m(replica_up_counts(black, white, xsl, ysl), xsl, ysl)
 
 
 # Replica overlap: q = (1/N) sum_i s1_i s2_i = 1 - 2 neq / N, where neq

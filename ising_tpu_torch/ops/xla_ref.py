@@ -69,13 +69,18 @@ def select_threshold_full(dst_bits, nsum, thr10):
 
 
 def neighbor_bit_sum(src, *, color: int, H: int, src_up=None, src_dn=None,
-                     row_idx_up=None, row_idx_dn=None, col_idx_left=None,
-                     col_idx_right=None, jplanes=None):
+                     src_left=None, src_right=None, row_idx_up=None,
+                     row_idx_dn=None, col_idx_left=None, col_idx_right=None,
+                     jplanes=None):
     """4-neighbour bit sum (0..4, uint8) of the opposite-color plane per
     dst site, with src_up / src_dn the (1, C) rows above and below the slab
     (src[-1:] and src[:1] for one periodic lattice). The off-column
     neighbour: black looks left on even rows, right on odd rows; white the
     mirror. Even slab heights keep local row parity global.
+
+    src_left / src_right: the (H, 1) columns beside a block of the 2-D
+    decomposition (parallel/block2d.py) in place of the horizontal wrap;
+    without them the wrap is the block's own periodic roll.
 
     row / col index maps (make_row_wrap_maps, make_col_wrap_maps) replace
     the periodic wrap in replica mode; with row maps src_up / src_dn are
@@ -90,6 +95,9 @@ def neighbor_bit_sum(src, *, color: int, H: int, src_up=None, src_dn=None,
     if col_idx_left is not None:
         left = torch.index_select(src, 1, col_idx_left)
         right = torch.index_select(src, 1, col_idx_right)
+    elif src_left is not None:
+        left = torch.cat([src_left, src[:, :-1]], dim=1)
+        right = torch.cat([src[:, 1:], src_right], dim=1)
     else:
         left = torch.roll(src, 1, dims=1)
         right = torch.roll(src, -1, dims=1)
@@ -111,8 +119,9 @@ def sweep_color(dst, src, *, color: int, thr10, draws, src_up=None,
     """One Metropolis half-sweep of the (H, C) uint8 plane dst against
     src: accept where the (H, C) draw (int64 holding uint32) is at or below
     the site's threshold from the (10,) uint32 table thr10; full_table
-    selects from all ten entries (external field). jplanes and the replica
-    index maps as for neighbor_bit_sum."""
+    selects from all ten entries (external field). jplanes, the column
+    halos src_left / src_right and the replica index maps as for
+    neighbor_bit_sum."""
     H = dst.shape[0]
     nsum = neighbor_bit_sum(src, color=color, H=H, src_up=src_up,
                             src_dn=src_dn, jplanes=jplanes, **maps)

@@ -7,11 +7,20 @@ in place (optimized/main.cu:1637-1642). Here the one controller hands
 each slab's kernel the two rows it needs: a view of the neighbouring
 slab where it shares the device, else a copy onto the slab's device
 (``non_blocking``; torch orders it with both devices' current streams).
+
+In a group of processes (mesh.initialize_multihost) the ring runs through
+the ranks: a process's first slab takes its up row from the last slab of
+rank r - 1, its last slab its dn row from the first slab of rank r + 1
+(``process_halo_rows``), and the rows below a process's last slab come
+from the next rank (``process_rows_after``). The rows move point to
+point, device to device under NCCL and through host memory under gloo,
+whose point-to-point takes CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def _on(row, device):
@@ -49,3 +58,43 @@ def rows_after(slabs, k: int, n: int):
     k's device: the wrap rows of an observable that reads rows below."""
     L = slabs[0].shape[0]
     return ring_rows(slabs, (k + 1) * L, n, slabs[k].device)
+
+
+def _sendrecv(t, to: int, frm: int, tag: int, device):
+    """Send t to rank `to` and receive a tensor of t's shape and dtype from
+    rank `frm`, on `device`: one send and one receive a batch, so that
+    NCCL (which matches a pair of ranks' messages by order) and gloo (by
+    tag) pair them alike. Under gloo both go through host memory."""
+    where = torch.device("cpu") if dist.get_backend() == "gloo" else device
+    buf = torch.empty(t.shape, dtype=t.dtype, device=where)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t.to(where).contiguous(), to, tag=tag),
+            dist.P2POp(dist.irecv, buf, frm, tag=tag)]):
+        req.wait()
+    return buf.to(device, non_blocking=True)
+
+
+def _ring_peers():
+    rank, size = dist.get_rank(), dist.get_world_size()
+    return (rank - 1) % size, (rank + 1) % size
+
+
+def process_halo_rows(first, last):
+    """(up, dn) of this process's edge slabs, `first` and `last` (the same
+    slab where it holds one): up the previous rank's last row, on first's
+    device, dn the next rank's first row, on last's device. Every rank of
+    the group calls it at the same point."""
+    prev, nxt = _ring_peers()
+    up = _sendrecv(last[-1:], nxt, prev, 0, first.device)
+    dn = _sendrecv(first[:1], prev, nxt, 1, last.device)
+    return up, dn
+
+
+def process_rows_after(slabs, n: int):
+    """The n rows that follow this process's last slab: the next rank's
+    first n rows (n at most one slab's height), on the last slab's
+    device. Every rank of the group calls it at the same point."""
+    if n > slabs[0].shape[0]:
+        raise ValueError(f"{n} rows after a slab of {slabs[0].shape[0]}")
+    prev, nxt = _ring_peers()
+    return _sendrecv(slabs[0][:n], prev, nxt, 2, slabs[-1].device)

@@ -16,6 +16,11 @@ ISING_TPU_FUSED=1|2, one device, no J), a step is one ``update_step``
 launch instead. The loop runs on the host; each color phase is one
 launch of the backend's kernel a slab (bit1_sweep, packed_sweep,
 dense_sweep or mxu_sweep; plain torch on xla), three with halo_overlap.
+
+In a group of processes (mesh.py) each process steps its own slabs, global
+slab first_slab(mesh) + k taking row0 = (first_slab + k) * local_rows, and
+the halo rows at the process's edges come from its neighbouring ranks
+(halo.process_halo_rows) before each color phase.
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ import torch
 
 from ..constants import BLACK, WHITE
 from ..rng import MASK
-from .halo import ring_halo_rows
-from .mesh import make_mesh
+from .halo import process_halo_rows, ring_halo_rows
+from .mesh import first_slab, make_mesh, process_group
 
 # The boundary bands of halo_overlap: 8 rows, as in the JAX package.
 BAND = 8
@@ -75,13 +80,15 @@ def make_sharded_stepper(cfg, backend, mesh=None, jplanes=None,
         if backend.name == "mxu":
             raise ValueError("halo_overlap unsupported for the mxu backend "
                              "(interior slab breaks its 128-row tiling)")
+    size = process_group()[1]
     if collect:
         if mesh is None:
             mesh = make_mesh(ndev, device=cfg.device)
-        if len(mesh) != ndev:
+        if len(mesh) * size != ndev:
             raise ValueError(f"a mesh of {len(mesh)} devices for ndev = "
                              f"{ndev}")
         guards = [_guard(d) for d in mesh]
+        first = first_slab(mesh)
     L = cfg.local_rows
     jb, jw = (None, None) if jplanes is None else jplanes
 
@@ -115,18 +122,22 @@ def make_sharded_stepper(cfg, backend, mesh=None, jplanes=None,
         """One color phase on every slab, the halos of the other color's
         slabs as they stand."""
         halos = ring_halo_rows(srcs)
+        if size > 1:
+            up, dn = process_halo_rows(srcs[0], srcs[-1])
+            halos[0] = (up, halos[0][1])
+            halos[-1] = (halos[-1][0], dn)
         for k, (up, dn) in enumerate(halos):
             with guards[k]:
                 dsts[k] = sweep(dsts[k], srcs[k], up, dn, color=color,
-                                thr10=thr10, step=step, row0=k * L,
-                                jp=jps[k])
+                                thr10=thr10, step=step,
+                                row0=(first + k) * L, jp=jps[k])
 
     def step_slabs(black, white, thr10, step0, n):
         sharded = isinstance(black, (list, tuple))
         bs = list(black) if sharded else [black]
         ws = list(white) if sharded else [white]
-        jbs = [None] * ndev if jb is None else (jb if ndev > 1 else [jb])
-        jws = [None] * ndev if jw is None else (jw if ndev > 1 else [jw])
+        jbs = [None] * len(bs) if jb is None else (jb if ndev > 1 else [jb])
+        jws = [None] * len(ws) if jw is None else (jw if ndev > 1 else [jw])
         for i in range(n):
             step = (int(step0) + i) & MASK
             phase(bs, ws, BLACK, thr10, step, jbs)

@@ -36,6 +36,7 @@ import torch
 
 from .config import SimConfig
 from .driver import Simulation
+from .parallel.mesh import refuse_over_processes
 
 _M32 = 0xFFFFFFFF
 # Philox4x32 round and Weyl constants (Random123), for the O(K) swap draws
@@ -98,6 +99,7 @@ class ParallelTempering:
     def __init__(self, cfg: SimConfig, temps, *, sweeps_per_swap: int = 8,
                  replica_seeds=None, swap_seed: int | None = None,
                  batched: bool = True):
+        refuse_over_processes("parallel tempering")
         temps = [float(t) for t in temps]
         if len(temps) < 2:
             raise ValueError("parallel tempering needs at least 2 rungs")
