@@ -74,6 +74,7 @@ from .parallel.mesh import (gather_rows, refuse_over_processes,
 from .parallel.sharded import _guard
 from .rng import (MASK, TAG_CLUSTER, color_draws, threefry2x32,
                   threefry_stream_key)
+from .utils import profiling
 
 # tile_roots' tile: the least key and union-find parent of each site in
 # shared memory, 8 B a site. MAX_TILE_SITES (128 KB) takes one 128 x 128
@@ -375,16 +376,17 @@ def tile_roots(open_r, open_d, out, *, tile, ysl=None, xsl=None, ids=False):
     whole replicas). On CUDA tensors this launches csrc/cluster_label.cu
     (counted in tile_roots.launches); a launch that fails raises. On CPU
     tensors it runs tile_roots_reference."""
-    Y, X, ysl, xsl = _check_bond_phase("tile_roots", open_r, open_d, out,
-                                       tile, ysl, xsl)
-    if open_r.device.type == "cpu":
-        return out.copy_(tile_roots_reference(open_r, open_d, tile=tile,
-                                              ysl=ysl, xsl=xsl, ids=ids))
-    _launch("tile_roots", open_r.device, "label_tile_roots_launch",
-            open_r.data_ptr(), open_d.data_ptr(), out.data_ptr(), Y, X, ysl,
-            xsl, tile[0], tile[1], int(bool(ids)))
-    tile_roots.launches += 1
-    return out
+    with profiling.launch(tile_roots, open_r):
+        Y, X, ysl, xsl = _check_bond_phase("tile_roots", open_r, open_d, out,
+                                           tile, ysl, xsl)
+        if open_r.device.type == "cpu":
+            return out.copy_(tile_roots_reference(open_r, open_d, tile=tile,
+                                                  ysl=ysl, xsl=xsl, ids=ids))
+        _launch("tile_roots", open_r.device, "label_tile_roots_launch",
+                open_r.data_ptr(), open_d.data_ptr(), out.data_ptr(), Y, X,
+                ysl, xsl, tile[0], tile[1], int(bool(ids)))
+        tile_roots.launches += 1
+        return out
 
 
 def hook_roots(open_r, open_d, parent, *, tile, ysl=None, xsl=None):
@@ -393,16 +395,18 @@ def hook_roots(open_r, open_d, parent, *, tile, ysl=None, xsl=None):
     the larger under the smaller. On CUDA tensors this launches
     csrc/cluster_label.cu (counted in hook_roots.launches); on CPU tensors
     it runs hook_reference."""
-    Y, X, ysl, xsl = _check_bond_phase("hook_roots", open_r, open_d, parent,
-                                       tile, ysl, xsl)
-    if open_r.device.type == "cpu":
-        return parent.copy_(hook_reference(parent, open_r, open_d, tile=tile,
-                                           ysl=ysl, xsl=xsl))
-    _launch("hook_roots", open_r.device, "label_hook_launch",
-            open_r.data_ptr(), open_d.data_ptr(), parent.data_ptr(), Y, X,
-            ysl, xsl, tile[0], tile[1])
-    hook_roots.launches += 1
-    return parent
+    with profiling.launch(hook_roots, open_r):
+        Y, X, ysl, xsl = _check_bond_phase("hook_roots", open_r, open_d,
+                                           parent, tile, ysl, xsl)
+        if open_r.device.type == "cpu":
+            return parent.copy_(hook_reference(parent, open_r, open_d,
+                                               tile=tile, ysl=ysl,
+                                               xsl=xsl))
+        _launch("hook_roots", open_r.device, "label_hook_launch",
+                open_r.data_ptr(), open_d.data_ptr(), parent.data_ptr(), Y, X,
+                ysl, xsl, tile[0], tile[1])
+        hook_roots.launches += 1
+        return parent
 
 
 def flatten_roots(parent, labels, *, tile, ysl=None, xsl=None):
@@ -412,22 +416,23 @@ def flatten_roots(parent, labels, *, tile, ysl=None, xsl=None):
     it must not overlap it. On CUDA tensors this launches
     csrc/cluster_label.cu (counted in flatten_roots.launches); on CPU
     tensors it runs flatten_reference."""
-    Y, X, ysl, xsl = _check_geometry("flatten_roots", parent.shape, ysl, xsl,
-                                     tile)
-    _check_planes("flatten_roots", parent.device,
-                  (("parent", parent, torch.int32, (Y, X)),
-                   ("labels", labels, torch.int32, (Y, X))))
-    same = labels.data_ptr() == parent.data_ptr()
-    if overlaps(labels, parent) and not (same and (ysl, xsl) == (Y, X)):
-        raise ValueError("flatten_roots: labels must be parent itself (on "
-                         "the full lattice only) or not overlap it")
-    if parent.device.type == "cpu":
-        return labels.copy_(flatten_reference(parent, ysl=ysl, xsl=xsl))
-    _launch("flatten_roots", parent.device, "label_flatten_launch",
-            parent.data_ptr(), labels.data_ptr(), Y, X, ysl, xsl, tile[0],
-            tile[1])
-    flatten_roots.launches += 1
-    return labels
+    with profiling.launch(flatten_roots, parent):
+        Y, X, ysl, xsl = _check_geometry("flatten_roots", parent.shape, ysl,
+                                         xsl, tile)
+        _check_planes("flatten_roots", parent.device,
+                      (("parent", parent, torch.int32, (Y, X)),
+                       ("labels", labels, torch.int32, (Y, X))))
+        same = labels.data_ptr() == parent.data_ptr()
+        if overlaps(labels, parent) and not (same and (ysl, xsl) == (Y, X)):
+            raise ValueError("flatten_roots: labels must be parent itself (on "
+                             "the full lattice only) or not overlap it")
+        if parent.device.type == "cpu":
+            return labels.copy_(flatten_reference(parent, ysl=ysl, xsl=xsl))
+        _launch("flatten_roots", parent.device, "label_flatten_launch",
+                parent.data_ptr(), labels.data_ptr(), Y, X, ysl, xsl, tile[0],
+                tile[1])
+        flatten_roots.launches += 1
+        return labels
 
 
 tile_roots.launches = hook_roots.launches = flatten_roots.launches = 0
@@ -534,14 +539,14 @@ def sw_step(full, thr: int, seed: int, step, *, field: float = 0.0,
     bonds wrap within each replica and labels are replica ids. A uniform
     field enters by the ghost spin (draw_bonds); only its sign is read.
     """
-    with torch.profiler.record_function("sw_step.bonds"):
+    with profiling.span("sw.bonds"):
         open_r, open_d, ghost = draw_bonds(full, thr, seed, step, field=field,
                                            thr_ghost=thr_ghost, ysl=ysl,
                                            xsl=xsl)
-    with torch.profiler.record_function("sw_step.label"):
+    with profiling.span("sw.label"):
         labels, stats = label_clusters_tiled(open_r, open_d, ysl=ysl,
                                              xsl=xsl, return_stats=True)
-    with torch.profiler.record_function("sw_step.flip"):
+    with profiling.span("sw.flip"):
         new = flip_clusters(full, labels, seed, step, ghost)
     return (new, stats) if return_stats else new
 

@@ -46,8 +46,7 @@ from .parallel import make_sharded_stepper
 from .parallel.halo import process_rows_after, ring_rows, rows_after
 from .parallel.mesh import (all_sum, first_slab, gather_rows, process_group,
                             refuse_over_processes, slab_devices, split_rows)
-
-TIMED_WINDOW = "run_loop.timed_window"
+from .utils import profiling
 
 
 def exponential_print_steps(nsteps: int) -> list[int]:
@@ -192,8 +191,9 @@ class Simulation:
         if cfg.j_prob is not None:
             self._links_store, self._links_packed, jplanes = build_disorder(
                 cfg, self.backend, device=self.device, mesh=self.mesh)
-        self.shardings, self._step_n = make_sharded_stepper(
-            cfg, self.backend, mesh=self.mesh, jplanes=jplanes)
+        with profiling.setup("stepper"):
+            self.shardings, self._step_n = make_sharded_stepper(
+                cfg, self.backend, mesh=self.mesh, jplanes=jplanes)
         if self.mesh is None:
             self.black, self.white = self._one_store(state, storage)
         else:
@@ -205,8 +205,7 @@ class Simulation:
         if storage is not None:
             return storage
         if state is None:
-            return init_store(cfg.seed, cfg.nrows, cfg.ncols,
-                              self.backend.encode, device=self.device)
+            return self._init_store(self.device)
         # A copy: the kernels update the storage in place, and dense's and
         # mxu's storage is these planes.
         return self.backend.encode(*(
@@ -229,14 +228,26 @@ class Simulation:
             refuse_over_processes("whole-lattice storage")
             return split_rows(b, mesh), split_rows(w, mesh)
         if state is None:
-            pairs = [init_store(cfg.seed, cfg.nrows, cfg.ncols, enc,
-                                device=d, row0=r, local_rows=L)
+            pairs = [self._init_store(d, row0=r, local_rows=L)
                      for r, d in zip(rows, mesh)]
         else:
             pairs = [enc(*(torch.as_tensor(p)[r:r + L]
                            .to(d, torch.uint8, copy=True) for p in state))
                      for r, d in zip(rows, mesh)]
         return [p[0] for p in pairs], [p[1] for p in pairs]
+
+    def _init_store(self, device, **rows):
+        """init_store's random start on `device` (of the rows `rows`
+        names), in a setup.lattice span that records the device allocator's
+        peak at its end."""
+        cfg = self.cfg
+        with profiling.setup("lattice", device) as span:
+            out = init_store(cfg.seed, cfg.nrows, cfg.ncols,
+                             self.backend.encode, device=device, **rows)
+            if device.type == "cuda":
+                span.counts["peak_bytes"] = torch.cuda.max_memory_allocated(
+                    device)
+        return out
 
     def _per_slab(self, fn, black, white, tail_rows: int = 0, join=None):
         """fn(k, black_k, white_k, tail) of each slab k of the given storage,
@@ -258,19 +269,25 @@ class Simulation:
             elif tail_rows:
                 tail = (rows_after(black, k, tail_rows),
                         rows_after(white, k, tail_rows))
-            parts.append(fn(k, b, w, tail).to(self.device))
+            part = fn(k, b, w, tail)
+            with profiling.span("gather"):
+                parts.append(part.to(self.device))
         return torch.cat(parts, dim=-1) if join is None else join(parts)
 
     def _decode_slabs(self):
         """[(black, white)] decoded uint8 planes of each slab."""
-        return [self.backend.decode(b, w)
-                for b, w in zip(self.black, self.white)]
+        out = []
+        for b, w in zip(self.black, self.white):
+            with profiling.span("decode", b.device):
+                out.append(self.backend.decode(b, w))
+        return out
 
     def bits(self):
         """Current (black, white) uint8 bit planes (decoded), on
         self.device."""
         if self.mesh is None:
-            return self.backend.decode(self.black, self.white)
+            with profiling.span("decode", self.black.device):
+                return self.backend.decode(self.black, self.white)
         refuse_over_processes("the whole lattice's planes (bits())")
         pairs = self._decode_slabs()
         return tuple(gather_rows([p[i] for p in pairs]) for i in (0, 1))
@@ -311,18 +328,24 @@ class Simulation:
         be = self.backend
 
         def rows(k, b, w, tail):
-            if hasattr(be, "row_up_counts"):
-                return be.row_up_counts(b, w)
-            return observables.row_up_counts(*be.decode(b, w))
+            with profiling.span("count", b.device):
+                if hasattr(be, "row_up_counts"):
+                    return be.row_up_counts(b, w)
+                return observables.row_up_counts(*be.decode(b, w))
         return self._per_slab(rows, black, white)
 
     def _up_total(self) -> int:
         """Up spins of the lattice (in a group, summed over its
         processes)."""
-        return int(all_sum(self._up_rows_for(self.black, self.white).sum()))
+        rows = self._up_rows_for(self.black, self.white)
+        with profiling.span("gather"):
+            total = all_sum(rows.sum())
+        with profiling.span("wait"):
+            return int(total)
 
     def measure(self):
-        n_up = self._up_total()
+        with profiling.span("measure"):
+            n_up = self._up_total()
         n_dn = self.cfg.nspins - n_up
         m = abs(n_up - n_dn) / (n_up + n_dn)
         out = {"step": self.step, "magnetization": m,
@@ -336,8 +359,9 @@ class Simulation:
         """Enqueue nsteps steps (returns before the card finishes)."""
         if nsteps <= 0:
             return
-        self.black, self.white = self._step_n(
-            self.black, self.white, self._thr, self.step, nsteps)
+        with profiling.span("advance"):
+            self.black, self.white = self._step_n(
+                self.black, self.white, self._thr, self.step, nsteps)
         self.step += nsteps
 
     def block(self):
@@ -651,7 +675,7 @@ def run_loop(self, log=print):
     self.block()
     t0 = time.perf_counter()
     # The span that flips/ns times, for a profiler trace (device_trace.py).
-    with torch.profiler.record_function(TIMED_WINDOW):
+    with profiling.span("window"):
         base = self.step
         done = 0
         stopped_early = False

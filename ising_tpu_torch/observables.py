@@ -20,6 +20,7 @@ import torch
 
 from .constants import MAX_CORR_LEN
 from .rng import MASK
+from .utils import profiling
 
 
 def row_up_counts(black, white):
@@ -376,7 +377,8 @@ def replica_up_counts(black, white, xsl: int, ysl: int):
         t = p.reshape(Y // ysl, ysl, ch // csl, csl)
         return t.sum(dim=(1, 3), dtype=torch.int64)
 
-    return tile_ups(black) + tile_ups(white)
+    with profiling.span("tile_sums", black.device):
+        return tile_ups(black) + tile_ups(white)
 
 
 def replica_abs_m(ups, xsl: int, ysl: int) -> np.ndarray:

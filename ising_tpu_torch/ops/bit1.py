@@ -39,6 +39,7 @@ from ..constants import BLACK, WHITE
 from ..models import ising
 from ..rng import (MASK, TAG_SWEEP, counter_color_draws, key_from_seed,
                    parse_rng_mode, plane_bits, threefry_stream_key)
+from ..utils import profiling
 from . import kernel_lib
 
 SPW = 32  # spins per word
@@ -489,60 +490,64 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, jplanes=None, *,
     bit1_sweep_reference. Arguments as for bit1_sweep_reference. Counts
     launches in bit1_sweep.launches.
     """
-    H, W1 = tuple(dst.shape)
-    device = dst.device
-    _check_words("dst", dst, (H, W1), device)
-    _check_words("src", src, (H, W1), device)
-    _check_words("src_up", src_up, (1, W1), device)
-    _check_words("src_dn", src_dn, (1, W1), device)
-    _check_geometry(H, W1, jplanes, split_links, csl, ysl)
-    for z, p in enumerate(jplanes or ()):
-        _check_words(f"jplanes[{z}]", p, (H, W1), device)
-    if color not in (BLACK, WHITE):
-        raise ValueError(f"bit1_sweep: color must be 0 or 1, got {color!r}")
-    kbits = accept_bits(rng_mode)
-    if tvals10 is not None and not kbits:
-        raise ValueError("bit1_sweep: the external-field accept needs a "
-                         f"bit-plane rng mode or hw, not {rng_mode!r}")
-    if device.type == "cpu":
-        dst.copy_(bit1_sweep_reference(
-            dst, src, src_up, src_dn, thr, row0, step, jplanes, color=color,
-            seed=seed, rng_mode=rng_mode, greedy=greedy, t4k=t4k, t8k=t8k,
-            tvals10=tvals10, always10=always10, split_links=split_links,
-            csl=csl, ysl=ysl))
-        return dst
-    if device.type != "cuda":
-        raise ValueError(f"bit1_sweep runs on cuda or cpu, not {device}")
-    if any(overlaps(dst, t) for t in (src, src_up, src_dn, *(jplanes or ()))):
-        raise ValueError("bit1_sweep updates dst in place: dst must not "
-                         "overlap src, src_up, src_dn or a J plane")
-    tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
-    ptrs = (dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
-            src_dn.data_ptr(), H, W1, int(row0) & MASK, int(step) & MASK,
-            tag, color)
-    links = tuple(p.data_ptr() for p in jplanes) if jplanes else (0,) * 4
-    mode = (LINKS_NONE if jplanes is None
-            else LINKS_SPLIT if split_links else LINKS_JPLANES)
-    geometry = (*links, mode, csl or 0, ysl or 0)
-    lib, _ = kernel_lib.load()
-    if kbits:
-        if tvals10 is not None:
-            accept, tvals10 = ACCEPT_FIELD, tuple(tvals10)
+    with profiling.launch(bit1_sweep, dst):
+        H, W1 = tuple(dst.shape)
+        device = dst.device
+        _check_words("dst", dst, (H, W1), device)
+        _check_words("src", src, (H, W1), device)
+        _check_words("src_up", src_up, (1, W1), device)
+        _check_words("src_dn", src_dn, (1, W1), device)
+        _check_geometry(H, W1, jplanes, split_links, csl, ysl)
+        for z, p in enumerate(jplanes or ()):
+            _check_words(f"jplanes[{z}]", p, (H, W1), device)
+        if color not in (BLACK, WHITE):
+            raise ValueError("bit1_sweep: color must be 0 or 1, got "
+                             f"{color!r}")
+        kbits = accept_bits(rng_mode)
+        if tvals10 is not None and not kbits:
+            raise ValueError("bit1_sweep: the external-field accept needs a "
+                             f"bit-plane rng mode or hw, not {rng_mode!r}")
+        if device.type == "cpu":
+            dst.copy_(bit1_sweep_reference(
+                dst, src, src_up, src_dn, thr, row0, step, jplanes,
+                color=color,
+                seed=seed, rng_mode=rng_mode, greedy=greedy, t4k=t4k, t8k=t8k,
+                tvals10=tvals10, always10=always10, split_links=split_links,
+                csl=csl, ysl=ysl))
+            return dst
+        if device.type != "cuda":
+            raise ValueError(f"bit1_sweep runs on cuda or cpu, not {device}")
+        if any(overlaps(dst, t)
+               for t in (src, src_up, src_dn, *(jplanes or ()))):
+            raise ValueError("bit1_sweep updates dst in place: dst must not "
+                             "overlap src, src_up, src_dn or a J plane")
+        tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
+        ptrs = (dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
+                src_dn.data_ptr(), H, W1, int(row0) & MASK, int(step) & MASK,
+                tag, color)
+        links = tuple(p.data_ptr() for p in jplanes) if jplanes else (0,) * 4
+        mode = (LINKS_NONE if jplanes is None
+                else LINKS_SPLIT if split_links else LINKS_JPLANES)
+        geometry = (*links, mode, csl or 0, ysl or 0)
+        lib, _ = kernel_lib.load()
+        if kbits:
+            if tvals10 is not None:
+                accept, tvals10 = ACCEPT_FIELD, tuple(tvals10)
+            else:
+                accept = ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS
+            code = lib.bit1_planes_launch(
+                *ptrs, k0, k1, family, rounds, kbits, accept,
+                accept_table(kbits, t4k, t8k, tvals10, always10), *geometry,
+                _cuda_stream(device))
+            kernel_lib.check(lib, code, "bit1_planes launch")
         else:
-            accept = ACCEPT_GREEDY if greedy else ACCEPT_METROPOLIS
-        code = lib.bit1_planes_launch(
-            *ptrs, k0, k1, family, rounds, kbits, accept,
-            accept_table(kbits, t4k, t8k, tvals10, always10), *geometry,
-            _cuda_stream(device))
-        kernel_lib.check(lib, code, "bit1_planes launch")
-    else:
-        code = lib.bit1_sweep_launch(
-            *ptrs, int(thr[7]), int(thr[8]), int(thr[9]), k0, k1,
-            family, rounds, int(bool(greedy)), *geometry,
-            _cuda_stream(device))
-        kernel_lib.check(lib, code, "bit1_sweep launch")
-    bit1_sweep.launches += 1
-    return dst
+            code = lib.bit1_sweep_launch(
+                *ptrs, int(thr[7]), int(thr[8]), int(thr[9]), k0, k1,
+                family, rounds, int(bool(greedy)), *geometry,
+                _cuda_stream(device))
+            kernel_lib.check(lib, code, "bit1_sweep launch")
+        bit1_sweep.launches += 1
+        return dst
 
 
 bit1_sweep.launches = 0

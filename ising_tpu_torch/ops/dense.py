@@ -22,6 +22,7 @@ import torch
 from ..constants import BLACK, WHITE
 from ..rng import (MASK, TAG_SWEEP, counter_color_draws, parse_rng_mode,
                    plane_bits)
+from ..utils import profiling
 from . import kernel_lib
 from .bit1 import _cuda_stream, draw_mode, launch_args, overlaps
 from .xla_ref import sweep_color
@@ -119,32 +120,34 @@ def dense_sweep(dst, src, src_up, src_dn, thr10, row0, step, jplanes=None,
     dense_sweep_reference. Arguments as for dense_sweep_reference. Counts
     launches in dense_sweep.launches.
     """
-    jp = () if jplanes is None else tuple(jplanes)
-    if jplanes is not None and len(jp) != 4:
-        raise ValueError(f"dense_sweep: jplanes must be 4 planes, got "
-                         f"{len(jp)}")
-    H, C = check_plane_sweep("dense_sweep", dst, src, src_up, src_dn, thr10,
-                             color, rng_mode, jp)
-    device = dst.device
-    if device.type == "cpu":
-        dst.copy_(dense_sweep_reference(
-            dst, src, src_up, src_dn, thr10, row0, step, jplanes,
-            color=color, seed=seed, rng_mode=rng_mode))
+    with profiling.launch(dense_sweep, dst):
+        jp = () if jplanes is None else tuple(jplanes)
+        if jplanes is not None and len(jp) != 4:
+            raise ValueError(f"dense_sweep: jplanes must be 4 planes, got "
+                             f"{len(jp)}")
+        H, C = check_plane_sweep("dense_sweep", dst, src, src_up, src_dn,
+                                 thr10, color, rng_mode, jp)
+        device = dst.device
+        if device.type == "cpu":
+            dst.copy_(dense_sweep_reference(
+                dst, src, src_up, src_dn, thr10, row0, step, jplanes,
+                color=color, seed=seed, rng_mode=rng_mode))
+            return dst
+        if device.type != "cuda":
+            raise ValueError(f"dense_sweep runs on cuda or cpu, not {device}")
+        check_cuda_planes("dense_sweep", dst, (src, src_up, src_dn, *jp))
+        tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
+        lib, _ = kernel_lib.load()
+        code = lib.dense_sweep_launch(
+            dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
+            src_dn.data_ptr(),
+            H, C, int(row0) & MASK, int(step) & MASK, tag, color,
+            kernel_lib.table10(thr10), k0, k1, family, rounds,
+            *((p.data_ptr() for p in jp) if jp else (None,) * 4),
+            _cuda_stream(device))
+        kernel_lib.check(lib, code, "dense_sweep launch")
+        dense_sweep.launches += 1
         return dst
-    if device.type != "cuda":
-        raise ValueError(f"dense_sweep runs on cuda or cpu, not {device}")
-    check_cuda_planes("dense_sweep", dst, (src, src_up, src_dn, *jp))
-    tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
-    lib, _ = kernel_lib.load()
-    code = lib.dense_sweep_launch(
-        dst.data_ptr(), src.data_ptr(), src_up.data_ptr(), src_dn.data_ptr(),
-        H, C, int(row0) & MASK, int(step) & MASK, tag, color,
-        kernel_lib.table10(thr10), k0, k1, family, rounds,
-        *((p.data_ptr() for p in jp) if jp else (None,) * 4),
-        _cuda_stream(device))
-    kernel_lib.check(lib, code, "dense_sweep launch")
-    dense_sweep.launches += 1
-    return dst
 
 
 dense_sweep.launches = 0

@@ -20,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import profiling
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -222,12 +224,14 @@ def load():
     """(ctypes library, BuildInfo), building on first use in the process."""
     global _loaded
     if _loaded is None:
-        info = build()
-        lib = ctypes.CDLL(info.path)
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
+        with profiling.setup("kernels") as span:
+            info = build()
+            lib = ctypes.CDLL(info.path)
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            span.counts["built"] = not info.cached
         _loaded = (lib, info)
     return _loaded
 

@@ -25,6 +25,7 @@ import torch
 
 from ..constants import BLACK
 from ..rng import MASK, plane_bits
+from ..utils import profiling
 from . import kernel_lib
 from .bit1 import _cuda_stream, launch_args
 from .dense import (check_cuda_planes, check_plane_sweep, site_draws,
@@ -141,30 +142,32 @@ def mxu_sweep(dst, src, src_up, src_dn, thr10, row0, step, *, color: int,
     for mxu_sweep_reference; H must be a multiple of 16 and C of 128.
     Counts launches in mxu_sweep.launches.
     """
-    H, C = check_plane_sweep("mxu_sweep", dst, src, src_up, src_dn, thr10,
-                             color, rng_mode)
-    if H % TILE_ROWS or C % TILE:
-        raise ValueError(f"mxu_sweep: needs H % {TILE_ROWS} == 0 and C % "
-                         f"{TILE} == 0, got ({H}, {C})")
-    device = dst.device
-    if device.type == "cpu":
-        dst.copy_(mxu_sweep_reference(
-            dst, src, src_up, src_dn, thr10, row0, step, color=color,
-            seed=seed, rng_mode=rng_mode))
+    with profiling.launch(mxu_sweep, dst):
+        H, C = check_plane_sweep("mxu_sweep", dst, src, src_up, src_dn, thr10,
+                                 color, rng_mode)
+        if H % TILE_ROWS or C % TILE:
+            raise ValueError(f"mxu_sweep: needs H % {TILE_ROWS} == 0 and C % "
+                             f"{TILE} == 0, got ({H}, {C})")
+        device = dst.device
+        if device.type == "cpu":
+            dst.copy_(mxu_sweep_reference(
+                dst, src, src_up, src_dn, thr10, row0, step, color=color,
+                seed=seed, rng_mode=rng_mode))
+            return dst
+        if device.type != "cuda":
+            raise ValueError(f"mxu_sweep runs on cuda or cpu, not {device}")
+        check_cuda_planes("mxu_sweep", dst, (src, src_up, src_dn))
+        tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
+        lib, _ = kernel_lib.load()
+        code = lib.mxu_sweep_launch(
+            dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
+            src_dn.data_ptr(), H, C, tile_columns(C, rng_mode),
+            int(row0) & MASK, int(step) & MASK,
+            tag, color, kernel_lib.table10(thr10), k0, k1, family, rounds,
+            _cuda_stream(device))
+        kernel_lib.check(lib, code, "mxu_sweep launch")
+        mxu_sweep.launches += 1
         return dst
-    if device.type != "cuda":
-        raise ValueError(f"mxu_sweep runs on cuda or cpu, not {device}")
-    check_cuda_planes("mxu_sweep", dst, (src, src_up, src_dn))
-    tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
-    lib, _ = kernel_lib.load()
-    code = lib.mxu_sweep_launch(
-        dst.data_ptr(), src.data_ptr(), src_up.data_ptr(), src_dn.data_ptr(),
-        H, C, tile_columns(C, rng_mode), int(row0) & MASK, int(step) & MASK,
-        tag, color, kernel_lib.table10(thr10), k0, k1, family, rounds,
-        _cuda_stream(device))
-    kernel_lib.check(lib, code, "mxu_sweep launch")
-    mxu_sweep.launches += 1
-    return dst
 
 
 mxu_sweep.launches = 0

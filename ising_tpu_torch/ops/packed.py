@@ -39,6 +39,7 @@ import torch
 from ..constants import BLACK, WHITE
 from ..rng import (MASK, TAG_SWEEP, counter_color_draws, parse_rng_mode,
                    plane_bits)
+from ..utils import profiling
 from . import kernel_lib
 from .bit1 import (ACCEPT_FIELD, ACCEPT_GREEDY, ACCEPT_METROPOLIS,
                    _check_replicas, _check_words, _cuda_stream, _off_column,
@@ -175,50 +176,53 @@ def packed_sweep(dst, src, src_up, src_dn, thr10, row0, step, jword=None, *,
     tensors it runs packed_sweep_reference. Arguments as for
     packed_sweep_reference. Counts launches in packed_sweep.launches.
     """
-    H, W = tuple(dst.shape)
-    device = dst.device
-    for name, t, shape in (("dst", dst, (H, W)), ("src", src, (H, W)),
-                           ("src_up", src_up, (1, W)),
-                           ("src_dn", src_dn, (1, W)),
-                           ("jword", jword, (H, W))):
-        if t is not None:
-            _check_words(name, t, shape, device, "packed_sweep")
-    _check_replicas("packed_sweep", H, W, "W", csl, ysl)
-    if color not in (BLACK, WHITE):
-        raise ValueError(f"packed_sweep: color must be 0 or 1, got {color!r}")
-    family = parse_rng_mode(rng_mode)[0]
-    if plane_bits(rng_mode):
-        raise ValueError(f"packed_sweep draws u32 per spin; {rng_mode!r} is "
-                         "a bit-plane mode")
-    if family == "chacha" and W % 2:
-        raise ValueError(f"packed_sweep: chacha needs an even W, got {W}")
-    if len(thr10) != 10:
-        raise ValueError(f"packed_sweep: thr10 has {len(thr10)} entries, "
-                         "expected 10")
-    if device.type == "cpu":
-        dst.copy_(packed_sweep_reference(
-            dst, src, src_up, src_dn, thr10, row0, step, jword, color=color,
-            seed=seed, rng_mode=rng_mode, greedy=greedy,
-            full_table=full_table, csl=csl, ysl=ysl))
+    with profiling.launch(packed_sweep, dst):
+        H, W = tuple(dst.shape)
+        device = dst.device
+        for name, t, shape in (("dst", dst, (H, W)), ("src", src, (H, W)),
+                               ("src_up", src_up, (1, W)),
+                               ("src_dn", src_dn, (1, W)),
+                               ("jword", jword, (H, W))):
+            if t is not None:
+                _check_words(name, t, shape, device, "packed_sweep")
+        _check_replicas("packed_sweep", H, W, "W", csl, ysl)
+        if color not in (BLACK, WHITE):
+            raise ValueError("packed_sweep: color must be 0 or 1, got "
+                             f"{color!r}")
+        family = parse_rng_mode(rng_mode)[0]
+        if plane_bits(rng_mode):
+            raise ValueError(f"packed_sweep draws u32 per spin; {rng_mode!r} "
+                             "is a bit-plane mode")
+        if family == "chacha" and W % 2:
+            raise ValueError(f"packed_sweep: chacha needs an even W, got {W}")
+        if len(thr10) != 10:
+            raise ValueError(f"packed_sweep: thr10 has {len(thr10)} entries, "
+                             "expected 10")
+        if device.type == "cpu":
+            dst.copy_(packed_sweep_reference(
+                dst, src, src_up, src_dn, thr10, row0, step, jword,
+                color=color, seed=seed, rng_mode=rng_mode, greedy=greedy,
+                full_table=full_table, csl=csl, ysl=ysl))
+            return dst
+        if device.type != "cuda":
+            raise ValueError(f"packed_sweep runs on cuda or cpu, not {device}")
+        if any(overlaps(dst, t) for t in (src, src_up, src_dn)
+               + (() if jword is None else (jword,))):
+            raise ValueError("packed_sweep updates dst in place: dst must not "
+                             "overlap src, src_up, src_dn or the J word")
+        tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
+        accept = _accept(greedy, full_table)
+        lib, _ = kernel_lib.load()
+        code = lib.packed_sweep_launch(
+            dst.data_ptr(), src.data_ptr(), src_up.data_ptr(),
+            src_dn.data_ptr(),
+            H, W, int(row0) & MASK, int(step) & MASK, tag, color,
+            kernel_lib.table10(thr10), k0, k1, family, rounds, accept,
+            None if jword is None else jword.data_ptr(), csl or 0, ysl or 0,
+            _cuda_stream(device))
+        kernel_lib.check(lib, code, "packed_sweep launch")
+        packed_sweep.launches += 1
         return dst
-    if device.type != "cuda":
-        raise ValueError(f"packed_sweep runs on cuda or cpu, not {device}")
-    if any(overlaps(dst, t) for t in (src, src_up, src_dn)
-           + (() if jword is None else (jword,))):
-        raise ValueError("packed_sweep updates dst in place: dst must not "
-                         "overlap src, src_up, src_dn or the J word")
-    tag, k0, k1, family, rounds = launch_args(rng_mode, seed, step, color)
-    accept = _accept(greedy, full_table)
-    lib, _ = kernel_lib.load()
-    code = lib.packed_sweep_launch(
-        dst.data_ptr(), src.data_ptr(), src_up.data_ptr(), src_dn.data_ptr(),
-        H, W, int(row0) & MASK, int(step) & MASK, tag, color,
-        kernel_lib.table10(thr10), k0, k1, family, rounds, accept,
-        None if jword is None else jword.data_ptr(), csl or 0, ysl or 0,
-        _cuda_stream(device))
-    kernel_lib.check(lib, code, "packed_sweep launch")
-    packed_sweep.launches += 1
-    return dst
 
 
 packed_sweep.launches = 0
@@ -244,45 +248,47 @@ def _fused_step(fn, black, white, thr10, row0, step, *, seed, rng_mode,
                 greedy, full_table, band_rows):
     """packed_fused_step and packed_fused_step_manual: fn is the wrapper,
     whose name is its C entry point's and whose counter is bumped."""
-    name = fn.__name__
-    H, W = tuple(black.shape)
-    device = black.device
-    for arg, t in (("black", black), ("white", white)):
-        _check_words(arg, t, (H, W), device, name)
-    if plane_bits(rng_mode):
-        raise ValueError(f"{name} draws u32 per spin; {rng_mode!r} is a "
-                         "bit-plane mode")
-    if parse_rng_mode(rng_mode)[0] == "chacha" and W % 2:
-        raise ValueError(f"{name}: chacha needs an even W, got {W}")
-    if len(thr10) != 10:
-        raise ValueError(f"{name}: thr10 has {len(thr10)} entries, "
-                         "expected 10")
-    if band_rows is not None and band_rows < 1:
-        raise ValueError(f"{name}: band_rows must be positive, got "
-                         f"{band_rows}")
-    if device.type == "cpu":
-        return packed_fused_step_reference(
-            black, white, thr10, row0, step, seed=seed, rng_mode=rng_mode,
-            greedy=greedy, full_table=full_table)
-    if device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
-    if overlaps(black, white):
-        # the two-call path it equals updates black in place before white
-        # reads it
-        raise ValueError(f"{name}: black and white must not overlap")
-    new_black, new_white = torch.empty_like(black), torch.empty_like(white)
-    tag_b, kb0, kb1, family, rounds = launch_args(rng_mode, seed, step, BLACK)
-    tag_w, kw0, kw1, _, _ = launch_args(rng_mode, seed, step, WHITE)
-    accept = _accept(greedy, full_table)
-    lib, _ = kernel_lib.load()
-    code = getattr(lib, name + "_launch")(
-        black.data_ptr(), white.data_ptr(), new_black.data_ptr(),
-        new_white.data_ptr(), H, W, int(row0) & MASK, int(step) & MASK,
-        kernel_lib.table10(thr10), tag_b, kb0, kb1, tag_w, kw0, kw1, family,
-        rounds, accept, band_rows or 0, _cuda_stream(device))
-    kernel_lib.check(lib, code, f"{name} launch")
-    fn.launches += 1
-    return new_black, new_white
+    with profiling.launch(fn, black):
+        name = fn.__name__
+        H, W = tuple(black.shape)
+        device = black.device
+        for arg, t in (("black", black), ("white", white)):
+            _check_words(arg, t, (H, W), device, name)
+        if plane_bits(rng_mode):
+            raise ValueError(f"{name} draws u32 per spin; {rng_mode!r} is a "
+                             "bit-plane mode")
+        if parse_rng_mode(rng_mode)[0] == "chacha" and W % 2:
+            raise ValueError(f"{name}: chacha needs an even W, got {W}")
+        if len(thr10) != 10:
+            raise ValueError(f"{name}: thr10 has {len(thr10)} entries, "
+                             "expected 10")
+        if band_rows is not None and band_rows < 1:
+            raise ValueError(f"{name}: band_rows must be positive, got "
+                             f"{band_rows}")
+        if device.type == "cpu":
+            return packed_fused_step_reference(
+                black, white, thr10, row0, step, seed=seed, rng_mode=rng_mode,
+                greedy=greedy, full_table=full_table)
+        if device.type != "cuda":
+            raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+        if overlaps(black, white):
+            # the two-call path it equals updates black in place before white
+            # reads it
+            raise ValueError(f"{name}: black and white must not overlap")
+        new_black, new_white = torch.empty_like(black), torch.empty_like(white)
+        tag_b, kb0, kb1, family, rounds = launch_args(rng_mode, seed, step,
+                                                      BLACK)
+        tag_w, kw0, kw1, _, _ = launch_args(rng_mode, seed, step, WHITE)
+        accept = _accept(greedy, full_table)
+        lib, _ = kernel_lib.load()
+        code = getattr(lib, name + "_launch")(
+            black.data_ptr(), white.data_ptr(), new_black.data_ptr(),
+            new_white.data_ptr(), H, W, int(row0) & MASK, int(step) & MASK,
+            kernel_lib.table10(thr10), tag_b, kb0, kb1, tag_w, kw0, kw1,
+            family, rounds, accept, band_rows or 0, _cuda_stream(device))
+        kernel_lib.check(lib, code, f"{name} launch")
+        fn.launches += 1
+        return new_black, new_white
 
 
 def packed_fused_step(black, white, thr10, row0, step, *, seed: int,

@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
+
 
 def _on(row, device):
     return row if row.device == device else row.to(device,
@@ -32,11 +34,19 @@ def ring_halo_rows(slabs):
     """[(up, dn)] per slab, each a (1, C) row on the slab's device: up the
     previous slab's last row (global row row0 - 1), dn the next slab's
     first row (global row row0 + H), around the ring. With one slab these
-    are its own wrap rows."""
+    are its own wrap rows. A `halo` span counts the bytes copied between
+    devices (0 where every neighbour shares the slab's device)."""
     n = len(slabs)
-    return [(_on(slabs[k - 1][-1:], s.device),
-             _on(slabs[(k + 1) % n][:1], s.device))
-            for k, s in enumerate(slabs)]
+    with profiling.span("halo") as span:
+        out = [(_on(slabs[k - 1][-1:], s.device),
+                _on(slabs[(k + 1) % n][:1], s.device))
+               for k, s in enumerate(slabs)]
+        if span is not None:
+            span.counts["bytes"] = slabs[0][:1].nbytes * sum(
+                (slabs[k - 1].device != s.device)
+                + (slabs[(k + 1) % n].device != s.device)
+                for k, s in enumerate(slabs))
+    return out
 
 
 def ring_rows(slabs, r: int, n: int, device):
@@ -83,10 +93,14 @@ def process_halo_rows(first, last):
     """(up, dn) of this process's edge slabs, `first` and `last` (the same
     slab where it holds one): up the previous rank's last row, on first's
     device, dn the next rank's first row, on last's device. Every rank of
-    the group calls it at the same point."""
+    the group calls it at the same point. A `halo` span counts the bytes
+    received."""
     prev, nxt = _ring_peers()
-    up = _sendrecv(last[-1:], nxt, prev, 0, first.device)
-    dn = _sendrecv(first[:1], prev, nxt, 1, last.device)
+    with profiling.span("halo") as span:
+        up = _sendrecv(last[-1:], nxt, prev, 0, first.device)
+        dn = _sendrecv(first[:1], prev, nxt, 1, last.device)
+        if span is not None:
+            span.counts["bytes"] = up.nbytes + dn.nbytes
     return up, dn
 
 

@@ -100,26 +100,26 @@ def test_trace_runs_dense_and_mxu_on_cpu(backend, size, kernel, capsys):
 
 
 def test_summarize_times_the_parts_of_an_sw_update():
-    """Each sw_step range's device mirror: its span, and the device time
-    of the kernels inside it."""
+    """Each program span's device mirror (here sw_step's ising.sw.*
+    ranges): its span, and the device time of the kernels inside it."""
     k = "(anonymous namespace)::label_{}_kernel(unsigned char const*, ...)"
     events = [
         _ev(device_trace.WINDOW, 100.0, 300.0, DeviceType.CPU),
-        _ev("sw_step.bonds", 110.0, 140.0, DeviceType.CUDA),
+        _ev("ising.sw.bonds", 110.0, 140.0, DeviceType.CUDA),
         _ev("elementwise", 110.0, 120.0, DeviceType.CUDA),
         _ev("elementwise", 125.0, 140.0, DeviceType.CUDA),
-        _ev("sw_step.label", 150.0, 200.0, DeviceType.CUDA),
+        _ev("ising.sw.label", 150.0, 200.0, DeviceType.CUDA),
         _ev(k.format("tile_roots"), 150.0, 160.0, DeviceType.CUDA),
         _ev(k.format("hook"), 190.0, 195.0, DeviceType.CUDA),
         _ev(k.format("flatten"), 196.0, 200.0, DeviceType.CUDA),
-        _ev("sw_step.flip", 210.0, 230.0, DeviceType.CUDA),
+        _ev("ising.sw.flip", 210.0, 230.0, DeviceType.CUDA),
         _ev("elementwise", 210.0, 230.0, DeviceType.CUDA),
     ]
     out = device_trace.summarize(events)
     assert out["spans"] == {
-        "sw_step.bonds": {"span_us": 30.0, "busy_us": 25.0},
-        "sw_step.label": {"span_us": 50.0, "busy_us": 19.0},
-        "sw_step.flip": {"span_us": 20.0, "busy_us": 20.0}}
+        "sw.bonds": {"span_us": 30.0, "busy_us": 25.0},
+        "sw.label": {"span_us": 50.0, "busy_us": 19.0},
+        "sw.flip": {"span_us": 20.0, "busy_us": 20.0}}
     assert out["kernel_launches"] == 3
     assert out["gap_after_kernel_us"]["n"] == 3
 
@@ -161,3 +161,29 @@ def test_fused_path_expects_one_launch_a_step(fused, block_rows, want,
                                   "packed", "--device", "cpu"]) == 0
         assert "(of 4 packed_fused_step_manual launches)" in (
             capsys.readouterr().out)
+
+
+def test_summarize_names_an_idle_gap_by_its_program_span():
+    """A device that idles while the host waits for a measurement: the gap
+    is named by the innermost program span (ising.*) on the host's row at
+    its middle, per device, longest first."""
+    k = "void (anonymous namespace)::bit1_sweep_kernel<0, 10, false>()"
+    cpu, gpu = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        _ev(device_trace.WINDOW, 0.0, 100.0, cpu),
+        _ev("ising.advance", 1.0, 10.0, cpu),
+        _ev("ising.launch", 6.0, 8.0, cpu),
+        _ev("ising.measure", 40.0, 100.0, cpu),
+        _ev("ising.count", 41.0, 45.0, cpu),
+        _ev("ising.wait", 70.0, 99.0, cpu),
+        _ev(k, 5.0, 38.0, gpu),
+        _ev("popcount", 42.0, 60.0, gpu),
+        _ev("ising.count", 42.0, 60.0, gpu),
+    ]
+    out = device_trace.summarize(events)
+    assert out["idle_gaps"] == [
+        {"span": "wait", "device": 0, "us": 40.0},
+        {"span": "advance", "device": 0, "us": 5.0},
+        {"span": "measure", "device": 0, "us": 4.0}]
+    assert out["spans"] == {"count": {"span_us": 18.0, "busy_us": 18.0}}
+    assert out["device_busy_us"] == 51.0

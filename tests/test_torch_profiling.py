@@ -1,7 +1,7 @@
 """The port's profiling hooks (utils/profiling.py): trace(None) is a
-no-op, trace(dir) writes a Chrome trace there in which annotate's range
-and the run's torch operations appear, and StepTimer keeps the JAX
-package's laps."""
+no-op, trace(dir) writes a Chrome trace there in which a span's range,
+the program's own spans and the run's torch operations appear, and
+StepTimer keeps the JAX package's laps."""
 
 import json
 import os
@@ -30,13 +30,14 @@ def test_trace_writes_chrome_trace_with_annotation(tmp_path, backend):
     sim = Simulation(SimConfig(nrows=16, ncols=64, temp=1.5,
                                backend=backend, device="cpu"))
     with tprof.trace(str(out), device=sim.device):
-        with tprof.annotate("ising.sweeps"):
+        with tprof.span("sweeps"):
             sim.advance(2)
         sim.measure()
     assert sorted(os.listdir(out)) == [tprof.TRACE_FILE]
     events = json.loads((out / tprof.TRACE_FILE).read_text())["traceEvents"]
     names = {e.get("name") for e in events}
-    assert "ising.sweeps" in names
+    assert {"ising.sweeps", "ising.advance", "ising.measure",
+            "ising.count", "ising.wait"} <= names
     assert any(str(n).startswith("aten::") for n in names)
     # CPU only: no device activity recorded for a CPU run
     assert not any(e.get("cat") == "kernel" for e in events)
