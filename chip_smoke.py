@@ -50,6 +50,12 @@ Phases, each printed as it ends:
                and 32 x 64 (whole in a tile) and of 512 x 256 (cut by the
                tiles), with bonds open at p = 0, 0.585 and 1, and on the
                full lattices a cluster that snakes through every tile;
+               then bit1's decode (phase_decode, `[decode]`): bit1_decode,
+               one launch for both planes, against unpack_rows byte for
+               byte at 64 x 256, 8192 x 1024, 7 x 17, 5 x 12 and 1 x 1
+               words, on row views and on a plane off the 16-byte
+               boundary, then at the replica sample's 65536 x 1024 words,
+               timed there beside its bytes bound and the plain version;
   4. golden    the port's Simulation on the card reproduces the JAX
                package's trajectories recorded in ising_tpu_torch/golden.py,
                the disordered ones with their energy, on every backend of
@@ -498,6 +504,12 @@ def gpus_mh_cases(ngpus: int):
                  for name, extra, slabs, ranks, backend in MH_CASES
                  if backend == "gloo")
 LABEL_TILES = ((64, 128), (128, 128), (32, 128))
+# bit1's decode (phase_decode, `[decode]`): (H, W1) words of both planes
+# against unpack_rows (16 and 1 words a thread), then the replica sample's
+# 65536^2 lattice timed, DECODE_LAUNCHES decodes a run.
+DECODE_SHAPES = ((64, 256), (8192, 1024), (7, 17), (5, 12), (1, 1))
+DECODE_MAIN = (65536, 1024)
+DECODE_LAUNCHES = 20
 # The example studies (phase_examples, `[examples]`): the Binder Tc sweep
 # at full width on bit1 (16384 replicas of 64^2 on 8192^2 and of 128^2 on
 # 16384^2; the script's 7 temperatures, 400 + 200 steps, a measurement
@@ -764,7 +776,8 @@ def sass_mix(lib_path: str):
     cuobjdump (pipes and loops as ising_tpu_torch/sass.py reads them, each
     kernel keyed by sass.kernel_key): for bit1_sweep (family, rounds,
     greedy, link mode, replica rows), for bit1_planes (family, rounds,
-    kbits, accept, link mode, replica rows), for packed_sweep (family,
+    kbits, accept, link mode, replica rows), for bit1_decode (words a
+    thread), for packed_sweep (family,
     rounds, accept, J word, replica rows), for
     packed_fused (family, rounds, accept, cp.async), for dense_sweep
     (family, rounds, sites per word, J planes), for mxu_sweep (family,
@@ -1102,8 +1115,10 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
     every kernel are set to 0 just before each run loop and read just
     after: the kernel the path launches (device_trace.step_launches: two
     sweeps a step, or one fused step under ISING_TPU_FUSED) must show its
-    launches a step, the others 0."""
-    launches, rates, setups, peaks = 0, [], [], []
+    launches a step, the others 0, bit1's decode too (the run loop counts
+    on the words). With replicas, the replicas' |m| from sim.bits(): on
+    bit1 one launch of bit1_decode, on the others none."""
+    launches, rates, setups, peaks, decodes = 0, [], [], [], 0
     for _ in range(runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1117,8 +1132,9 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
         peaks.append(torch.cuda.max_memory_allocated())
         name, per_step = device_trace.step_launches(sim.cfg)
         kernel = STEP_WRAPPERS[name]
-        others = [f for f in COUNTERS if f is not kernel]
-        for f in COUNTERS:
+        others = [f for f in (*COUNTERS, bit1.bit1_decode)
+                  if f is not kernel]
+        for f in (*COUNTERS, bit1.bit1_decode):
             f.launches = 0
         result = sim.run()
         n = kernel.launches
@@ -1135,6 +1151,11 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
         if sim.cfg.xsl is not None:
             m = observables.replica_magnetizations(
                 *sim.bits(), sim.cfg.xsl, sim.cfg.ysl)
+            n_dec = bit1.bit1_decode.launches
+            require(n_dec == (1 if backend == "bit1" else 0),
+                    f"bit1_decode launched {n_dec} times for the {backend} "
+                    "replicas' |m|")
+            decodes += n_dec
             count = (shape // sim.cfg.xsl) * (shape // sim.cfg.ysl)
             require(m.shape == (count,) and np.all((m >= 0) & (m <= 1)),
                     f"replica |m| of shape {m.shape}, range "
@@ -1157,7 +1178,7 @@ def main_runs(card, mode, extra, runs, e_max, what, backend="bit1",
         f"{max(rates):.2f})")
     return {"kernel": name, "launches": launches, "e_n": e_n,
             "flips_ns": median, "flips_ns_runs": rates, "setup_s": setups,
-            "peak_bytes": max(peaks)}
+            "peak_bytes": max(peaks), "decodes": decodes}
 
 
 def phase_main_path(card, backend="bit1"):
@@ -1303,6 +1324,58 @@ def phase_packed_equality(card):
             f"after {EQUALITY_ITERS} steps equal to bit1's and xla's, "
             f"energy_total ({e_p}) equal to xla's, {n} launches, "
             f"{result['flips_ns']:.2f} flips/ns on {card['smi']}")
+
+
+def phase_decode(card):
+    """bit1_decode against unpack_rows on DECODE_SHAPES, on row views and
+    on a plane 4 bytes past a 16-byte boundary (one launch a decode), then
+    at DECODE_MAIN both timed: the kernel's median of TIMED_REPEATS runs
+    of DECODE_LAUNCHES decodes against the least time the card could
+    take (a word read and 32 bytes written a word, at HBM_BYTES_PER_S)
+    and the plain version's."""
+    gen = np.random.default_rng(24)
+    dev = torch.device("cuda")
+
+    def check(b, w, what):
+        n0 = bit1.bit1_decode.launches
+        got = bit1.bit1_decode(b, w)
+        torch.cuda.synchronize()
+        require(bit1.bit1_decode.launches == n0 + 1,
+                f"bit1_decode made {bit1.bit1_decode.launches - n0} launches "
+                f"at {what}")
+        for g, x in zip(got, (b, w)):
+            require(torch.equal(g, bit1.unpack_rows(x)),
+                    f"bit1_decode != unpack_rows at {what}")
+
+    for shape in DECODE_SHAPES:
+        check(random_words(gen, shape, dev), random_words(gen, shape, dev),
+              f"{shape[0]} x {shape[1]} words")
+    big = random_words(gen, (64, 1024), dev)
+    check(big[3:40], big[20:57], "rows 3-39 and 20-56 of 64 x 1024 words")
+    flat = random_words(gen, (1 + 24 * 16,), dev)
+    check(flat[1:].view(24, 16), flat[:-1].view(24, 16),
+          "24 x 16 words 4 bytes past a 16-byte boundary")
+    H, W1 = DECODE_MAIN
+    b, w = (random_words(gen, DECODE_MAIN, dev) for _ in range(2))
+    check(b, w, f"{H} x {W1} words")
+    say(f"[decode] {len(DECODE_SHAPES) + 3} shapes: both planes equal to "
+        "unpack_rows, one launch a decode")
+    decode = lambda _: bit1.bit1_decode(b, w)
+    time_launches(decode, 2)
+    runs = sorted(time_launches(decode, DECODE_LAUNCHES)
+                  for _ in range(TIMED_REPEATS))
+    ms = runs[len(runs) // 2]
+    plain_ms = time_launches(
+        lambda _: (bit1.unpack_rows(b), bit1.unpack_rows(w)), PLAIN_LAUNCHES)
+    nbytes = 2 * H * W1 * (4 + 32)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[decode] {H} x {W1} words (the replica sample's 65536^2), both "
+        f"planes: kernel {ms:.4f} ms (runs {runs[0]:.4f}-{runs[-1]:.4f}), "
+        f"bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB, bytes; "
+        f"{100 * bound_ms / ms:.1f}% of it, {nbytes / ms / 1e9:.3f} TB/s), "
+        f"plain {plain_ms:.4f} ms ({plain_ms / ms:.1f}x) on {card['smi']}")
+    return {"ms": ms, "runs": runs, "bound_ms": bound_ms,
+            "plain_ms": plain_ms}
 
 
 def time_launches(fn, n: int) -> float:
@@ -2587,7 +2660,8 @@ def multi_case(mesh_of, where, name, backend, rng, extra, slabs, launches):
     count set to 0 just before the sharded run's steps and read after
     (the backend's sweep, 2 a slab a step or 6 with halo_overlap, and no
     other kernel), its storage, up counts and bond sum equal to the
-    one-device run's."""
+    one-device run's; with replicas their |m|, from each slab's decode on
+    its own device, too."""
     from ising_tpu_torch.driver import Simulation
     base = dict(nrows=MAIN_SHAPE, ncols=MAIN_SHAPE, temp=1.5, backend=backend,
                 rng=rng, **extra)
@@ -2595,6 +2669,8 @@ def multi_case(mesh_of, where, name, backend, rng, extra, slabs, launches):
                                   if k != "halo_overlap"}))
     one.advance(MULTI_STEPS)
     want = (one.measure(), one.energy_total())
+    want_m = (one.replica_magnetizations() if extra.get("xsl") is not None
+              else None)
     kernel = SWEEPS[backend].__name__
     route = multi_route(backend, extra)
     for n in slabs:
@@ -2614,11 +2690,17 @@ def multi_case(mesh_of, where, name, backend, rng, extra, slabs, launches):
         require((sim.measure(), sim.energy_total()) == want,
                 f"[multi] {name} over {n} slabs: up counts or bond sum "
                 f"{(sim.measure(), sim.energy_total())} != {want}")
+        if want_m is not None:
+            require(np.array_equal(sim.replica_magnetizations(), want_m),
+                    f"[multi] {name} over {n} slabs: the replicas' |m| "
+                    "differ from one device's")
         say(f"[multi] {name}: {MAIN_SHAPE}^2 {backend} {rng} "
             f"{' '.join(f'{k}={v}' for k, v in extra.items())} over {n} "
             f"slabs {where}: {kernel} launched {got[kernel]} "
-            f"(= {per_slab} x {n} x {MULTI_STEPS} steps), state, up counts "
-            f"and bond sum bit-identical to one device "
+            f"(= {per_slab} x {n} x {MULTI_STEPS} steps), state, up counts"
+            + (" and bond sum" if want_m is None else
+               ", bond sum and the replicas' |m|")
+            + f" bit-identical to one device "
             f"(|m| = {want[0]['magnetization']:.6f}, bond sum {want[1]})")
         del sim
     del one
@@ -4026,6 +4108,7 @@ def main(argv=None) -> int:
         say(f"[kernel] {l_cases} labeler kernel and labeling cases equal to "
             f"the plain versions, max abs err {l_err}  "
             f"[time {elapsed():.1f} s]")
+        decode = phase_decode(card)
         phase_golden()
         phase_fused_golden()
         phase_sw_golden()
@@ -4126,6 +4209,21 @@ def main(argv=None) -> int:
         sum(r["launches"] for r in m_ordered.values()), m_ordered, m_err,
         info))
     entries += label_entries(sw_main, sw_timing, l_cases, l_err, info)
+    # bit1_decode: the launches of the replica main-path runs' decodes, one
+    # a run (the [decode] phase's own checks and timing are not counted)
+    decode_main = {f"{path} {mode}": r["decodes"]
+                   for path, runs in paths.items()
+                   for mode, r in runs.items() if r["decodes"]}
+    entries.append({
+        "name": "bit1_decode", "route": "cuda",
+        "source": "ising_tpu_torch/csrc/bit1_decode.cu", "replaces": None,
+        "path": "replicas", "launches": sum(decode_main.values()),
+        "main_path": decode_main, "max_abs_err": 0,
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "held_against_plain": True,
+        "build_s": info.seconds,
+        "per_mode": {f"{DECODE_MAIN[0]} x {DECODE_MAIN[1]} words": decode}})
     # The launches of the [multi], [block2d], [multihost] and [examples]
     # phases, by entry.
     for what, ph in (("multi", multi), ("block2d", b2d), ("multihost", mh),

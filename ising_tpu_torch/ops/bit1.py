@@ -16,6 +16,9 @@ tensors and runs ``bit1_sweep_reference``, the same function in plain
 torch, on CPU tensors. The plain version works on int64 copies of the
 words (values in [0, 2^32)), because torch's int32 right shift is
 arithmetic and its uint32 lacks shifts and compares on the CPU.
+``bit1_decode`` unpacks both word planes into bit planes in one launch of
+csrc/bit1_decode.cu on CUDA tensors, through ``unpack_rows`` on CPU
+tensors.
 
 Bit-plane path: instead of one u32 draw per spin, a color phase draws k
 random bit-plane words per word (plane z holds random bit z of the 32
@@ -413,7 +416,7 @@ def bit1_sweep_reference(dst, src, src_up, src_dn, thr, row0, step,
 
 def _check_words(name, t, shape, device, fn: str = "bit1_sweep"):
     if t.device != device:
-        raise ValueError(f"{fn}: {name} is on {t.device}, dst on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != torch.int32:
         raise TypeError(f"{fn}: {name} must be torch.int32, got {t.dtype}")
     if tuple(t.shape) != shape:
@@ -553,6 +556,44 @@ def bit1_sweep(dst, src, src_up, src_dn, thr, row0, step, jplanes=None, *,
 bit1_sweep.launches = 0
 
 
+def bit1_decode(black, white, chunk: int = 8192):
+    """(black, white) (H, W1) int32 word planes -> their (H, 32*W1) uint8
+    bit planes, in unpack_bits1's layout.
+
+    On CUDA tensors one launch of csrc/bit1_decode.cu decodes both planes
+    on their device's current stream, with that device made current (a
+    slab's planes may lie on another GPU than the current one); a launch
+    that fails raises. On CPU tensors it returns unpack_rows of each,
+    `chunk` rows at a time. Counts launches in bit1_decode.launches.
+    """
+    with profiling.launch(bit1_decode, black):
+        if len(black.shape) != 2:
+            raise ValueError("bit1_decode: black must be an (H, W1) word "
+                             f"plane, got shape {tuple(black.shape)}")
+        H, W1 = tuple(black.shape)
+        device = black.device
+        _check_words("black", black, (H, W1), device, "bit1_decode")
+        _check_words("white", white, (H, W1), device, "bit1_decode")
+        if device.type == "cpu":
+            return unpack_rows(black, chunk), unpack_rows(white, chunk)
+        if device.type != "cuda":
+            raise ValueError(f"bit1_decode runs on cuda or cpu, not {device}")
+        out = tuple(torch.empty((H, SPW * W1), dtype=torch.uint8,
+                                device=device) for _ in range(2))
+        if H and W1:
+            lib, _ = kernel_lib.load()
+            with torch.cuda.device(device):
+                code = lib.bit1_decode_launch(
+                    black.data_ptr(), white.data_ptr(), out[0].data_ptr(),
+                    out[1].data_ptr(), H, W1, _cuda_stream(device))
+            kernel_lib.check(lib, code, "bit1_decode launch")
+            bit1_decode.launches += 1
+        return out
+
+
+bit1_decode.launches = 0
+
+
 class Bit1Backend:
     """Backend adapter: 1 bit per spin, bit-sliced sweep."""
 
@@ -606,9 +647,9 @@ class Bit1Backend:
         return pack_bits1(black_bits), pack_bits1(white_bits)
 
     def decode(self, black_store, white_store, chunk: int = 8192):
-        """uint8 bit planes, unpacked in row chunks (pallas_bit1.py:648)."""
-        return (unpack_rows(black_store, chunk),
-                unpack_rows(white_store, chunk))
+        """uint8 bit planes (pallas_bit1.py:648): bit1_decode, one kernel
+        launch on the card, unpacked in row chunks on the CPU."""
+        return bit1_decode(black_store, white_store, chunk)
 
     def storage_pack_supported(self, black_store) -> bool:
         """Whether the checkpoint can take its bytes straight from the

@@ -126,6 +126,11 @@ SIGNATURES = {
          _c.c_int, _c.c_int,                                  # ty tx
          _c.c_void_p],                                        # stream
         _c.c_int),
+    "bit1_decode_launch": (
+        [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,  # black white, outs
+         _c.c_int, _c.c_int,                                  # H, W1
+         _c.c_void_p],                                        # stream
+        _c.c_int),
     "ising_cuda_error_string": ([_c.c_int], _c.c_char_p),
 }
 

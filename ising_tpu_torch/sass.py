@@ -117,8 +117,8 @@ def functions(listing: str):
 
 
 # The port's kernels, by the stem of each kernel template's name.
-KERNELS = ("bit1_sweep", "bit1_planes", "packed_sweep", "packed_fused",
-           "dense_sweep", "mxu_sweep")
+KERNELS = ("bit1_sweep", "bit1_planes", "bit1_decode", "packed_sweep",
+           "packed_fused", "dense_sweep", "mxu_sweep")
 
 
 def kernel_key(name: str):

@@ -18,7 +18,9 @@ fused step shares; in the dense kernel the per-call sites, the row walk
 down a band with its three-row window (heights that cross and do not
 divide the band, the lone first and last rows, the slab's edge rows), the
 accept through one byte offset into the 64-word shared table, and the J
-planes) against their plain torch version before any card sees it. The
+planes; in bit1's decode the vector widths of 16 and 1 words a thread
+and planes that are not 16-byte aligned) against their plain torch version
+before any card sees it. The
 fused packed step (packed_fused.cu), whose threads meet at barriers, runs
 with one fiber a thread (FIBER_SHIM). mxu_sweep.cu (warp-wide mma.sync: a
 lane's sums come from all 32 lanes' operands, so one thread at a time
@@ -26,6 +28,7 @@ cannot run it) and cluster_label.cu are left out (NOT_EMULATED).
 The card itself checks the compiled kernels in chip_smoke.py.
 """
 
+import contextlib
 import ctypes
 import itertools
 import re
@@ -56,6 +59,11 @@ struct uint4 { uint32_t x, y, z, w; };
 struct uint2 { uint32_t x, y; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
+// Vector loads and stores off their size's alignment, a fault on the card.
+inline int emu_misaligned = 0;
+template <class T> inline bool emu_off(const T* p) { return reinterpret_cast<uintptr_t>(p) % sizeof(T); }
+template <class T> inline T __ldg(const T* p) { emu_misaligned += emu_off(p); return *p; }
+template <class T> inline void __stcs(T* p, T v) { emu_misaligned += emu_off(p); *p = v; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
   s &= 31; uint64_t v = ((uint64_t)hi << 32) | lo; return (uint32_t)((v << s) >> 32); }
@@ -193,8 +201,8 @@ FIBER_EDITS = (
 # kernel<T...><<<grid, block, smem, stream>>>(args)  ->  emulate_launch(grid, block, &kernel<T...>, args)
 LAUNCH = re.compile(r"(\w+(?:<[^<>]*>)?)<<<([^,>]+),\s*([^,>]+),[^>]*>>>\(")
 EMULATED_LAUNCH_SITES = {"bit1_sweep.cu": 1, "bit1_planes.cu": 1,
-                         "packed_sweep.cu": 1, "dense_sweep.cu": 1,
-                         "packed_fused.cu": 1}
+                         "bit1_decode.cu": 1, "packed_sweep.cu": 1,
+                         "dense_sweep.cu": 1, "packed_fused.cu": 1}
 # Sources whose threads meet at barriers, run by FIBER_SHIM: packed_fused.cu's
 # rings of rows refilled behind a barrier on every row (a thread computes
 # from rows the others copied or wrote) and its cp.async.
@@ -228,8 +236,8 @@ def emulated_lib(tmp_path_factory):
         if cu.name in NOT_EMULATED:
             continue
         src, n = LAUNCH.subn(r"emulate_launch(\2, \3, &\1, ", cu.read_text())
-        # the bit1 and packed kernels' one templated launch each; the dense
-        # kernel's words of four sites and of one
+        # the bit1, decode and packed kernels' one templated launch each;
+        # the dense kernel's words of four sites and of one
         assert n == EMULATED_LAUNCH_SITES[cu.name]
         sources.append(d / (cu.stem + ".cpp"))
         sources[-1].write_text(src)
@@ -602,6 +610,88 @@ def test_cases_cover_every_mode_and_accept():
     assert {c[1] for c in CASES} == set(PORTED_MODES)
     plane = {c[1] for c in CASES if c[2][1]}
     assert plane == {m for m in PORTED_MODES if plane_bits(m) or m == "hw"}
+
+
+def _past_boundary(a, misaligned: bool):
+    """A copy of `a` whose data lies 4 bytes past a 16-byte boundary where
+    `misaligned` (where a view's pointer can sit), else on one."""
+    n = a.size * a.itemsize
+    buf = np.empty(n + 32, np.uint8)
+    start = (4 * misaligned - buf.ctypes.data) % 16
+    view = buf[start:start + n].view(a.dtype).reshape(a.shape)
+    view[...] = a
+    return view
+
+
+class HostBytes:
+    """A numpy byte plane, filled with a pattern that no decoded byte (0 or
+    1) has, that the wrapper allocates in place of a CUDA tensor."""
+
+    def __init__(self, shape, misaligned: bool):
+        self.a = _past_boundary(np.full(shape, 0xA5, np.uint8), misaligned)
+
+    def data_ptr(self):
+        return self.a.ctypes.data
+
+
+# bit1's decode (csrc/bit1_decode.cu): W1 of 16 and 64 take 16 words a
+# thread, 1, 3, 4, 17 and 20 one; heights 1, 2, 5 and 8; the planes and
+# their outputs 16-byte aligned (the wide path) or not (one word a
+# thread).
+DECODE_WIDTHS = (1, 3, 4, 16, 17, 20, 64)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("W1", DECODE_WIDTHS)
+def test_decode_kernel_source_matches_unpack_bits1(W1, misaligned,
+                                                   emulated_lib, monkeypatch):
+    """Both planes through the real wrapper, byte for byte against
+    unpack_bits1, words with the sign bit set among them; no vector load
+    or store off its alignment."""
+    monkeypatch.setattr(kernel_lib, "load", lambda: (emulated_lib, None))
+    monkeypatch.setattr(bit1, "_cuda_stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    real_empty = torch.empty
+
+    def empty(shape, *, dtype, device):
+        if torch.device(device).type == "cuda":
+            assert dtype == torch.uint8
+            return HostBytes(shape, misaligned)
+        return real_empty(shape, dtype=dtype, device=device)
+
+    gen = np.random.default_rng(W1 * 2 + misaligned)
+    for H in (1, 2, 5, 8):
+        planes = [_random(gen, (H, W1)) for _ in range(2)]
+        planes[0][0, 0], planes[1][-1, -1] = 0x80000000, 0xFFFFFFFF
+        want = [bit1.unpack_bits1(_torch(p)).numpy() for p in planes]
+        black, white = (HostWords(_past_boundary(p, misaligned))
+                        for p in planes)
+        misaligned_ops = ctypes.c_int.in_dll(emulated_lib, "emu_misaligned")
+        misaligned_ops.value = 0
+        n0 = bit1.bit1_decode.launches
+        with monkeypatch.context() as m:
+            m.setattr(torch, "empty", empty)
+            got = bit1.bit1_decode(black, white)
+        assert bit1.bit1_decode.launches == n0 + 1
+        ptrs = [t.data_ptr() for t in (black, white, *got)]
+        assert all((q % 16 != 0) == misaligned for q in ptrs)
+        assert misaligned_ops.value == 0
+        for g, w, color in zip(got, want, ("black", "white")):
+            np.testing.assert_array_equal(
+                g.a, w, err_msg=f"{color} H={H} W1={W1} "
+                                f"misaligned={misaligned}")
+
+
+def test_decode_launcher_refuses_empty_planes(emulated_lib):
+    buf = np.full((2, 4), 0xFFFFFFFF, np.uint32)
+    out = np.zeros((2, 128), np.uint8)
+    p, o = buf.ctypes.data, out.ctypes.data
+    for H, W1 in ((0, 4), (2, 0), (-1, 4)):
+        assert emulated_lib.bit1_decode_launch(p, p, o, o, H, W1, None) != 0
+    assert not out.any()
+    assert emulated_lib.bit1_decode_launch(p, p, o, o, 2, 4, None) == 0
+    assert (out == 1).all()
 
 
 NO_LINKS = (None, None, None, None, 0, 0, 0)

@@ -175,6 +175,8 @@ def test_decode_and_tile_sums_of_the_replicas():
     tiles, = _named("tile_sums")
     assert decode.device == tiles.device == torch.device("cpu")
     assert decode.device_s is None and tiles.device_s is None
+    unpack, = [s for s in _named("launch") if s.parent is decode]
+    assert unpack.counts == {"kernel": "bit1_decode", "launches": 0}
 
 
 def test_the_record_is_bounded(monkeypatch):
@@ -222,12 +224,17 @@ def test_device_events_and_launches_on_the_card():
     torch.cuda.synchronize(dev)
     advance, = _named("advance")
     assert advance.counts["launches"] == bit1.bit1_sweep.launches - n0 == 8
+    sweeps = [s for s in _named("launch") if s.parent is advance]
+    assert len(sweeps) == 8
     assert all(s.counts == {"kernel": "bit1_sweep", "launches": 1}
-               and s.device == dev and s.events is None
-               for s in _named("launch"))
+               and s.device == dev and s.events is None for s in sweeps)
     for name in ("count", "decode", "tile_sums"):
         s, = _named(name)
         assert s.device == dev and s.device_s > 0, name
+    decode, = _named("decode")
+    unpack, = [s for s in _named("launch") if s.parent is decode]
+    assert unpack.counts == {"kernel": "bit1_decode", "launches": 1}
+    assert decode.counts == {"launches": 1}
     assert _named("wait")[0].device_s is None
     assert int(ups.sum()) == sim.measure()["up"]
 
