@@ -1,5 +1,9 @@
-"""What decides a run's `correct`: its states and answers against the plain
-reference (reference/ising.py), which follows the program step by step.
+"""What decides a run's `correct` where the configuration names no check of
+its own: its states and answers against the plain reference
+(reference/ising.py, checkerboard Metropolis), which follows the program
+step by step. The harness calls it as it calls a configuration's
+checks/<name>.py: `LIMITS`, `follow`, `final` and `verdict` (harness.py
+says what each is asked); the functions below them do the work.
 
 A run of the full cell is thousands of steps of a lattice of up to 2^34
 spins: a plain reference cannot redo it in a window's time. So the check
@@ -33,6 +37,8 @@ bits or integers: each limit is 0.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -233,3 +239,48 @@ def check_last_answer(sim, cfg, storage, judge, answer):
             partials.append(judge.partial(storage.decode(b[a:e], w[a:e],
                                                          rows), cfg))
     return judge.diffs(answer, partials, cfg)
+
+
+@dataclasses.dataclass
+class Follower:
+    """What the band check keeps of a run: the bands' snapshots, the
+    reference's configuration, and the readers of the storage and of the
+    traffic's answers."""
+    snaps: Snapshots
+    want: object
+    storage: object
+    judge: object
+
+    def add(self, m: int, sim):
+        self.snaps.add(m, sim)
+
+
+def follow(cell, want, sim, root):
+    """The bands of the program's state, fixed from the run's seed, with
+    the storage reader of the configuration's backend and the answer reader
+    of the traffic's call, both found by name under root."""
+    from .harness import load   # the harness imports this module
+    traffic = cell.traffic
+    storage = load(root, "reference", f"storage_{want.backend}")
+    judge = load(root, "reference", f"answer_{traffic['call']}")
+    snaps = Snapshots(Bands(want, traffic["every"], want.seed), sim,
+                      traffic["check_intervals"], want.seed)
+    return Follower(snaps, want, storage, judge)
+
+
+def final(follower: Follower, sim, answers) -> dict:
+    """The last answer against the program's final words."""
+    f = follower
+    return {"answer_diffs": check_last_answer(sim, f.want, f.storage,
+                                              f.judge, answers[-1])}
+
+
+def verdict(follower: Follower, final: dict, answers, device) -> dict:
+    """The followed bands' counts, with those of `final` added."""
+    f = follower
+    found = check_bands(f.snaps, answers, f.storage, f.judge,
+                        rng=f.want.rng, seed=f.want.seed,
+                        temp=f.want.temperature, device=device)
+    for k, v in final.items():
+        found[k] += v
+    return found

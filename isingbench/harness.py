@@ -3,20 +3,55 @@
 A cell of BENCHMARK.json names a configuration (configs/<name>.json: the
 SimConfig fields of ising_tpu_torch, the wrappers that count the
 kernels' launches, and what the deployment is) and a traffic mix
-(traffic/<name>.json: which of the Simulation's measurements the user's
+(traffic/<name>.json: which of the program's measurements the user's
 job reads, and every how many steps). Its metrics are read by
 metrics/<name>.py, each a `read(run)` of the Run record below that
-returns a number, or None where it finds nothing to read. The reference
-reads the configuration's storage with reference/storage_<backend>.py and
-judges the traffic's answers with reference/answer_<call>.py. A mix that
+returns a number, or None where it finds nothing to read. A mix that
 dispatches its measurements ahead (its `ahead`) splits its call in two
 with calls/<call>.py. All of these are found by name, so a new cell or
 metric is new files.
 
-The window drives the program's own entry points: `Simulation.advance`
-(the step loop, parallel/sharded.py, and the kernels), `Simulation.block`,
-and the traffic's measurement call. The harness keeps its own spans around
-each call and puts nothing inside the program.
+A configuration may also name, each key optional:
+
+* "program": the dotted path of the class that the harness builds as
+  `cls(cfg, mesh=mesh)` (cfg: a SimConfig of the configuration's fields
+  and the run's seed). Where it names none, the program is
+  ising_tpu_torch.driver.Simulation, checkerboard Metropolis. The harness
+  asks of a program only `advance(n)` (n steps or updates, enqueued),
+  `block()` (wait for the devices), `step` (the steps done), `cfg`,
+  `mesh` (its devices, or None for one), `device` and the traffic's call.
+  ising_tpu_torch.cluster.SwendsenWang meets it too. A path that does not
+  import, or names no class, ends the run before set-up with a message
+  that names the key.
+* "check": the name of checks/<name>.py, the module that decides
+  `correct` for it. Where it names none, check.py's band check decides:
+  it follows the program with reference/ising.py (checkerboard
+  Metropolis), reads the storage with reference/storage_<backend>.py and
+  judges the answers with reference/answer_<call>.py. Either module
+  has the same surface, which the harness calls the same way:
+  - `LIMITS`: {name: limit} of the numbers it compares, each limit
+    declared beside its reason in the module;
+  - `follow(cell, want, sim, root)`: a follower, made in set-up from the
+    program's start (measurement 0), whose `add(m, sim)` takes the
+    program's state at measurement m (1 the warm-up's end, then one a
+    window's interval) into buffers it made at the start; `want` is the
+    reference's SimConfig (the configuration's, with the run's seed,
+    never the overrides). It keeps no reference to the program;
+  - `final(follower, sim, answers)`: {name: count} of what is judged on
+    the program's final state, while the program lives;
+  - `verdict(follower, final, answers, device)`: every name of LIMITS
+    with its count, and `steps_checked`, worked out after the program and
+    its memory are freed, on `device`.
+  A run is correct where every count is within its limit and
+  steps_checked > 0.
+* its cut for the CPU tests: tests/tiny/configs/<name>.json, the keys it
+  changes to run at a tiny size (tests/tiny/traffic/<name>.json for a
+  traffic mix). A configuration without one is skipped there.
+
+The window drives the program's own entry points: `advance` (the step
+loop and the kernels), `block`, and the traffic's measurement call. The
+harness keeps its own spans around each call and puts nothing inside the
+program.
 """
 
 from __future__ import annotations
@@ -39,6 +74,9 @@ from . import trace as tr
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "isingbench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "ising_tpu")
+# The folders whose modules the harness finds by name.
+FOLDERS = ("metrics", "reference", "calls", "checks")
+DEFAULT_PROGRAM = "ising_tpu_torch.driver.Simulation"
 
 
 @dataclasses.dataclass
@@ -83,6 +121,34 @@ def load(root: Path, folder: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def program_class(config: dict):
+    """The class the configuration's "program" names, Simulation where it
+    names none."""
+    path = config.get("program", DEFAULT_PROGRAM)
+    module, _, name = path.rpartition(".")
+    try:
+        cls = getattr(importlib.import_module(module), name)
+    except (ImportError, AttributeError, ValueError) as e:
+        raise SystemExit(f'configuration key "program": {path!r} does not '
+                         f"import ({type(e).__name__}: {e})") from e
+    if not isinstance(cls, type):
+        raise SystemExit(f'configuration key "program": {path!r} names no '
+                         "class")
+    return cls
+
+
+def check_of(config: dict, root: Path):
+    """The module that decides `correct`: checks/<name>.py where the
+    configuration's "check" names one, else check.py's band check."""
+    name = config.get("check")
+    if name is None:
+        return check
+    if not (root / PKG / "checks" / f"{name}.py").is_file():
+        raise SystemExit(f'configuration key "check": no '
+                         f"{PKG}/checks/{name}.py")
+    return load(root, "checks", name)
 
 
 @dataclasses.dataclass
@@ -263,9 +329,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     traffic = cell.traffic
     every, call, span_name = (traffic["every"], traffic["call"],
                               traffic["span"])
-    want = build_config(cell.config, device)
+    want = build_config(cell.config, device, {"seed": seed})
     cfg = build_config(cell.config, device, dict(overrides or {}, seed=seed))
-    from ising_tpu_torch.driver import Simulation
+    program = program_class(cell.config)
+    checker = check_of(cell.config, root)
 
     t_build = time.perf_counter()
     cuda = torch.device(device).type == "cuda"
@@ -273,12 +340,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         for d in mesh or [torch.device("cuda", i) for i in range(cfg.ndev)]:
             torch.zeros(1, device=d)   # the device's allocator, set up
             torch.cuda.reset_peak_memory_stats(d)
-    sim = Simulation(cfg, mesh=mesh)
+    sim = program(cfg, mesh=mesh)
     devs = devices_of(sim)
-    storage = load(root, "reference", f"storage_{cfg.backend}")
-    judge = load(root, "reference", f"answer_{call}")
-    snaps = check.Snapshots(check.Bands(cfg, every, seed), sim,
-                            traffic["check_intervals"], seed)
+    follower = checker.follow(cell, want, sim, root)
     spans = Spans(launch_counters(cell.config))
     observe = getattr(sim, call)
     answers, result_times = [], []
@@ -293,12 +357,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         spans("advance", lambda: sim.advance(every))
         if ahead:
             ahead.issue()
-            snaps.add(m, sim)
+            follower.add(m, sim)
             return None
         spans("sync", sim.block)
         answers.append(spans(span_name, observe))
         t = time.perf_counter()
-        snaps.add(m, sim)
+        follower.add(m, sim)
         return t
 
     t_warm = time.perf_counter()
@@ -317,7 +381,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         ahead.start = Mark(ahead.device)
     setup_s = t0 - t_start
     log(f"[isingbench] {workload} seed {seed}: set-up {setup_s:.3f} s "
-        f"(imports {t_build - t_start:.3f}, the Simulation "
+        f"(imports {t_build - t_start:.3f}, the program "
         f"{t_warm - t_build:.3f}, the warm-up {t0 - t_warm:.3f})")
     if trace:
         prof = torch.profiler.profile(activities=_activities(cuda))
@@ -377,17 +441,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         f"{run.intervals} measurements; checking")
 
     t_check = time.perf_counter()
-    diffs = check.check_last_answer(sim, want, storage, judge, answers[-1])
+    final = checker.final(follower, sim, answers)
     ref_device = devs[0]
     del sim, observe, ahead
     if cuda:
         torch.cuda.empty_cache()
-    found = check.check_bands(snaps, answers, storage, judge, rng=want.rng,
-                              seed=seed, temp=want.temperature,
-                              device=ref_device)
-    found["answer_diffs"] += diffs
+    found = checker.verdict(follower, final, answers, ref_device)
     checks = {k: {"value": found[k], "limit": v}
-              for k, v in check.LIMITS.items()}
+              for k, v in checker.LIMITS.items()}
     correct = (all(c["value"] <= c["limit"] for c in checks.values())
                and found["steps_checked"] > 0)
     log(f"[isingbench] check {time.perf_counter() - t_check:.3f} s, "
